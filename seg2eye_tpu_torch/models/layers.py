@@ -1,0 +1,169 @@
+"""Shared building blocks (counterpart of ``seg2eye_tpu/models/layers.py``).
+
+  * ``SpectralConv`` keeps torch's spectral-norm state names:
+    ``weight_orig`` (a parameter) and ``weight_u``/``weight_v`` (buffers),
+    and divides by ``sigma = u . (W.view(O,-1) @ v)``.  At inference the
+    stored (u, v) pair is used as it is: there is no power iteration, as in
+    the JAX package with ``update_stats=False``.  ``torch.nn.utils.
+    spectral_norm`` is not used because its hook power-iterates on every
+    forward in train mode.
+  * ``instance_norm`` is torch ``InstanceNorm2d(affine=False)``: biased
+    statistics over (H, W), eps 1e-5, computed in at least float32.
+  * ``FCStyle`` is the StyleGAN FC layer: linear in float32, LeakyReLU(0.2).
+  * Initialisers follow the JAX package: xavier-normal with torch's fan
+    convention (the fan includes the receptive field), the He init for
+    ``FCStyle``, zero biases, and a random normalised spectral ``u`` with
+    ``v = normalize(W^T u)``.
+
+Activations are NCHW tensors; the convolutions run in the compute dtype of
+their input, with float32 parameters cast at the call.
+"""
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+EPS = 1e-5
+
+
+def at_least_f32(x: torch.Tensor) -> torch.Tensor:
+    """Widen bf16 to f32; keep f32 and f64."""
+    return x.to(torch.promote_types(x.dtype, torch.float32))
+
+
+def _torch_fans(shape) -> Tuple[int, int]:
+    """fan_in/fan_out of an OIHW conv weight or an (out, in) linear weight."""
+    receptive = 1
+    for s in shape[2:]:
+        receptive *= s
+    return shape[1] * receptive, shape[0] * receptive
+
+
+@torch.no_grad()
+def xavier_normal_(w: torch.Tensor, gain: float,
+                   generator: torch.Generator) -> torch.Tensor:
+    fan_in, fan_out = _torch_fans(w.shape)
+    return w.normal_(0.0, gain * (2.0 / (fan_in + fan_out)) ** 0.5,
+                     generator=generator)
+
+
+@torch.no_grad()
+def he_fc_(w: torch.Tensor, gain: float,
+           generator: torch.Generator) -> torch.Tensor:
+    """StyleGAN FC init: randn * gain * fan_in^-0.5."""
+    fan_in, _ = _torch_fans(w.shape)
+    return w.normal_(0.0, gain * fan_in ** -0.5, generator=generator)
+
+
+def weight_init(init_type: str, gain: float):
+    """-> an in-place initialiser ``f(weight, generator)`` for conv and
+    linear weights.  Only the default 'xavier' scheme is ported."""
+    if init_type == "xavier":
+        return lambda w, generator: xavier_normal_(w, gain, generator)
+    raise NotImplementedError(
+        f"initialization method [{init_type}] is not ported yet")
+
+
+def _l2_normalize(v: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
+    return v / (torch.linalg.vector_norm(v) + eps)
+
+
+def instance_norm(x: torch.Tensor, eps: float = EPS) -> torch.Tensor:
+    """Param-free instance norm over (H, W) of an NCHW tensor."""
+    x32 = at_least_f32(x)
+    var, mean = torch.var_mean(x32, dim=(2, 3), keepdim=True, correction=0)
+    return ((x32 - mean) * torch.rsqrt(var + eps)).to(x.dtype)
+
+
+def parse_nonspade_norm(norm_type: str) -> Tuple[bool, str]:
+    """'spectralinstance' -> (spectral=True, 'instance')."""
+    spectral = norm_type.startswith("spectral")
+    sub = norm_type[len("spectral"):] if spectral else norm_type
+    if sub not in ("", "none", "instance", "batch"):
+        raise ValueError(f"normalization layer {sub} is not recognized")
+    return spectral, sub
+
+
+class SubNorm(nn.Module):
+    """The norm after an encoder conv: param-free instance norm or none.
+    The affine 'batch' variant is not ported yet."""
+
+    def __init__(self, sub: str = "instance"):
+        super().__init__()
+        if sub == "batch":
+            raise NotImplementedError(
+                "the 'batch' sub-norm (norm_E='spectralbatch') is not "
+                "ported yet")
+        if sub not in ("", "none", "instance"):
+            raise ValueError(sub)
+        self.sub = sub
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return instance_norm(x) if self.sub == "instance" else x
+
+
+class SpectralConv(nn.Module):
+    """Conv2d with optional spectral normalisation, torch parameter names."""
+
+    def __init__(self, in_ch: int, out_ch: int, k: int, stride: int = 1,
+                 padding: int | None = None, bias: bool = True,
+                 spectral: bool = True):
+        super().__init__()
+        self.stride = stride
+        self.padding = k // 2 if padding is None else padding
+        self.spectral = spectral
+        w = nn.Parameter(torch.zeros(out_ch, in_ch, k, k))
+        if spectral:
+            self.weight_orig = w
+            self.register_buffer("weight_u", torch.zeros(out_ch))
+            self.register_buffer("weight_v", torch.zeros(in_ch * k * k))
+        else:
+            self.weight = w
+        self.bias = nn.Parameter(torch.zeros(out_ch)) if bias else None
+
+    def kernel(self) -> torch.Tensor:
+        if not self.spectral:
+            return self.weight
+        w = self.weight_orig
+        sigma = torch.dot(self.weight_u, w.reshape(w.shape[0], -1)
+                          @ self.weight_v)
+        return w / sigma
+
+    @torch.no_grad()
+    def reset_parameters(self, init, generator: torch.Generator) -> None:
+        w = self.weight_orig if self.spectral else self.weight
+        init(w, generator)
+        if self.bias is not None:
+            self.bias.zero_()
+        if self.spectral:
+            u = torch.empty_like(self.weight_u).normal_(generator=generator)
+            u = _l2_normalize(u)
+            self.weight_u.copy_(u)
+            self.weight_v.copy_(_l2_normalize(w.reshape(w.shape[0], -1).T @ u))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        bias = None if self.bias is None else self.bias.to(x.dtype)
+        return F.conv2d(x, self.kernel().to(x.dtype), bias,
+                        self.stride, self.padding)
+
+
+class FCStyle(nn.Module):
+    """StyleGAN 'FC' layer: float32 linear + LeakyReLU(0.2)."""
+
+    def __init__(self, in_features: int, out_features: int,
+                 gain: float = 1.0):
+        super().__init__()
+        self.gain = gain
+        self.linear = nn.Linear(in_features, out_features)
+
+    @torch.no_grad()
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        he_fc_(self.linear.weight, self.gain, generator)
+        self.linear.bias.zero_()
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = F.linear(at_least_f32(x), self.linear.weight, self.linear.bias)
+        return F.leaky_relu(y, 0.2).to(x.dtype)

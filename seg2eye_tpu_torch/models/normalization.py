@@ -1,0 +1,125 @@
+"""SPADE+Style conditional norm blocks (counterpart of
+``seg2eye_tpu/models/normalization.py``).
+
+  * ``SpadeStyleBlock``: (SPADE(x, seg) + AdaIN(x, w)) / 2.  The block owns
+    the parameters, under the reference's names, and the normalisation
+    statistics; the modulation is one call to ``ops.spade_style.spade_style``
+    (the CUDA kernel for CUDA tensors).
+  * Param-free batch statistics are biased, over (N, H, W), in float32;
+    the running statistics are used only when asked
+    (``use_running_average``, from ``opt.eval_use_running_stats``).  This
+    slice runs inference only, so the running statistics are never updated.
+"""
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from seg2eye_tpu_torch.models.layers import FCStyle, SpectralConv, at_least_f32
+from seg2eye_tpu_torch.ops.spade_style import (NHIDDEN, PackedWeights,
+                                               spade_style)
+
+
+def parse_norm_g(norm_g: str) -> Tuple[bool, str, int]:
+    """'spectralspadebatch3x3' -> (spectral=True, param_free='batch', ks=3)."""
+    spectral = "spectral" in norm_g
+    cfg = norm_g.replace("spectral", "")
+    if not cfg.startswith("spade"):
+        raise ValueError(f"norm_G must name a spade norm, got {norm_g!r}")
+    rest = cfg[len("spade"):]
+    ks = int(rest[-3])
+    param_free = rest[:-3]
+    return spectral, param_free, ks
+
+
+class _SPADE(nn.Module):
+    """Parameter holder with the reference's SPADE names:
+    ``mlp_shared.0``, ``mlp_gamma``, ``mlp_beta``, ``param_free_norm``."""
+
+    def __init__(self, param_free: str, norm_nc: int, label_nc: int):
+        super().__init__()
+        if param_free == "batch":
+            # running_mean / running_var / num_batches_tracked buffers only;
+            # the statistics are computed in SpadeStyleBlock.forward
+            self.param_free_norm = nn.BatchNorm2d(norm_nc, affine=False)
+        elif param_free == "instance":
+            self.param_free_norm = nn.InstanceNorm2d(norm_nc, affine=False)
+        else:
+            raise ValueError(f"param-free norm {param_free!r}")
+        self.mlp_shared = nn.Sequential(
+            nn.Conv2d(label_nc, NHIDDEN, 3, padding=1), nn.ReLU())
+        self.mlp_gamma = nn.Conv2d(NHIDDEN, norm_nc, 3, padding=1)
+        self.mlp_beta = nn.Conv2d(NHIDDEN, norm_nc, 3, padding=1)
+
+
+class SpadeStyleBlock(nn.Module):
+    def __init__(self, param_free: str, norm_nc: int, label_nc: int,
+                 w_dim: int, ks: int = 3):
+        super().__init__()
+        if ks != 3:
+            raise ValueError("the fused norm implements the default 3x3 SPADE")
+        self.param_free = param_free
+        self.spade = _SPADE(param_free, norm_nc, label_nc)
+        self.adain = FCStyle(w_dim, 2 * norm_nc, gain=1.0)
+        self.packed = PackedWeights()      # the kernel's weight layout
+
+    def forward(self, x: torch.Tensor, seg: torch.Tensor, w: torch.Tensor,
+                use_running_average: bool = False) -> torch.Tensor:
+        """x: (N,C,H,W) channels_last; seg: (N,S,H,W); w: (N,w_dim)."""
+        n, c = x.shape[:2]
+        style = self.adain(at_least_f32(w))                       # (N, 2C)
+        if self.param_free == "batch":
+            pfn = self.spade.param_free_norm
+            if use_running_average:
+                mean, var = pfn.running_mean, pfn.running_var
+            else:
+                var, mean = torch.var_mean(at_least_f32(x), dim=(0, 2, 3),
+                                           correction=0)
+            mean_nc, var_nc = mean.expand(n, c), var.expand(n, c)
+        else:
+            var_nc, mean_nc = torch.var_mean(at_least_f32(x), dim=(2, 3),
+                                             correction=0)
+        s = self.spade
+        out = spade_style(
+            x.permute(0, 2, 3, 1), seg.permute(0, 2, 3, 1).to(x.dtype), style,
+            mean_nc, var_nc,
+            s.mlp_shared[0].weight, s.mlp_shared[0].bias,
+            s.mlp_gamma.weight, s.mlp_gamma.bias,
+            s.mlp_beta.weight, s.mlp_beta.bias, packed=self.packed)
+        return out.permute(0, 3, 1, 2)
+
+
+class SpadeStyleResnetBlock(nn.Module):
+    """ResNet block with SPADE+Style norms (reference architecture.py:13-62)."""
+
+    def __init__(self, fin: int, fout: int, semantic_nc: int, w_dim: int,
+                 spectral: bool = True, param_free: str = "batch",
+                 ks: int = 3):
+        super().__init__()
+        fmiddle = min(fin, fout)
+        self.learned_shortcut = fin != fout
+
+        def norm(ch):
+            return SpadeStyleBlock(param_free, ch, semantic_nc, w_dim, ks)
+
+        self.conv_0 = SpectralConv(fin, fmiddle, 3, spectral=spectral)
+        self.conv_1 = SpectralConv(fmiddle, fout, 3, spectral=spectral)
+        self.norm_0 = norm(fin)
+        self.norm_1 = norm(fmiddle)
+        if self.learned_shortcut:
+            self.conv_s = SpectralConv(fin, fout, 1, bias=False,
+                                       spectral=spectral)
+            self.norm_s = norm(fin)
+
+    def forward(self, x, seg, w, use_running_average: bool = False):
+        def norm(layer, t):
+            return layer(t, seg, w, use_running_average)
+
+        x_s = (self.conv_s(norm(self.norm_s, x)) if self.learned_shortcut
+               else x)
+        dx = self.conv_0(F.leaky_relu(norm(self.norm_0, x), 0.2))
+        dx = self.conv_1(F.leaky_relu(norm(self.norm_1, dx), 0.2))
+        return x_s + dx
