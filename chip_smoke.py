@@ -6,12 +6,16 @@
 Phases; any failure raises and the script exits non-zero:
   1. device: a CUDA card is required; prints its name and power limit
      (nvidia-smi) and the torch / CUDA versions;
-  2. build: compiles the CUDA kernels from the checkout's sources;
-  3. kernel: the fused SPADE+Style kernel against its plain PyTorch version
-     at all 18 generator norm-site shapes of the default model (crop 256,
-     batch 16, the shapes the slice gives it) and an odd tile, in float32
-     and bfloat16, one gradient, and each site timed against the plain
-     version with CUDA events;
+  2. build: compiles the CUDA kernels from the checkout's sources; prints
+     ptxas's report and the HGMMA/FFMA counts of each kernel's SASS, and
+     fails if the bfloat16 kernel has no HGMMA (tensor-core) instruction;
+  3. kernel: the fused SPADE+Style kernels (bfloat16: tensor cores,
+     float32: FFMA) against their plain PyTorch version at all 18
+     generator norm-site shapes of the default model (crop 256, batch 16,
+     the shapes the slice gives it) and two odd shapes, then at the 18
+     crop-512 site shapes (batch 2, correctness only), one gradient; at
+     each crop-256 site the kernel, its plain version and one cuDNN conv
+     (library_ms) timed in turns with CUDA events, beside the bound;
   4. slice: scored inference (Tester.score_batch: encode, generate, resize
      to 640x400, truncate, per-image error) at the full width of the
      default model, seeded random weights, batch 16, in bfloat16 and
@@ -22,7 +26,7 @@ Phases; any failure raises and the script exits non-zero:
      weights.  Nothing of JAX or of the JAX package may have been imported.
 Float32 comparisons run with TF32 off for cuDNN and matmul, so that both
 sides compute in full float32.  The last two lines are the kernel summary
-and the result, each one JSON object.
+(one entry per kernel) and the result, each one JSON object.
 """
 import contextlib
 import json
@@ -33,6 +37,7 @@ import time
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 BATCH = 16                 # scored-inference batch
 SITE_N = BATCH             # batch of the per-site kernel checks
@@ -45,6 +50,7 @@ GRAD_TOL = 5e-4
 # two ulps of the output (2^-6 relative) plus the gamma/beta rounding times
 # |normalized x| (about 4 * 4 * 2^-9 < 2^-5 absolute at these inputs).
 BF16_RTOL, BF16_ATOL = 2.0 ** -6, 2.0 ** -5
+TOLS = {"float32": (F32_TOL, F32_TOL), "bfloat16": (BF16_RTOL, BF16_ATOL)}
 CARD_VS_CPU_ATOL = 1e-3
 # kernel route against plain route through the whole bs16 slice: (fake
 # atol, per-image error rtol).  float32 (TF32 off): both sum in float32 in
@@ -62,7 +68,12 @@ SITES = ([(10, 8, 1024)] * 2 + [(20, 16, 1024)] * 4
          + [(80, 64, 512)] * 2 + [(80, 64, 256)]
          + [(160, 128, 256)] * 2 + [(160, 128, 128)]
          + [(320, 256, 128)] * 2 + [(320, 256, 64)])
-ODD_SITE = (1, 10, 8, 16)  # (N, H, W, C)
+ODD_SITES = [(1, 10, 8, 16), (2, 13, 7, 72)]  # (N, H, W, C), ragged tiles
+CROP512_N = 2
+# the H100 SXM's published dense peaks (NVIDIA's data sheet, at 700 W)
+PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
+PEAK_BYTES = 3.35e12
+DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
 
 def log(*args):
@@ -97,11 +108,26 @@ def phase_build():
     lib_path = _build.build()
     _build.library()
     log(f"build: {time.perf_counter() - t0:.2f} s -> {lib_path}")
-    report = (lib_path.parent / "ptxas.txt")
+    report = lib_path.parent / "ptxas.txt"
     if report.exists():
         for line in report.read_text().splitlines():
-            if "registers" in line or "spill" in line:
+            if any(k in line for k in ("registers", "spill", "Performance",
+                                       "setmaxnreg")):
                 log("  ptxas:", line.replace("ptxas info    :", "").strip())
+    counts = json.loads((lib_path.parent / "sass_counts.json").read_text())
+    kernels = {"bfloat16": "spade_style_sm90_kernel",
+               "float32": "spade_style_kernel"}
+    for dtype, name in kernels.items():
+        mangled = f"{len(name)}{name}"        # an Itanium-mangled identifier
+        found = {k: v for k, v in counts.items() if mangled in k}
+        if not found:
+            raise AssertionError(f"no {name} in the library's SASS")
+        for symbol, ops in found.items():
+            log(f"  SASS of the {dtype} kernel {symbol}: "
+                + ", ".join(f"{op} {n}" for op, n in ops.items()))
+            if dtype == "bfloat16" and not ops["HGMMA"]:
+                raise AssertionError(f"{symbol} has no HGMMA instruction: "
+                                     "it does not use the tensor cores")
 
 
 # ---------------------------------------------------------------- phase 3
@@ -133,22 +159,35 @@ def check_close(name, got, want, rtol, atol):
     return float(err.max()), worst
 
 
-def time_pair(fn_a, fn_b, args):
-    """Median ms of fn_a and fn_b, timed in turns with CUDA events."""
+def time_turns(fns):
+    """Median ms of each no-argument function, timed in turns with CUDA
+    events."""
     for _ in range(WARMUP):
-        fn_a(*args)
-        fn_b(*args)
-    times = ([], [])
+        for fn in fns:
+            fn()
+    times = [[] for _ in fns]
     for _ in range(REPEATS):
-        for fn, acc in ((fn_a, times[0]), (fn_b, times[1])):
+        for fn, acc in zip(fns, times):
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
             start.record()
-            fn(*args)
+            fn()
             end.record()
             end.synchronize()
             acc.append(start.elapsed_time(end))
-    return statistics.median(times[0]), statistics.median(times[1])
+    return [statistics.median(t) for t in times]
+
+
+def site_bound(shape, dname):
+    """(ms of the operations, ms of the bytes) at the card's peaks for the
+    kernel's work at this site: the gamma|beta products at the rate of the
+    type, and x read, out written, actv and the weights read once, at the
+    memory rate.  The bound is the larger of the two."""
+    n, h, w, c = shape
+    item = DTYPES[dname].itemsize
+    flops = 2 * n * h * w * 9 * 128 * 2 * c
+    nbytes = n * h * w * (2 * c + 128) * item + 9 * 128 * 2 * c * item
+    return flops / PEAK_FLOPS[dname] * 1e3, nbytes / PEAK_BYTES * 1e3
 
 
 def phase_kernel():
@@ -156,39 +195,90 @@ def phase_kernel():
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     summary = {}
-    for dtype, rtol, atol in ((torch.float32, F32_TOL, F32_TOL),
-                              (torch.bfloat16, BF16_RTOL, BF16_ATOL)):
-        dname = str(dtype).replace("torch.", "")
+    for dname in ("float32", "bfloat16"):
+        dtype, (rtol, atol) = DTYPES[dname], TOLS[dname]
         log(f"kernel vs plain, {dname}, tolerance |err| <= {atol:.3g} + "
-            f"{rtol:.3g} * |plain|")
-        log("  site  (N, H, W, C)            max_abs_err  err/tol  "
-            "kernel_ms  plain_ms  kernel_TFLOP/s")
-        max_err, k_ms, p_ms = 0.0, 0.0, 0.0
-        shapes = [ODD_SITE] + [(SITE_N, *s) for s in SITES]
-        for i, shape in enumerate(shapes):
+            f"{rtol:.3g} * |plain|; times in ms: the kernel alone, its plain "
+            "version (from actv), one cuDNN conv of the same product "
+            "(library), the bound; site = seg conv + kernel, as the slice "
+            "runs it, against spade_style_reference")
+        log("  site  (N, H, W, C)         max_abs_err  err/tol    kernel   "
+            "plain  library    bound  by   %bound  TFLOP/s    site  "
+            "site_plain")
+        tot = dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0, library_ms=0.0,
+                   bound_ms=0.0, site_ms=0.0, site_plain_ms=0.0,
+                   bound_ops_ms=0.0, bound_bytes_ms=0.0)
+        for i, shape in enumerate(ODD_SITES + [(SITE_N, *s) for s in SITES]):
             args = site_inputs(*shape, dtype, gen)
             got = K.spade_style(*args)
             want = K.spade_style_reference(*args)
             torch.cuda.synchronize()
             err, worst = check_close(f"{dname} {shape}", got, want, rtol, atol)
-            max_err = max(max_err, err)
-            kms, pms = time_pair(K.spade_style, K.spade_style_reference, args)
+            tot["max_abs_err"] = max(tot["max_abs_err"], err)
+            x, seg, style, mean, var, ws, bs, wg, bg, wb, bb = args
+            actv = K.seg_mlp_shared(seg.to(dtype), ws, bs).contiguous()
+            wcat, bcat = K.pack_weights(wg, bg, wb, bb, dtype)
+            actv_nchw = actv.permute(0, 3, 1, 2)          # channels_last
+            w_lib = torch.cat([wg, wb]).to(dtype).contiguous(
+                memory_format=torch.channels_last)
+            b_lib = torch.cat([bg, bb]).to(dtype)
+            packed = K.PackedWeights()
+            kms, pms, lms, sms, spms = time_turns([
+                lambda: K.spade_style_cuda(x, actv, style, mean, var,
+                                           wcat, bcat),
+                lambda: K.spade_style_from_actv(x, actv, style, mean, var,
+                                                wg, bg, wb, bb),
+                lambda: F.conv2d(actv_nchw, w_lib, b_lib, padding=1),
+                lambda: K.spade_style(*args, packed=packed),
+                lambda: K.spade_style_reference(*args)])
+            ops_ms, bytes_ms = site_bound(shape, dname)
+            bms = max(ops_ms, bytes_ms)
+            by = "operations" if ops_ms >= bytes_ms else "bytes"
             n, h, w, c = shape
             tflops = 2 * n * h * w * 9 * 128 * 2 * c / (kms * 1e-3) / 1e12
-            label = "odd" if i == 0 else f"{i:4d}"
-            log(f"  {label}  {str(shape):24s} {err:11.3e}  {worst:7.3f}  "
-                f"{kms:9.4f}  {pms:8.4f}  {tflops:8.2f}")
-            if i > 0:
-                k_ms += kms
-                p_ms += pms
+            label = "odd" if i < len(ODD_SITES) else f"{i - 1:4d}"
+            log(f"  {label}  {str(shape):22s} {err:11.3e}  {worst:7.3f} "
+                f"{kms:8.4f} {pms:7.4f} {lms:8.4f} {bms:8.4f}  "
+                f"{by[:3]}  {100 * bms / kms:6.1f}  {tflops:7.1f} "
+                f"{sms:7.4f} {spms:8.4f}")
+            if i >= len(ODD_SITES):
+                for key, v in (("ms", kms), ("plain_ms", pms),
+                               ("library_ms", lms), ("bound_ms", bms),
+                               ("site_ms", sms), ("site_plain_ms", spms),
+                               ("bound_ops_ms", ops_ms),
+                               ("bound_bytes_ms", bytes_ms)):
+                    tot[key] += v
+            del args, got, want, actv, wcat, actv_nchw, packed
+        tot["bound_by"] = ("operations" if tot.pop("bound_ops_ms")
+                           >= tot.pop("bound_bytes_ms") else "bytes")
+        log(f"  18 sites at N={SITE_N}, {dname} (sums of per-site medians): "
+            f"kernel {tot['ms']:.4f} ms, plain {tot['plain_ms']:.4f}, "
+            f"library {tot['library_ms']:.4f}, bound {tot['bound_ms']:.4f} "
+            f"({tot['bound_by']}), {100 * tot['bound_ms'] / tot['ms']:.1f}% "
+            f"of the bound; site {tot['site_ms']:.4f}, site plain "
+            f"{tot['site_plain_ms']:.4f}")
+        summary[dname] = tot
+
+    # crop 512: the same sites with H and W doubled, correctness only
+    for dname, dtype in DTYPES.items():
+        rtol, atol = TOLS[dname]
+        worst_all, err_all = 0.0, 0.0
+        for h, w, c in SITES:
+            shape = (CROP512_N, 2 * h, 2 * w, c)
+            args = site_inputs(*shape, dtype, gen)
+            got = K.spade_style(*args)
+            want = K.spade_style_reference(*args)
+            torch.cuda.synchronize()
+            err, worst = check_close(f"crop 512 {dname} {shape}", got, want,
+                                     rtol, atol)
+            worst_all, err_all = max(worst_all, worst), max(err_all, err)
             del args, got, want
-        log(f"  18 sites at N={SITE_N}, {dname}: kernel {k_ms:.4f} ms, "
-            f"plain {p_ms:.4f} ms (sum of per-site medians)")
-        summary[dname] = dict(max_abs_err=max_err, ms=k_ms, plain_ms=p_ms)
+        log(f"crop 512, 18 sites at N={CROP512_N}, {dname}: max abs err "
+            f"{err_all:.3e}, worst err/tolerance {worst_all:.3f}")
 
     # gradient: autograd.Function (kernel forward, recomputed backward)
     # against autograd of the plain version, float32
-    for shape in (ODD_SITE, (SITE_N, *SITES[0])):
+    for shape in (ODD_SITES[0], (SITE_N, *SITES[0])):
         args = site_inputs(*shape, torch.float32, gen)
         grads = []
         for fn in (K.spade_style, K.spade_style_reference):
@@ -269,7 +359,7 @@ def phase_slice():
                                      a[0].shape[1])))
         for m in nets["G"].modules() if isinstance(m, SpadeStyleBlock)]
 
-    launches, models, results = None, {}, {}
+    launches, models, results = {}, {}, {}
     for dtype in ("bfloat16", "float32"):
         model = Pix2Pix(opt.replace(compute_dtype=dtype), nets, "cuda")
         models[dtype] = model
@@ -284,8 +374,7 @@ def phase_slice():
         if count != len(SITES):
             raise AssertionError(f"{dtype}: kernel launched {count} times in "
                                  f"one forward, expected {len(SITES)}")
-        if launches is None:
-            launches = count
+        launches[dtype] = count
         if fake.shape != (BATCH, opt.image_height, opt.image_width, 1):
             raise AssertionError(f"fake shape {fake.shape}")
         if not (np.isfinite(errors).all() and np.isfinite(fake).all()):
@@ -344,14 +433,18 @@ def main():
         raise AssertionError(f"the port's run imported {foreign[:5]}")
 
     from seg2eye_tpu_torch.ops import spade_style as K
-    log("kernel summary: max_abs_err in float32 over all sites; ms and "
-        f"plain_ms in bfloat16, summed over the 18 sites at N={SITE_N}")
-    print(json.dumps({"kernels": [{
-        "name": "spade_style", "route": "cuda", "source": K.SOURCE,
-        "replaces": K.REPLACES, "launches": launches,
-        "max_abs_err": summary["float32"]["max_abs_err"],
-        "ms": summary["bfloat16"]["ms"],
-        "plain_ms": summary["bfloat16"]["plain_ms"]}]}))
+    log("kernel summary, one entry per kernel: launches in one forward of "
+        f"the slice in that dtype; max_abs_err over all site checks; ms, "
+        f"plain_ms, library_ms and bound_ms summed over the 18 sites at "
+        f"N={SITE_N}")
+    names = {"bfloat16": "spade_style_bf16_sm90", "float32": "spade_style_f32"}
+    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms")
+    print(json.dumps({"kernels": [
+        {"name": names[d], "route": "cuda", "source": K.SOURCE[DTYPES[d]],
+         "replaces": K.REPLACES, "launches": launches[d],
+         **{k: summary[d][k] for k in keys}}
+        for d in ("bfloat16", "float32")]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)

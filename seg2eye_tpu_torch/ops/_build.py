@@ -3,15 +3,18 @@
 At first use, ``nvcc`` compiles every ``csrc/*.cu`` source into one shared
 library with a plain C interface, under ``build/seg2eye_kernels/<hash>/`` at
 the root of the checkout, keyed by a hash of the sources and flags so that
-an edited source rebuilds.  The library is loaded with ``ctypes``.  Nothing
-here runs at import time: the CPU tests import every module on machines
-without ``nvcc``.
+an edited source rebuilds.  The library is loaded with ``ctypes``.  Beside
+it the build keeps ptxas's report (``ptxas.txt``) and the SASS instruction
+counts per kernel (``sass_counts.json``, from ``cuobjdump -sass``).
+Nothing here runs at import time: the CPU tests import every module on
+machines without ``nvcc``.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
 import hashlib
+import json
 import os
 import shutil
 import subprocess
@@ -24,21 +27,43 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-# int fn(int device, 7 input pointers, out, N, H, W, C, float eps, stream)
+# int fn(int device, 7 input pointers, out, N, H, W, C, float eps, stream);
+# the bfloat16 kernel encodes its TMA tensor maps from these in C
 _SPADE_STYLE_ARGTYPES = [_I] + [_P] * 8 + [_I] * 4 + [_F, _P]
+_SPADE_STYLE_ENTRY_POINTS = ("spade_style_fwd_f32", "spade_style_fwd_bf16_sm90")
+SASS_OPCODES = ("HGMMA", "FFMA")
 
 
 def sources() -> list[Path]:
     return sorted(CSRC.glob("*.cu"))
 
 
-def nvcc() -> str:
-    for cand in (os.path.join(os.environ.get("CUDA_HOME", ""), "bin", "nvcc"),
-                 shutil.which("nvcc") or "", "/usr/local/cuda/bin/nvcc"):
+def cuda_tool(name: str) -> str:
+    for cand in (os.path.join(os.environ.get("CUDA_HOME", ""), "bin", name),
+                 shutil.which(name) or "", f"/usr/local/cuda/bin/{name}"):
         if cand and os.path.isfile(cand):
             return cand
-    raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on PATH); "
+    raise RuntimeError(f"{name} not found (set CUDA_HOME or put it on PATH); "
                        "the CUDA kernels cannot be built")
+
+
+def sass_counts(sass: str) -> dict[str, dict[str, int]]:
+    """``cuobjdump -sass`` text -> {kernel symbol: {opcode: count}} for the
+    opcodes of ``SASS_OPCODES``."""
+    counts: dict[str, dict[str, int]] = {}
+    current = None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            current = counts.setdefault(line.split("Function :")[1].strip(),
+                                        dict.fromkeys(SASS_OPCODES, 0))
+        elif current is not None and "/*" in line:
+            body = line.split("*/", 1)[-1].split(";")[0].split()
+            ops = [w for w in body if not w.startswith("@")]
+            if ops:
+                op = ops[0].split(".")[0]
+                if op in current:
+                    current[op] += 1
+    return counts
 
 
 def _digest() -> str:
@@ -51,19 +76,25 @@ def _digest() -> str:
 
 def build() -> Path:
     """Compile the kernels unless this exact build exists; -> library path.
-    ptxas's register and shared-memory report is kept in ``ptxas.txt``."""
+    ptxas's register and shared-memory report is kept in ``ptxas.txt``, the
+    SASS counts of ``sass_counts`` in ``sass_counts.json``."""
     out_dir = BUILD_ROOT / _digest()
     lib = out_dir / LIB_NAME
     if lib.exists():
         return lib
     out_dir.mkdir(parents=True, exist_ok=True)
     tmp = out_dir / f"{LIB_NAME}.{os.getpid()}.tmp"
-    cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources())]
+    cmd = [cuda_tool("nvcc"), *NVCC_FLAGS, "-o", str(tmp),
+           *map(str, sources())]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
                            f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
     (out_dir / "ptxas.txt").write_text(proc.stdout + proc.stderr)
+    sass = subprocess.run([cuda_tool("cuobjdump"), "-sass", str(tmp)],
+                          capture_output=True, text=True, check=True).stdout
+    (out_dir / "sass_counts.json").write_text(
+        json.dumps(sass_counts(sass), indent=1))
     os.replace(tmp, lib)
     return lib
 
@@ -73,7 +104,7 @@ def library() -> ctypes.CDLL:
     """The built kernels, loaded once per process, with every C signature
     declared (an undeclared pointer argument would be cut to 32 bits)."""
     lib = ctypes.CDLL(str(build()))
-    for name in ("spade_style_fwd_f32", "spade_style_fwd_bf16"):
+    for name in _SPADE_STYLE_ENTRY_POINTS:
         fn = getattr(lib, name)
         fn.argtypes = _SPADE_STYLE_ARGTYPES
         fn.restype = ctypes.c_int

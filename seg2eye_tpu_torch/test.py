@@ -16,21 +16,18 @@ import argparse
 
 import torch
 
+from seg2eye_tpu_torch.data.openeds import DataLoader, OpenEDSDataset
 from seg2eye_tpu_torch.eval.tester import Tester
 from seg2eye_tpu_torch.models.pix2pix import Pix2Pix, build_networks
 from seg2eye_tpu_torch.options import parse_options
 from seg2eye_tpu_torch.utils.checkpoint import load_networks
 
 
-def make_dataloader(opt, dataset_key: str):
-    """The JAX package's H5 dataset and loader (numpy, h5py, cv2, PIL);
-    imported here only, so that the rest of the port runs without them."""
-    from seg2eye_tpu.data.loader import DataLoader
-    from seg2eye_tpu.data.openeds import OpenEDSDataset
-
-    ds = OpenEDSDataset(opt, dataset_key=dataset_key)
-    return DataLoader(ds, batch_size=opt.batchSize, shuffle=False,
-                      drop_last=False, seed=opt.seed, prefetch=opt.prefetch)
+def make_dataloader(opt, dataset_key: str) -> DataLoader:
+    """Serial batches of the H5 split ``dataset_key`` (the port's own
+    evaluation loader; it needs h5py, cv2 and PIL)."""
+    return DataLoader(OpenEDSDataset(opt, dataset_key=dataset_key),
+                      batch_size=opt.batchSize, seed=opt.seed)
 
 
 def main(argv=None) -> dict | str:

@@ -1,10 +1,13 @@
 """PyTorch port, the scored-inference slice: JAX ``Pix2Pix.inference`` and
 the port's on the same batch and weights (B=2, k=2 uint8 style
-references), then the scored per-image errors; the CLI; import hygiene.
+references), then the scored per-image errors; the CLI, the port's weight
+bridge and evaluation loader against the JAX package's; import hygiene.
 
 float32: fakes to atol 1e-4, scored errors to rtol 1e-4.  bfloat16: see
 ``test_inference_bf16`` for its measured tolerance."""
+import ast
 import dataclasses
+import glob
 import os
 import re
 import subprocess
@@ -278,9 +281,8 @@ def test_parse_options_matches_jax(argv, is_train, capsys):
 
 
 def test_port_imports_no_jax():
-    """Every module of the port imports without jax, flax or the JAX
-    package (which the port reaches only inside the weight bridge and the
-    CLI's H5 loader)."""
+    """Every module of the port imports without jax, flax or anything of
+    the JAX package."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import seg2eye_tpu_torch as p\n"
@@ -295,3 +297,130 @@ def test_port_imports_no_jax():
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert int(proc.stdout.split()[-1]) >= 15
+
+
+def imports_of_jax_package(path):
+    """(line, module) of every import of ``seg2eye_tpu`` or a submodule of
+    it in the file, at any depth (inside functions too)."""
+    tree = ast.parse(open(path).read(), path)
+    found = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names = [node.module or ""]
+        else:
+            continue
+        found += [(node.lineno, n) for n in names
+                  if n == "seg2eye_tpu" or n.startswith("seg2eye_tpu.")]
+    return found
+
+
+def test_port_source_never_imports_jax_package(tmp_path):
+    """No file of the port, nor chip_smoke.py or the port's profiler, has an
+    ``import seg2eye_tpu...`` or ``from seg2eye_tpu... import`` anywhere,
+    lazy imports included."""
+    files = sorted(glob.glob(os.path.join(REPO, "seg2eye_tpu_torch", "**",
+                                          "*.py"), recursive=True))
+    files += [os.path.join(REPO, "chip_smoke.py"),
+              os.path.join(REPO, "tools", "profile_torch_slice.py")]
+    assert len(files) >= 20
+    bad = {os.path.relpath(f, REPO): imports_of_jax_package(f) for f in files}
+    assert not {f: v for f, v in bad.items() if v}
+    # the checker itself finds both forms, nested in a function
+    probe = tmp_path / "probe.py"
+    probe.write_text("def f():\n    import seg2eye_tpu.data as d\n"
+                     "    from seg2eye_tpu.utils import torch_export\n"
+                     "    import seg2eye_tpu_torch\n")
+    assert [m for _, m in imports_of_jax_package(str(probe))] == [
+        "seg2eye_tpu.data", "seg2eye_tpu.utils"]
+
+
+@pytest.mark.parametrize("geometry", ["square", "aspect0.8"])
+def test_weight_bridge_matches_torch_export(jax_variables, geometry):
+    """The port's own export equals the JAX package's torch_export bit for
+    bit: the same keys, dtypes, shapes and bytes."""
+    from seg2eye_tpu.utils import torch_export
+    from seg2eye_tpu_torch.utils import weights
+
+    variables = jax_variables(geometry)
+    for net, export in (("G", "export_generator"), ("E", "export_encoder")):
+        want = getattr(torch_export, export)(variables[net])
+        got = getattr(weights, export)(variables[net])
+        assert list(got) == list(want)
+        for k in want:
+            assert got[k].dtype == want[k].dtype, k
+            assert got[k].shape == want[k].shape, k
+            assert got[k].tobytes() == want[k].tobytes(), k
+
+
+def assert_same_batch(got, want):
+    assert list(got) == list(want)
+    for k, v in want.items():
+        if isinstance(v, np.ndarray):
+            assert got[k].dtype == v.dtype and got[k].shape == v.shape, k
+            assert got[k].tobytes() == v.tobytes(), k
+        else:
+            assert got[k] == v, k
+
+
+@pytest.mark.parametrize("method,key", [
+    ("random", "validation"), ("first", "validation"), ("random", "test"),
+    ("ref_first", "validation"), ("ref_random3", "test")])
+def test_eval_loader_matches_jax_loader(tmp_path, method, key):
+    """The port's evaluation loader yields the JAX package's batches byte
+    for byte (serial batches, no flip, uint8 transport), over two passes,
+    and the same single samples and index lists."""
+    from seg2eye_tpu.data import loader as jloader
+    from seg2eye_tpu.data import openeds as jopeneds
+    from seg2eye_tpu.data import schema
+    from seg2eye_tpu_torch.data import openeds
+
+    data = schema.write_synthetic_h5(str(tmp_path / "d.h5"), n_ss=3,
+                                     n_gen=5, n_seq=2, h=64, w=40)
+    ref = schema.write_synthetic_style_ref(str(tmp_path / "r.h5"), data,
+                                           use_subsets=True)
+    opt = tiny_opt(dataroot=data, style_ref=ref, style_sample_method=method,
+                   serial_batches=True, no_flip=True, seed=3,
+                   **GEOMETRIES["aspect0.8"])
+    want_loader = jloader.DataLoader(
+        jopeneds.OpenEDSDataset(opt, dataset_key=key), batch_size=4,
+        shuffle=False, drop_last=False, seed=opt.seed, prefetch=0)
+    got_loader = openeds.DataLoader(
+        openeds.OpenEDSDataset(opt, dataset_key=key), batch_size=4,
+        seed=opt.seed)
+    assert len(got_loader) == len(want_loader) == 2
+    for _ in range(2):
+        batches = list(zip(got_loader, want_loader, strict=True))
+        for got, want in batches:
+            assert_same_batch(got, want)
+    assert batches[0][0]["style_image"].shape == (4, 2, 160, 128, 1)
+    for idx in (0, 5):
+        assert_same_batch(got_loader.get_particular(idx),
+                          want_loader.get_particular(idx))
+    got_ds, want_ds = got_loader.dataset, want_loader.dataset
+    assert got_ds.N == want_ds.N == 6
+    assert got_ds.get_validation_indices() == want_ds.get_validation_indices()
+    assert (got_ds.get_random_indices(3, np.random.default_rng(1))
+            == want_ds.get_random_indices(3, np.random.default_rng(1)))
+
+
+def test_profile_groups_follow_kernel_symbols():
+    """tools/profile_torch_slice.py files each spade_style kernel under its
+    own group, before the cuDNN group's "conv" can take it."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "profile_torch_slice",
+        os.path.join(REPO, "tools", "profile_torch_slice.py"))
+    prof = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(prof)
+    assert prof.group_of(
+        "(anonymous namespace)::spade_style_sm90_kernel(CUtensorMap_st, "
+        "CUtensorMap_st, __nv_bfloat16 const*)").endswith("(bf16)")
+    assert prof.group_of("(anonymous namespace)::spade_style_kernel(float "
+                         "const*, float const*)").endswith("(f32)")
+    assert prof.group_of("sm90_xmma_fprop_implicit_gemm_bf16").startswith(
+        "cuDNN")
+    assert prof.group_of("void at::native::vectorized_elementwise_kernel"
+                         ).startswith("other")

@@ -3,8 +3,11 @@
 the Pallas kernel in interpret mode, on tests/test_pallas_spade.py's
 inputs and shapes (forward rtol/atol 2e-4, gradients 5e-4).
 
-The CUDA kernel itself runs only on the card; ``chip_smoke.py`` holds it
-against the plain version there, at every site shape of the generator."""
+The CUDA kernels themselves run only on the card; ``chip_smoke.py`` holds
+them against the plain version there, at every site shape of the generator.
+Here the weight layouts they read are checked: the float32 layout directly,
+and the bfloat16 tensor-core layout by rebuilding gamma|beta from it tap by
+tap, in the kernel's tap and k order."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -87,17 +90,79 @@ def test_kernel_wrapper_refuses_cpu_tensors():
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_pack_weights_layout(dtype):
-    """wcat[dy, dx, k, c] = (wg[c, k, dy, dx], wb[c, k, dy, dx]), in the
-    kernel's dtype; bcat[c] = (bg[c], bb[c]) in float32."""
+    """float32: wcat[dy, dx, k, c] = (wg[c, k, dy, dx], wb[c, k, dy, dx]).
+    bfloat16: wcat[3 dy + dx, j, k] is wg[c, k, dy, dx] at j = 2c and
+    wb[c, k, dy, dx] at j = 2c + 1, K-major, the columns padded with zeros
+    to the N tile (128 wide here).  Both in the kernel's dtype; bcat[c] = (bg[c],
+    bb[c]) in float32."""
     *_, wg, bg, wb, bb = to_torch(make_inputs(n=1, h=4, w=4, c=8))
     wcat, bcat = K.pack_weights(wg, bg, wb, bb, dtype)
-    assert wcat.shape == (3, 3, K.NHIDDEN, 8, 2) and wcat.dtype == dtype
-    assert wcat.is_contiguous() and bcat.dtype == torch.float32
-    for i, w in enumerate((wg, wb)):
-        torch.testing.assert_close(wcat[..., i],
-                                   w.permute(2, 3, 1, 0).to(dtype),
-                                   rtol=0, atol=0)
+    assert wcat.dtype == dtype and wcat.is_contiguous()
+    assert bcat.dtype == torch.float32
     torch.testing.assert_close(bcat, torch.stack([bg, bb], -1), rtol=0, atol=0)
+    if dtype == torch.float32:
+        assert wcat.shape == (3, 3, K.NHIDDEN, 8, 2)
+        for i, w in enumerate((wg, wb)):
+            torch.testing.assert_close(wcat[..., i], w.permute(2, 3, 1, 0),
+                                       rtol=0, atol=0)
+        return
+    assert wcat.shape == (9, 128, K.NHIDDEN) == K.packed_shape(8, dtype)
+    for dy in range(3):
+        for dx in range(3):
+            for i, w in enumerate((wg, wb)):
+                torch.testing.assert_close(
+                    wcat[3 * dy + dx, i:16:2], w[:, :, dy, dx].to(dtype),
+                    rtol=0, atol=0)
+    assert not wcat[:, 16:].any()
+
+
+@pytest.mark.parametrize("c,tile,cols", [
+    (16, 128, 128), (64, 128, 128), (72, 256, 256), (128, 256, 256),
+    (129, 256, 512), (1024, 256, 2048)])
+def test_packed_columns(c, tile, cols):
+    assert K.n_tile(c) == tile and K.packed_columns(c) == cols
+
+
+def gamma_beta_from_packed(actv, wcat, bcat, c):
+    """gamma|beta as the tensor-core kernel sums them: per tap, a shifted
+    (pixels x 128) @ (128 x N tile) product per column tile over a
+    zero-padded halo, 64 k at a time, then the bias; read from the bfloat16
+    layout with plain indexing, summed in float32."""
+    n, h, w, _ = actv.shape
+    halo = torch.nn.functional.pad(actv.float(), (0, 0, 1, 1, 1, 1))
+    cols, tile = wcat.shape[1], K.n_tile(c)
+    acc = torch.zeros(n, h, w, cols)
+    for tap in range(9):
+        dy, dx = divmod(tap, 3)
+        a = halo[:, dy:dy + h, dx:dx + w, :]
+        for k0 in (0, 64):
+            for j0 in range(0, cols, tile):
+                b = wcat[tap, j0:j0 + tile, k0:k0 + 64].float()
+                acc[..., j0:j0 + tile] += a[..., k0:k0 + 64] @ b.T
+    assert not acc[..., 2 * c:].any()      # the zero-padded columns
+    acc = acc[..., :2 * c].reshape(n, h, w, c, 2) + bcat
+    return acc[..., 0], acc[..., 1]
+
+
+@pytest.mark.parametrize("shape", [(1, 10, 8, 16), (2, 13, 7, 72),
+                                   (1, 3, 5, 129)],
+                         ids=["odd_1x10x8x16", "2x13x7x72", "1x3x5x129"])
+def test_bf16_layout_rebuilds_the_convs(shape):
+    """gamma|beta rebuilt from the bfloat16 layout equal the two 3x3 convs
+    (with bfloat16-rounded weights, in float32) at ragged shapes."""
+    n, h, w, c = shape
+    rng = np.random.default_rng(0)
+    actv = torch.tensor(np.maximum(rng.standard_normal((n, h, w, 128)), 0),
+                        dtype=torch.float32)
+    wg, wb = (torch.tensor(0.1 * rng.standard_normal((c, 128, 3, 3)),
+                           dtype=torch.float32) for _ in range(2))
+    bg, bb = (torch.tensor(0.1 * rng.standard_normal(c), dtype=torch.float32)
+              for _ in range(2))
+    wcat, bcat = K.pack_weights(wg, bg, wb, bb, torch.bfloat16)
+    gamma, beta = gamma_beta_from_packed(actv, wcat, bcat, c)
+    for got, wt, bias in ((gamma, wg, bg), (beta, wb, bb)):
+        want = K._conv3x3(actv, wt.bfloat16().float(), bias)
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
 
 
 def test_packed_weights_follow_the_weights():
@@ -123,7 +188,8 @@ def test_packed_weights_follow_the_weights():
 def test_build_is_keyed_on_sources(tmp_path, monkeypatch):
     """An edited source gets a new build directory; the real sources and
     the Hopper target are what gets built."""
-    assert "spade_style.cu" in [p.name for p in _build.sources()]
+    assert {"spade_style.cu", "spade_style_sm90.cu"} <= {
+        p.name for p in _build.sources()}
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
     src = tmp_path / "k.cu"
     src.write_text("// one")
@@ -133,3 +199,23 @@ def test_build_is_keyed_on_sources(tmp_path, monkeypatch):
     src.write_text("// two")
     assert _build._digest() != first
 
+
+
+def test_sass_counts_per_kernel():
+    """The build's SASS census: HGMMA and FFMA counted per kernel symbol,
+    predicated instructions included, other opcodes ignored."""
+    sass = """
+\tcode for sm_90a
+\t\tFunction : _Z23spade_style_sm90_kernel
+\t.headerflags\t@"EF_CUDA_SM90"
+        /*0000*/                   LDC R1, c[0x0][0x28] ;        /* 0x00000a00ff017b82 */
+        /*0010*/                   HGMMA.64x256x16.F32.BF16 R24, gdesc[UR4], R24 ;  /* 0x0 */
+        /*0020*/              @!P0 HGMMA.64x256x16.F32.BF16 R24, gdesc[UR8], R24 ;  /* 0x0 */
+        /*0030*/                   FFMA R5, R2, R3, R5 ;         /* 0x0 */
+\t\tFunction : _Z18spade_style_kernel
+        /*0000*/                   FFMA.FTZ R5, R2, R3, R5 ;     /* 0x0 */
+        /*0010*/                   FMUL R5, R2, R3 ;             /* 0x0 */
+"""
+    assert _build.sass_counts(sass) == {
+        "_Z23spade_style_sm90_kernel": {"HGMMA": 2, "FFMA": 1},
+        "_Z18spade_style_kernel": {"HGMMA": 0, "FFMA": 1}}

@@ -11,7 +11,7 @@ random weights and a numpy-seeded batch go through ``Tester.score_batch``
 warm-up batches, ``torch.profiler`` traces ``--steps`` batches per dtype
 and route.  Route ``kernel`` is the port as it runs; route ``plain`` sends
 every generator norm site through ``spade_style_reference`` instead of the
-CUDA kernel, everything else unchanged.
+CUDA kernels, everything else unchanged.
 
 Printed per dtype and route: wall ms/batch (host clock around the traced
 batches), device busy ms/batch (the union of the card's kernel and copy
@@ -35,9 +35,12 @@ from seg2eye_tpu_torch.models.pix2pix import Pix2Pix  # noqa: E402
 from seg2eye_tpu_torch.options import Options  # noqa: E402
 from seg2eye_tpu_torch.utils.weights import init_networks  # noqa: E402
 
-# (group, substrings of the kernel name), first match wins
+# (group, substrings of the kernel name), first match wins: the two
+# spade_style kernels come before the cuDNN group, whose "conv" would
+# otherwise take any kernel name that holds it
 GROUPS = [
-    ("spade_style kernel", ("spade_style_kernel",)),
+    ("spade_style tensor-core kernel (bf16)", ("spade_style_sm90_kernel",)),
+    ("spade_style FFMA kernel (f32)", ("spade_style_kernel",)),
     ("cuDNN convs and layout transposes",
      ("cudnn", "xmma", "cutlass", "fft", "DSE::", "pointwise_mult_and_sum",
       "nchwToNhwc", "nhwcToNchw", "implicit_gemm", "conv")),
