@@ -5,17 +5,21 @@
 
 Phases; any failure raises and the script exits non-zero:
   1. device: a CUDA card is required; prints its name and power limit
-     (nvidia-smi) and the torch / CUDA versions;
+     (nvidia-smi), the torch / CUDA versions and the TF32 flags, which
+     stay at PyTorch's defaults, as a user's process has them;
   2. build: compiles the CUDA kernels from the checkout's sources; prints
-     ptxas's report and the HGMMA/FFMA counts of each kernel's SASS, and
-     fails if the bfloat16 kernel has no HGMMA (tensor-core) instruction;
-  3. kernel: the fused SPADE+Style kernels (bfloat16: tensor cores,
-     float32: FFMA) against their plain PyTorch version at all 18
+     ptxas's registers and spills and the HGMMA/FFMA counts of each
+     kernel's SASS, and fails if a kernel has no HGMMA (tensor-core)
+     instruction;
+  3. kernel: the fused SPADE+Style kernels (bfloat16: one tensor-core
+     pass, float32: 3xTF32) against their plain PyTorch version at all 18
      generator norm-site shapes of the default model (crop 256, batch 16,
      the shapes the slice gives it) and two odd shapes, then at the 18
      crop-512 site shapes (batch 2, correctness only), one gradient; at
      each crop-256 site the kernel, its plain version and one cuDNN conv
-     (library_ms) timed in turns with CUDA events, beside the bound;
+     (library_ms) timed in turns with CUDA events, beside the bound; at
+     each float32 site, the error of a single-pass TF32 cuDNN conv of the
+     same product (then the same epilogue) as a contrast;
   4. slice: scored inference (Tester.score_batch: encode, generate, resize
      to 640x400, truncate, per-image error) at the full width of the
      default model, seeded random weights, batch 16, in bfloat16 and
@@ -24,9 +28,11 @@ Phases; any failure raises and the script exits non-zero:
      and errors must agree, and both routes are timed.  A batch-1 float32
      forward on the card must agree with the port's CPU forward on the same
      weights.  Nothing of JAX or of the JAX package may have been imported.
-Float32 comparisons run with TF32 off for cuDNN and matmul, so that both
-sides compute in full float32.  The last two lines are the kernel summary
-(one entry per kernel) and the result, each one JSON object.
+The port keeps float32 in full float32 by itself (its float32 forward and
+plain versions turn TF32 off around their own convolutions); the cuDNN
+calls this script makes directly set the flags around themselves.  The
+last two lines are the kernel summary (one entry per kernel) and the
+result, each one JSON object.
 """
 import contextlib
 import json
@@ -53,8 +59,9 @@ BF16_RTOL, BF16_ATOL = 2.0 ** -6, 2.0 ** -5
 TOLS = {"float32": (F32_TOL, F32_TOL), "bfloat16": (BF16_RTOL, BF16_ATOL)}
 CARD_VS_CPU_ATOL = 1e-3
 # kernel route against plain route through the whole bs16 slice: (fake
-# atol, per-image error rtol).  float32 (TF32 off): both sum in float32 in
-# different orders, about 1e-6 apart at the fake.  bfloat16: the kernel's
+# atol, per-image error rtol).  float32 (the port keeps TF32 off under
+# PyTorch's default flags): both sum in float32 in different orders, about
+# 1e-6 apart at the fake.  bfloat16: the kernel's
 # float32 gamma|beta against the plain version's bfloat16 ones, at 18 sites
 # in turn; that is a part of the bfloat16 rounding, which on an H100 moves
 # the bs16 fakes by 2.5e-3 between bfloat16 and float32.
@@ -70,14 +77,42 @@ SITES = ([(10, 8, 1024)] * 2 + [(20, 16, 1024)] * 4
          + [(320, 256, 128)] * 2 + [(320, 256, 64)])
 ODD_SITES = [(1, 10, 8, 16), (2, 13, 7, 72)]  # (N, H, W, C), ragged tiles
 CROP512_N = 2
-# the H100 SXM's published dense peaks (NVIDIA's data sheet, at 700 W)
-PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
+# the H100 SXM's published dense peaks (NVIDIA's data sheet, at 700 W):
+# the tensor cores' rate for the type each kernel feeds them (float32 runs
+# on the TF32 rate, three passes per product), and the FP32 pipes' rate,
+# printed beside the float32 bound
+PEAK_FLOPS = {"bfloat16": 989e12, "float32": 495e12}
+PASSES = {"bfloat16": 1, "float32": 3}
+FP32_PIPE_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+# the kernel symbols of the library, per dtype
+KERNEL_SYMBOLS = {"bfloat16": "spade_style_sm90_kernel",
+                  "float32": "spade_style_3xtf32_sm90_kernel"}
+SUMMARY_NAMES = {"bfloat16": "spade_style_bf16_sm90",
+                 "float32": "spade_style_f32_3xtf32_sm90"}
 
 
 def log(*args):
     print(*args, flush=True)
+
+
+def tf32_flags():
+    return (torch.backends.cudnn.allow_tf32,
+            torch.backends.cuda.matmul.allow_tf32)
+
+
+@contextlib.contextmanager
+def tf32(allowed: bool):
+    """Both TF32 flags set to ``allowed`` around this script's own cuDNN
+    calls, then restored."""
+    cudnn, matmul = torch.backends.cudnn, torch.backends.cuda.matmul
+    saved = tf32_flags()
+    cudnn.allow_tf32 = matmul.allow_tf32 = allowed
+    try:
+        yield
+    finally:
+        cudnn.allow_tf32, matmul.allow_tf32 = saved
 
 
 # ---------------------------------------------------------------- phase 1
@@ -93,10 +128,9 @@ def phase_device() -> str:
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"python {sys.version.split()[0]}, devices "
         f"{torch.cuda.device_count()}")
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
-    log("TF32 off for cuDNN convolutions and matmuls (float32 is full "
-        "float32 on both sides of every comparison)")
+    cudnn, matmul = tf32_flags()
+    log(f"TF32 flags left at PyTorch's defaults: cudnn.allow_tf32={cudnn}, "
+        f"cuda.matmul.allow_tf32={matmul}")
     return torch.cuda.get_device_name(0)
 
 
@@ -108,24 +142,29 @@ def phase_build():
     lib_path = _build.build()
     _build.library()
     log(f"build: {time.perf_counter() - t0:.2f} s -> {lib_path}")
-    report = lib_path.parent / "ptxas.txt"
-    if report.exists():
-        for line in report.read_text().splitlines():
-            if any(k in line for k in ("registers", "spill", "Performance",
-                                       "setmaxnreg")):
-                log("  ptxas:", line.replace("ptxas info    :", "").strip())
+    # an Itanium-mangled identifier, per dtype
+    mangled = {d: f"{len(k)}{k}" for d, k in KERNEL_SYMBOLS.items()}
+    kernel = "?"
+    for line in (lib_path.parent / "ptxas.txt").read_text().splitlines():
+        if "Compiling entry function" in line:
+            kernel = next((f"{d} {KERNEL_SYMBOLS[d]}" for d, m in
+                           mangled.items() if m in line), "?")
+            bn = line.split("ILi", 1)[-1].split("E", 1)[0]
+            kernel += f"<{bn}>" if bn.isdigit() else ""
+        elif any(k in line for k in ("registers", "spill", "Performance",
+                                     "setmaxnreg", "wgmma")):
+            log(f"  ptxas, {kernel}:",
+                line.replace("ptxas info    :", "").strip())
     counts = json.loads((lib_path.parent / "sass_counts.json").read_text())
-    kernels = {"bfloat16": "spade_style_sm90_kernel",
-               "float32": "spade_style_kernel"}
-    for dtype, name in kernels.items():
-        mangled = f"{len(name)}{name}"        # an Itanium-mangled identifier
-        found = {k: v for k, v in counts.items() if mangled in k}
+    for dtype, m in mangled.items():
+        found = {k: v for k, v in counts.items() if m in k}
         if not found:
-            raise AssertionError(f"no {name} in the library's SASS")
+            raise AssertionError(f"no {KERNEL_SYMBOLS[dtype]} in the "
+                                 "library's SASS")
         for symbol, ops in found.items():
             log(f"  SASS of the {dtype} kernel {symbol}: "
                 + ", ".join(f"{op} {n}" for op, n in ops.items()))
-            if dtype == "bfloat16" and not ops["HGMMA"]:
+            if not ops["HGMMA"]:
                 raise AssertionError(f"{symbol} has no HGMMA instruction: "
                                      "it does not use the tensor cores")
 
@@ -180,14 +219,34 @@ def time_turns(fns):
 
 def site_bound(shape, dname):
     """(ms of the operations, ms of the bytes) at the card's peaks for the
-    kernel's work at this site: the gamma|beta products at the rate of the
-    type, and x read, out written, actv and the weights read once, at the
-    memory rate.  The bound is the larger of the two."""
+    kernel's work at this site: the gamma|beta products at the tensor-core
+    rate of the type (float32: TF32, three passes), and x read, out
+    written, actv and the weights read once, at the memory rate.  The bound
+    is the larger of the two."""
     n, h, w, c = shape
     item = DTYPES[dname].itemsize
     flops = 2 * n * h * w * 9 * 128 * 2 * c
     nbytes = n * h * w * (2 * c + 128) * item + 9 * 128 * 2 * c * item
-    return flops / PEAK_FLOPS[dname] * 1e3, nbytes / PEAK_BYTES * 1e3
+    return (PASSES[dname] * flops / PEAK_FLOPS[dname] * 1e3,
+            nbytes / PEAK_BYTES * 1e3)
+
+
+def tf32_contrast(args, want, rtol, atol):
+    """(max abs err, worst err/tolerance) against the plain float32 version
+    of the site computed with gamma|beta from one single-pass TF32 cuDNN
+    conv of the same product, and the same float32 epilogue."""
+    from seg2eye_tpu_torch.ops import spade_style as K
+
+    x, seg, style, mean, var, ws, bs, wg, bg, wb, bb = args
+    c = x.shape[-1]
+    actv = K.seg_mlp_shared(seg, ws, bs)
+    with tf32(True):
+        gb = F.conv2d(actv.permute(0, 3, 1, 2), torch.cat([wg, wb]),
+                      torch.cat([bg, bb]), padding=1).permute(0, 2, 3, 1)
+    out = K.spade_style_epilogue(x, gb[..., :c], gb[..., c:], style, mean,
+                                 var)
+    err = (out - want).abs()
+    return float(err.max()), float((err / (atol + rtol * want.abs())).max())
 
 
 def phase_kernel():
@@ -202,12 +261,19 @@ def phase_kernel():
             "version (from actv), one cuDNN conv of the same product "
             "(library), the bound; site = seg conv + kernel, as the slice "
             "runs it, against spade_style_reference")
+        if dname == "float32":
+            log("  float32: the bound is 3 TF32 passes at 495 TFLOP/s; "
+                "fp32_pipe is the same products at the FP32 pipes' 67 "
+                "TFLOP/s; tf32_err, tf32_e/t: a single-pass TF32 cuDNN conv "
+                "of the same product against the plain version")
         log("  site  (N, H, W, C)         max_abs_err  err/tol    kernel   "
             "plain  library    bound  by   %bound  TFLOP/s    site  "
-            "site_plain")
-        tot = dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0, library_ms=0.0,
-                   bound_ms=0.0, site_ms=0.0, site_plain_ms=0.0,
-                   bound_ops_ms=0.0, bound_bytes_ms=0.0)
+            "site_plain" + ("  fp32_pipe  tf32_err  tf32_e/t"
+                            if dname == "float32" else ""))
+        tot = dict(max_abs_err=0.0, worst=0.0, tf32_worst=0.0, ms=0.0,
+                   plain_ms=0.0, library_ms=0.0, bound_ms=0.0, site_ms=0.0,
+                   site_plain_ms=0.0, fp32_pipe_ms=0.0, bound_ops_ms=0.0,
+                   bound_bytes_ms=0.0)
         for i, shape in enumerate(ODD_SITES + [(SITE_N, *s) for s in SITES]):
             args = site_inputs(*shape, dtype, gen)
             got = K.spade_style(*args)
@@ -215,6 +281,11 @@ def phase_kernel():
             torch.cuda.synchronize()
             err, worst = check_close(f"{dname} {shape}", got, want, rtol, atol)
             tot["max_abs_err"] = max(tot["max_abs_err"], err)
+            tot["worst"] = max(tot["worst"], worst)
+            contrast = ""
+            if dname == "float32":
+                t_err, t_worst = tf32_contrast(args, want, rtol, atol)
+                tot["tf32_worst"] = max(tot["tf32_worst"], t_worst)
             x, seg, style, mean, var, ws, bs, wg, bg, wb, bb = args
             actv = K.seg_mlp_shared(seg.to(dtype), ws, bs).contiguous()
             wcat, bcat = K.pack_weights(wg, bg, wb, bb, dtype)
@@ -223,28 +294,34 @@ def phase_kernel():
                 memory_format=torch.channels_last)
             b_lib = torch.cat([bg, bb]).to(dtype)
             packed = K.PackedWeights()
-            kms, pms, lms, sms, spms = time_turns([
-                lambda: K.spade_style_cuda(x, actv, style, mean, var,
-                                           wcat, bcat),
-                lambda: K.spade_style_from_actv(x, actv, style, mean, var,
-                                                wg, bg, wb, bb),
-                lambda: F.conv2d(actv_nchw, w_lib, b_lib, padding=1),
-                lambda: K.spade_style(*args, packed=packed),
-                lambda: K.spade_style_reference(*args)])
+            with tf32(False):     # the library conv in full float32
+                kms, pms, lms, sms, spms = time_turns([
+                    lambda: K.spade_style_cuda(x, actv, style, mean, var,
+                                               wcat, bcat),
+                    lambda: K.spade_style_from_actv(x, actv, style, mean,
+                                                    var, wg, bg, wb, bb),
+                    lambda: F.conv2d(actv_nchw, w_lib, b_lib, padding=1),
+                    lambda: K.spade_style(*args, packed=packed),
+                    lambda: K.spade_style_reference(*args)])
             ops_ms, bytes_ms = site_bound(shape, dname)
             bms = max(ops_ms, bytes_ms)
             by = "operations" if ops_ms >= bytes_ms else "bytes"
             n, h, w, c = shape
-            tflops = 2 * n * h * w * 9 * 128 * 2 * c / (kms * 1e-3) / 1e12
+            flops = 2 * n * h * w * 9 * 128 * 2 * c
+            fp32_ms = flops / FP32_PIPE_FLOPS * 1e3
+            if dname == "float32":
+                contrast = f" {fp32_ms:10.4f} {t_err:9.3e} {t_worst:9.3f}"
             label = "odd" if i < len(ODD_SITES) else f"{i - 1:4d}"
             log(f"  {label}  {str(shape):22s} {err:11.3e}  {worst:7.3f} "
                 f"{kms:8.4f} {pms:7.4f} {lms:8.4f} {bms:8.4f}  "
-                f"{by[:3]}  {100 * bms / kms:6.1f}  {tflops:7.1f} "
-                f"{sms:7.4f} {spms:8.4f}")
+                f"{by[:3]}  {100 * bms / kms:6.1f}  "
+                f"{flops / (kms * 1e-3) / 1e12:7.1f} "
+                f"{sms:7.4f} {spms:8.4f}{contrast}")
             if i >= len(ODD_SITES):
                 for key, v in (("ms", kms), ("plain_ms", pms),
                                ("library_ms", lms), ("bound_ms", bms),
                                ("site_ms", sms), ("site_plain_ms", spms),
+                               ("fp32_pipe_ms", fp32_ms),
                                ("bound_ops_ms", ops_ms),
                                ("bound_bytes_ms", bytes_ms)):
                     tot[key] += v
@@ -256,13 +333,17 @@ def phase_kernel():
             f"library {tot['library_ms']:.4f}, bound {tot['bound_ms']:.4f} "
             f"({tot['bound_by']}), {100 * tot['bound_ms'] / tot['ms']:.1f}% "
             f"of the bound; site {tot['site_ms']:.4f}, site plain "
-            f"{tot['site_plain_ms']:.4f}")
+            f"{tot['site_plain_ms']:.4f}; worst err/tolerance "
+            f"{tot['worst']:.4f} (odd shapes included)"
+            + (f"; FP32-pipe bound {tot['fp32_pipe_ms']:.4f} ms; single-pass "
+               f"TF32 worst err/tolerance {tot['tf32_worst']:.4f}"
+               if dname == "float32" else ""))
         summary[dname] = tot
 
     # crop 512: the same sites with H and W doubled, correctness only
     for dname, dtype in DTYPES.items():
         rtol, atol = TOLS[dname]
-        worst_all, err_all = 0.0, 0.0
+        worst_all, err_all, tf32_worst = 0.0, 0.0, 0.0
         for h, w, c in SITES:
             shape = (CROP512_N, 2 * h, 2 * w, c)
             args = site_inputs(*shape, dtype, gen)
@@ -272,19 +353,26 @@ def phase_kernel():
             err, worst = check_close(f"crop 512 {dname} {shape}", got, want,
                                      rtol, atol)
             worst_all, err_all = max(worst_all, worst), max(err_all, err)
+            if dname == "float32":
+                tf32_worst = max(tf32_worst,
+                                 tf32_contrast(args, want, rtol, atol)[1])
             del args, got, want
         log(f"crop 512, 18 sites at N={CROP512_N}, {dname}: max abs err "
-            f"{err_all:.3e}, worst err/tolerance {worst_all:.3f}")
+            f"{err_all:.3e}, worst err/tolerance {worst_all:.4f}"
+            + (f"; single-pass TF32 worst err/tolerance {tf32_worst:.4f}"
+               if dname == "float32" else ""))
 
     # gradient: autograd.Function (kernel forward, recomputed backward)
-    # against autograd of the plain version, float32
+    # against autograd of the plain version, float32; the plain version's
+    # own backward convs run in full float32 too
     for shape in (ODD_SITES[0], (SITE_N, *SITES[0])):
         args = site_inputs(*shape, torch.float32, gen)
         grads = []
         for fn in (K.spade_style, K.spade_style_reference):
             leaves = [a.detach().clone().requires_grad_(i in (0, 2, 7))
                       for i, a in enumerate(args)]
-            (fn(*leaves) ** 2).sum().backward()
+            with tf32(False):
+                (fn(*leaves) ** 2).sum().backward()
             grads.append([leaves[i].grad for i in (0, 2, 7)])
         for name, g_k, g_p in zip(("x", "style", "wg"), *grads):
             err, _ = check_close(f"grad {name} {shape}", g_k, g_p,
@@ -360,6 +448,7 @@ def phase_slice():
         for m in nets["G"].modules() if isinstance(m, SpadeStyleBlock)]
 
     launches, models, results = {}, {}, {}
+    flags = tf32_flags()
     for dtype in ("bfloat16", "float32"):
         model = Pix2Pix(opt.replace(compute_dtype=dtype), nets, "cuda")
         models[dtype] = model
@@ -379,6 +468,9 @@ def phase_slice():
             raise AssertionError(f"fake shape {fake.shape}")
         if not (np.isfinite(errors).all() and np.isfinite(fake).all()):
             raise AssertionError(f"{dtype}: non-finite output")
+        if tf32_flags() != flags:
+            raise AssertionError(f"{dtype}: the forward left the TF32 flags "
+                                 f"at {tf32_flags()}, not {flags}")
         ms = time_slice(tester, model, batch)
         results[dtype] = fake
         log(f"slice {dtype} bs{BATCH}: {count} kernel launches per forward, "
@@ -434,14 +526,14 @@ def main():
 
     from seg2eye_tpu_torch.ops import spade_style as K
     log("kernel summary, one entry per kernel: launches in one forward of "
-        f"the slice in that dtype; max_abs_err over all site checks; ms, "
-        f"plain_ms, library_ms and bound_ms summed over the 18 sites at "
-        f"N={SITE_N}")
-    names = {"bfloat16": "spade_style_bf16_sm90", "float32": "spade_style_f32"}
+        f"the slice in that dtype; max_abs_err over the crop-256 and odd "
+        f"site checks; ms, plain_ms, library_ms and bound_ms summed over the "
+        f"18 sites at N={SITE_N}")
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
     print(json.dumps({"kernels": [
-        {"name": names[d], "route": "cuda", "source": K.SOURCE[DTYPES[d]],
+        {"name": SUMMARY_NAMES[d], "route": "cuda",
+         "source": K.SOURCE[DTYPES[d]],
          "replaces": K.REPLACES, "launches": launches[d],
          **{k: summary[d][k] for k in keys}}
         for d in ("bfloat16", "float32")]}))

@@ -10,6 +10,11 @@
     Tester runs it (train mode); running statistics only under
     ``opt.eval_use_running_stats``.
 
+A float32 model computes in full float32: ``inference`` and
+``encode_only`` run under ``ops.spade_style.full_float32``, so that cuDNN
+does not take its TF32 default on the card; bfloat16 leaves the flags as
+they are.
+
 Batches keep the JAX package's layouts: label (B,H,W) int, style_image
 (B,k,H,W,1) float or uint8, and the result (B,H,W,1) float32.
 """
@@ -23,6 +28,7 @@ from seg2eye_tpu_torch.models.encoder import ConvEncoder
 from seg2eye_tpu_torch.models.generator import SpadeStyleGenerator
 from seg2eye_tpu_torch.models.layers import at_least_f32
 from seg2eye_tpu_torch.ops.image import one_hot_label
+from seg2eye_tpu_torch.ops.spade_style import full_float32
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
@@ -100,13 +106,15 @@ class Pix2Pix:
                   latent_style: Optional[torch.Tensor] = None) -> torch.Tensor:
         """Encode the style references (unless ``latent_style`` is given)
         and generate -> (B,H,W,1) float32."""
-        seg, style = self.preprocess(batch)
-        if latent_style is None:
-            latent_style, _ = self.encode_w(style)
-        latent_style = torch.as_tensor(latent_style, device=self.device)
-        return self.generate(seg, latent_style).to(torch.float32)
+        with full_float32(self.dtype == torch.float32):
+            seg, style = self.preprocess(batch)
+            if latent_style is None:
+                latent_style, _ = self.encode_w(style)
+            latent_style = torch.as_tensor(latent_style, device=self.device)
+            return self.generate(seg, latent_style).to(torch.float32)
 
     @torch.no_grad()
     def encode_only(self, batch: Dict) -> torch.Tensor:
-        _, style = self.preprocess(batch)
-        return self.encode_w(style)[0]
+        with full_float32(self.dtype == torch.float32):
+            _, style = self.preprocess(batch)
+            return self.encode_w(style)[0]

@@ -28,9 +28,10 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # int fn(int device, 7 input pointers, out, N, H, W, C, float eps, stream);
-# the bfloat16 kernel encodes its TMA tensor maps from these in C
+# each entry point encodes its TMA tensor maps from these in C
 _SPADE_STYLE_ARGTYPES = [_I] + [_P] * 8 + [_I] * 4 + [_F, _P]
-_SPADE_STYLE_ENTRY_POINTS = ("spade_style_fwd_f32", "spade_style_fwd_bf16_sm90")
+_SPADE_STYLE_ENTRY_POINTS = ("spade_style_fwd_f32_3xtf32_sm90",
+                             "spade_style_fwd_bf16_sm90")
 SASS_OPCODES = ("HGMMA", "FFMA")
 
 
@@ -101,9 +102,14 @@ def build() -> Path:
 
 @functools.cache
 def library() -> ctypes.CDLL:
-    """The built kernels, loaded once per process, with every C signature
-    declared (an undeclared pointer argument would be cut to 32 bits)."""
-    lib = ctypes.CDLL(str(build()))
+    """The built kernels, loaded once per process."""
+    return load(build())
+
+
+def load(path: Path) -> ctypes.CDLL:
+    """A built library with every C signature declared (an undeclared
+    pointer argument would be cut to 32 bits)."""
+    lib = ctypes.CDLL(str(path))
     for name in _SPADE_STYLE_ENTRY_POINTS:
         fn = getattr(lib, name)
         fn.argtypes = _SPADE_STYLE_ARGTYPES

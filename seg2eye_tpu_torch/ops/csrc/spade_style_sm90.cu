@@ -1,62 +1,97 @@
-// Fused SPADE+Style norm for Hopper (sm_90a), forward, bfloat16, on the
-// tensor cores (wgmma) with TMA loads.
+// Fused SPADE+Style norm for Hopper (sm_90a), forward, on the tensor cores
+// (wgmma) with TMA loads, in bfloat16 and in float32 (3xTF32).
 //
-// Replaces the Pallas TPU kernel seg2eye_tpu/ops/pallas/spade_style.py
-// (_kernel, launched by _fused_forward) for bfloat16, the default compute
-// dtype; float32 stays on the FFMA kernel of spade_style.cu, since tensor
-// cores in float32 would mean TF32.  One launch computes one norm site:
+// Replaces the Pallas TPU kernel seg2eye_tpu/ops/pallas/spade_style.py:83
+// (_kernel, launched by _fused_forward) in both compute dtypes.  One launch
+// computes one norm site:
 //
 //   gamma|beta = sum over the 9 taps of actv[y+dy-1, x+dx-1, :128] @ W[tap]
 //                + bcat                        (f32 accumulation, zero padding)
 //   out = ((x - mean) * rsqrt(var + eps) * (1 + gamma) + beta
-//          + x * (s0 + 1) + s1) / 2           (f32, stored as bf16)
+//          + x * (s0 + 1) + s1) / 2           (f32, stored in x's dtype)
 //
 // gamma and beta never reach device memory.
 //
 // What bounds it on this card: 2 * 1152 * 2C flops per pixel against
-// (2C + 128) * 2 bytes of x, out and actv, far above the H100's balance
-// point in bf16 (about 295 flops per byte), so the tensor cores.
+// (2C + 128) elements of x, out and actv, far above the H100's balance
+// point in either dtype, so the tensor cores: 989 TFLOP/s in bfloat16, and
+// in float32 495 / 3 = 165 TFLOP/s, since each product takes three TF32
+// passes.
 //
-// Design, one block = 128 output pixels x BN / 2 channels of one sample:
+// Why 3xTF32 in float32 and not one pass: a TF32 operand keeps 10 of
+// float32's 23 mantissa bits, so one TF32 product is off by about 2^-11
+// relative, some 1e-3 at gamma after 1152 terms, where the JAX package's
+// float32 reference is exact to about 1e-6.  Each operand is split into
+// hi = tf32(a) and lo = tf32(a - hi) (cvt.rna: round to nearest, ties away),
+// and hi*hi + hi*lo + lo*hi is summed in float32; the dropped lo*lo and the
+// rounding of lo are about 2^-22 relative, float32's own accuracy.  The
+// weights are split once on the host (pack_weights), actv in registers
+// after ldmatrix.  An unrounded float32 is not an option: the tensor core
+// drops its low 13 bits, which would truncate hi and lose lo's precision.
+// One more source of error remains: each wgmma adds its products to the
+// accumulator with less than round-to-nearest float32 accuracy, and 432
+// wgmmas into one accumulator drift by several float32 ulps of gamma
+// (on an H100, 4 to 5 times the error of a full-float32 sum).  So each
+// tap's 48 wgmmas start a fresh accumulator (scale-d = 0), which is then
+// added to a float32 total with FADD (TF32_FLUSH_TAPS below;
+// tools/tf32_flush_study.py measures the choice).
+//
+// Design, one block = 128 output pixels x BN / 2 channels of one sample,
+// shared by the two dtypes through an operand trait (Bf16Operand,
+// Tf32x3Operand):
 //   * GEMM view: M = 128 pixels laid out as a TH x TW tile (TW = 8 or 16,
 //     TH = 128 / TW), N = BN columns of interleaved (gamma_c, beta_c),
-//     K = 9 taps x 128 actv channels.  BN = 256 (128 channels), or 128
-//     where 2C <= 128, so that the C = 64 site fills its N tile.
+//     K = 9 taps x 128 actv channels.  bfloat16: BN = 256 (128 channels),
+//     or 128 where 2C <= 128, so that the C = 64 site fills its N tile.
+//     float32: BN = 128 always (shared memory, below).
 //   * A, the haloed actv tile (TH+2) x (TW+2) x 128, is loaded once by TMA
-//     from a 4-D tensor map over actv (N,H,W,128): two 64-channel boxes
-//     with the 128-byte swizzle.  TMA fills the box elements outside the
-//     image (negative coordinates included) with zeros, which is torch's
-//     zero padding, with no padded copy.  A tap is the same tile shifted by
-//     (dy, dx) pixels; a one-pixel shift breaks wgmma's 8-row core matrices
-//     in shared memory, so A goes through registers: ldmatrix.x4 takes one
-//     row address per lane, and each lane points at its shifted pixel
-//     (un-swizzling the address).
-//   * B, one tap's weights for 64 of the 128 k (64 x BN bf16, 32 KB at
-//     BN = 256), streams by TMA through a ring of STAGES stages with
-//     full/empty mbarriers, from pack_weights' K-major (9, 2C_pad, 128)
-//     layout with the 128-byte swizzle.  The whole weight tensor (at most
-//     4.7 MB) stays in the 50 MB L2 across blocks.
-//   * wgmma.m64nBNk16 (f32 += bf16 x bf16, A from registers): two consumer
-//     warpgroups of 64 rows each, and a producer warpgroup of which one
-//     thread issues the TMA loads.  setmaxnreg moves registers from the
-//     producer (40) to the consumers (232), which hold BN / 2 accumulators
-//     and two sets of A fragments.  One k-step's wgmmas stay in flight
-//     while the next step's A fragments are loaded and its wgmmas issued.
+//     from a 4-D tensor map over actv (N,H,W,128), in boxes of one 128-byte
+//     row of channels (64 bf16 or 32 f32) with the 128-byte swizzle.  TMA
+//     fills the box elements outside the image (negative coordinates
+//     included) with zeros, which is torch's zero padding, with no padded
+//     copy.  A tap is the same tile shifted by (dy, dx) pixels; a one-pixel
+//     shift breaks wgmma's 8-row core matrices in shared memory, so A goes
+//     through registers: ldmatrix.x4 takes one row address per lane, and
+//     each lane points at its shifted pixel (un-swizzling the address).
+//     The A fragment of wgmma k16 bf16 and of k8 tf32 is the same four 8x8
+//     b16 matrices (rows g, g+8 by 16-byte k chunks), so one addressing
+//     serves both; float32 then splits each value into hi and lo.
+//   * B, one tap's weights for one 128-byte row of k (BN rows), streams by
+//     TMA through a ring of STAGES stages with full/empty mbarriers, from
+//     pack_weights' K-major layout with the 128-byte swizzle: bfloat16
+//     (9, cols, 128), float32 (2, 9, cols, 128) holding hi then lo, both
+//     loaded into one stage.  The whole weight tensor (at most 4.7 MB in
+//     bfloat16, 18.9 MB in float32) stays in the 50 MB L2 across blocks.
+//   * wgmma (f32 += A from registers x B from shared memory): bfloat16
+//     m64nBNk16, one per 16 k; float32 m64n128k8, three per 8 k (hi*hi,
+//     hi*lo, lo*hi).  Two consumer warpgroups of 64 rows each, and a
+//     producer warpgroup of which one thread issues the TMA loads.
+//     setmaxnreg moves registers from the producer (40) to the consumers
+//     (232), which hold BN / 2 accumulators and two k-steps of A fragments.
+//     One k-step's wgmmas stay in flight while the next step's A fragments
+//     are loaded and its wgmmas issued.  The bfloat16 k loop (18 steps) is
+//     unrolled; the float32 one (36 steps, 432 wgmmas per warpgroup) runs
+//     one tap (4 steps) per trip, which keeps the build short, and waits
+//     for all its wgmmas at the end of the trip to add the tap's sum to
+//     the total (above).
 //   * Epilogue on the accumulators: wgmma gives each thread the column pair
-//     (2j, 2j+1) of its rows, which is (gamma_c, beta_c) of one channel, so
-//     the epilogue of spade_style.cu runs on registers.  While the
-//     consumers run the mainloop, three idle warps of the producer
-//     warpgroup stage the x tile (128 pixels x BN / 2 channels, 16-byte
-//     loads) and the per-channel mean, rstd, style and bias in shared
-//     memory.  The consumers compute out in place over the x tile, then
-//     write it with 16-byte stores: a quad of threads holds 4 neighbouring
-//     channels of 8 pixels, whose 2-byte accesses straight to device
-//     memory would coalesce badly.  Ragged pixels and channels are masked
-//     (2-byte accesses where C is not a multiple of 8).
-// Any H, W and C work.  One block per SM (384 threads at up to 168
-// registers each; 212 KB of shared memory at BN = 256, 131 KB at 128); a
-// persistent grid that overlaps one tile's epilogue with the next tile's
-// mainloop is later work.
+//     (2j, 2j+1) of its rows, which is (gamma_c, beta_c) of one channel.
+//     While the consumers run the mainloop, three idle warps of the
+//     producer warpgroup stage the x tile (128 pixels x BN / 2 channels,
+//     16-byte loads) and the per-channel mean, rstd, style and bias in
+//     shared memory.  The consumers compute out in place over the x tile,
+//     then write it with 16-byte stores: a quad of threads holds 4
+//     neighbouring channels of 8 pixels, whose narrow accesses straight to
+//     device memory would coalesce badly.  Ragged pixels and channels are
+//     masked (element accesses where C is not a multiple of 16 bytes).
+//   * Shared memory: bfloat16 at BN = 256, 4 stages x 32 KB of B + 2 x 23
+//     KB of halo + 34 KB of x tile = 212 KB; float32, 3 stages x 32 KB
+//     (hi + lo at BN = 128) + 4 x 23 KB of halo + 34 KB of x tile = 225 KB,
+//     within the 227 KB a block may use.  BN = 256 or a fourth stage would
+//     not fit in float32.
+// Any H, W and C work.  One block per SM (384 threads); a persistent grid
+// that overlaps one tile's epilogue with the next tile's mainloop is later
+// work.
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -66,42 +101,19 @@ namespace {
 
 constexpr int NHIDDEN = 128;                 // SPADE hidden width (actv channels)
 constexpr int BM = 128;                      // output pixels per block
-constexpr int BK = 64;                       // k per stage: one 128-byte row
-constexpr int KSTEPS = 9 * NHIDDEN / BK;     // 18: (tap, half of the k)
-constexpr int STAGES = 4;
 constexpr int CONSUMER_WARPGROUPS = 2;       // 64 rows each
 constexpr int CONSUMER_WARPS = 4 * CONSUMER_WARPGROUPS;
 constexpr int THREADS = 128 * (CONSUMER_WARPGROUPS + 1);   // + the producer
 constexpr int STAGERS = 96;      // producer threads that stage x and params
 // registers per thread after setmaxnreg: 128 * 40 + 256 * 232 <= 65536
 constexpr int PRODUCER_REGS = 40, CONSUMER_REGS = 232;
-constexpr int ROW_BYTES = BK * 2;            // one swizzled 128-byte row
+constexpr int ROW_BYTES = 128;               // one swizzled row of k
+constexpr int NPARAMS = 6;       // per channel: mean, rstd, s0 + 1, s1, bg, bb
+// float32: taps summed in one accumulator before it is added to the total
+constexpr int TF32_FLUSH_TAPS = 1;
+static_assert(9 % TF32_FLUSH_TAPS == 0, "the flush period divides the 9 taps");
 
 static_assert(BM == 64 * CONSUMER_WARPGROUPS, "one warpgroup per 64 rows");
-
-__host__ __device__ constexpr uint32_t halo_box_bytes(int tw_log2) {
-  return (uint32_t)((BM >> tw_log2) + 2) * ((1 << tw_log2) + 2) * ROW_BYTES;
-}
-__host__ __device__ constexpr uint32_t align1024(uint32_t v) {
-  return (v + 1023u) & ~1023u;
-}
-__host__ __device__ constexpr uint32_t b_stage_bytes(int bn) {
-  return (uint32_t)bn * BK * 2;
-}
-// a row of the x/out tile: BN / 2 bf16 channels plus 16 bytes, so that the
-// 8 rows a warp touches at once fall in different banks
-__host__ __device__ constexpr uint32_t x_row_bytes(int bn) {
-  return (uint32_t)bn + 16;
-}
-constexpr int NPARAMS = 6;       // per channel: mean, rstd, s0 + 1, s1, bg, bb
-// B stages, the two halo boxes, the x/out tile, the per-channel params and
-// the mbarriers, plus the slack that aligns the start to 1024 bytes (the
-// 128-byte swizzle's period).
-__host__ __device__ constexpr uint32_t smem_bytes(int tw_log2, int bn) {
-  return STAGES * b_stage_bytes(bn) +
-         2 * align1024(halo_box_bytes(tw_log2)) + BM * x_row_bytes(bn) +
-         NPARAMS * (bn / 2) * 4 + 8 * (2 * STAGES + 2) + 1024;
-}
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -258,22 +270,154 @@ __device__ __forceinline__ void wgmma(float (&d)[64], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
 }
 
-// tm_actv: actv (N, H, W, 128) bf16, box (64, TW+2, TH+2, 1).
-// tm_w: pack_weights' (9 * np_cols, 128) bf16, box (64, BN): row
-// tap * np_cols + j holds column j of that tap, j = 2c + (0 gamma | 1 beta).
-// x, out: (N, H, W, C) bf16.  style: (N, 2C) f32 [s0|s1].  mean, var:
-// (N, C) f32.  bcat: (C, 2) f32.
-template <int BN>
-__global__ void __launch_bounds__(THREADS, 1)
-spade_style_sm90_kernel(const __grid_constant__ CUtensorMap tm_actv,
-                        const __grid_constant__ CUtensorMap tm_w,
-                        const __nv_bfloat16* __restrict__ x,
-                        const float* __restrict__ style,
-                        const float* __restrict__ mean,
-                        const float* __restrict__ var,
-                        const float* __restrict__ bcat,
-                        __nv_bfloat16* __restrict__ out, int H, int W, int C,
-                        int np_cols, int tw_log2, int tiles_w, float eps) {
+// d (64 x 128 f32, this thread's 64) = a (64 x 8 tf32, registers) @ B
+// (8 x 128 tf32, K-major in shared memory at `desc`), + d unless
+// `accumulate` is 0.  TF32 takes no transpose operand.
+__device__ __forceinline__ void wgmma_tf32(float (&d)[64],
+                                           const uint32_t (&a)[4],
+                                           uint64_t desc, int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 "
+      "{ %0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      " %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      " %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63},"
+      " {%64, %65, %66, %67},"
+      " %68, p, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(accumulate));
+}
+
+// float32 -> TF32 rounded to nearest, ties away from zero; the low 13 bits
+// of the result are zero.
+__device__ __forceinline__ uint32_t tf32_rna(float v) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(v));
+  return r;
+}
+
+// What differs between the two dtypes.  BK: k per 128-byte row; PARTS: B
+// tiles per stage and A fragments per k slice; mma: the wgmmas of one k
+// slice (16 bf16 or 8 tf32 k, 32 bytes) into d, with B's first part at
+// `desc` and the second at `desc_lo`; FLUSH_TAPS: taps summed in d before
+// d is added to the total (0: d is the total).
+struct Bf16Operand {
+  using T = __nv_bfloat16;
+  static constexpr int BK = 64;
+  static constexpr int STAGES = 4;
+  static constexpr int PARTS = 1;
+  static constexpr int FLUSH_TAPS = 0;
+  static constexpr CUtensorMapDataType TMA_TYPE =
+      CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  static __device__ __forceinline__ float to_float(T v) {
+    return __bfloat162float(v);
+  }
+  static __device__ __forceinline__ T from_float(float v) {
+    return __float2bfloat16(v);
+  }
+  // ldmatrix gives the bf16 A fragment as it is
+  static __device__ __forceinline__ void split(uint32_t (&)[PARTS][4]) {}
+  template <int N>
+  static __device__ __forceinline__ void mma(float (&d)[N],
+                                             const uint32_t (&a)[PARTS][4],
+                                             uint64_t desc, uint64_t, bool) {
+    wgmma(d, a[0], desc);
+  }
+};
+
+struct Tf32x3Operand {
+  using T = float;
+  static constexpr int BK = 32;
+  static constexpr int STAGES = 3;
+  static constexpr int PARTS = 2;              // hi, lo
+  static constexpr int FLUSH_TAPS = TF32_FLUSH_TAPS;
+  static constexpr CUtensorMapDataType TMA_TYPE =
+      CU_TENSOR_MAP_DATA_TYPE_FLOAT32;
+  static __device__ __forceinline__ float to_float(T v) { return v; }
+  static __device__ __forceinline__ T from_float(float v) { return v; }
+  // a[0] holds the float32 bits from ldmatrix -> a[0] = hi, a[1] = lo
+  static __device__ __forceinline__ void split(uint32_t (&a)[PARTS][4]) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float v = __uint_as_float(a[0][i]);
+      const uint32_t hi = tf32_rna(v);
+      a[1][i] = tf32_rna(v - __uint_as_float(hi));
+      a[0][i] = hi;
+    }
+  }
+  // `fresh`: the first wgmma overwrites d
+  static __device__ __forceinline__ void mma(float (&d)[64],
+                                             const uint32_t (&a)[PARTS][4],
+                                             uint64_t desc_hi,
+                                             uint64_t desc_lo, bool fresh) {
+    wgmma_tf32(d, a[0], desc_hi, !fresh);
+    wgmma_tf32(d, a[0], desc_lo, 1);
+    wgmma_tf32(d, a[1], desc_hi, 1);
+  }
+};
+
+__host__ __device__ constexpr uint32_t align1024(uint32_t v) {
+  return (v + 1023u) & ~1023u;
+}
+__host__ __device__ constexpr uint32_t halo_box_bytes(int tw_log2) {
+  return (uint32_t)((BM >> tw_log2) + 2) * ((1 << tw_log2) + 2) * ROW_BYTES;
+}
+
+// Tile constants and the shared-memory layout of one (operand, BN).
+template <class Op, int BN>
+struct Tile {
+  static constexpr int NBOX = NHIDDEN / Op::BK;   // halo boxes, one row each
+  static constexpr int KSTEPS = 9 * NBOX;         // (tap, box)
+  static constexpr int COLS = BN / 2;             // channels in the tile
+  static constexpr int VEC = 16 / (int)sizeof(typename Op::T);
+  static constexpr uint32_t B_TILE = (uint32_t)BN * ROW_BYTES;
+  static constexpr uint32_t B_STAGE = Op::PARTS * B_TILE;
+  // a row of the x/out tile, plus 16 bytes, so that the 8 rows a warp
+  // touches at once fall in different banks
+  static constexpr uint32_t X_ROW = COLS * sizeof(typename Op::T) + 16;
+  // B stages, the halo boxes, the x/out tile, the per-channel params and
+  // the mbarriers, plus the slack that aligns the start to 1024 bytes (the
+  // 128-byte swizzle's period)
+  static __host__ __device__ constexpr uint32_t smem_bytes(int tw_log2) {
+    return Op::STAGES * B_STAGE + NBOX * align1024(halo_box_bytes(tw_log2)) +
+           BM * X_ROW + NPARAMS * COLS * 4 + 8 * (2 * Op::STAGES + 2) + 1024;
+  }
+  static_assert(NBOX % 2 == 0, "a tap's steps alternate the A buffers");
+};
+
+static_assert(Tile<Tf32x3Operand, 128>::smem_bytes(4) <= 232448,
+              "float32 tile exceeds a block's shared memory");
+static_assert(Tile<Bf16Operand, 256>::smem_bytes(4) <= 232448,
+              "bfloat16 tile exceeds a block's shared memory");
+
+// One block of one site.  tm_actv: actv (N, H, W, 128), box (BK, TW+2,
+// TH+2, 1).  tm_w: pack_weights' (PARTS * 9 * np_cols, 128), box (BK, BN):
+// row (part * 9 + tap) * np_cols + j holds column j of that tap, j = 2c +
+// (0 gamma | 1 beta).  x, out: (N, H, W, C).  style: (N, 2C) f32 [s0|s1].
+// mean, var: (N, C) f32.  bcat: (C, 2) f32.
+template <class Op, int BN>
+__device__ __forceinline__ void spade_style_sm90(
+    const CUtensorMap* tm_actv, const CUtensorMap* tm_w,
+    const typename Op::T* __restrict__ x, const float* __restrict__ style,
+    const float* __restrict__ mean, const float* __restrict__ var,
+    const float* __restrict__ bcat, typename Op::T* __restrict__ out, int H,
+    int W, int C, int np_cols, int tw_log2, int tiles_w, float eps) {
+  using T = typename Op::T;
+  using L = Tile<Op, BN>;
+  constexpr int STAGES = Op::STAGES;
+  constexpr int COLS = L::COLS, VEC = L::VEC;
+  constexpr uint32_t X_ROW = L::X_ROW;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
   uint8_t* const gbase = smem_raw + (base - smem_u32(smem_raw));  // generic
@@ -281,12 +425,9 @@ spade_style_sm90_kernel(const __grid_constant__ CUtensorMap tm_actv,
   const int halo_w = tw + 2;
   const uint32_t halo_bytes = halo_box_bytes(tw_log2);
   const uint32_t halo_stride = align1024(halo_bytes);
-  constexpr uint32_t B_STAGE_BYTES = b_stage_bytes(BN);
   const uint32_t b_smem = base;                         // STAGES x B stage
-  const uint32_t a_smem = base + STAGES * B_STAGE_BYTES;   // 2 halo boxes
-  constexpr uint32_t X_ROW = x_row_bytes(BN);
-  constexpr int COLS = BN / 2;                  // channels in the tile
-  uint8_t* const x_tile = gbase + (a_smem - base) + 2 * halo_stride;
+  const uint32_t a_smem = base + STAGES * L::B_STAGE;   // NBOX halo boxes
+  uint8_t* const x_tile = gbase + (a_smem - base) + L::NBOX * halo_stride;
   float* const params = reinterpret_cast<float*>(x_tile + BM * X_ROW);
   const uint32_t bars = smem_u32(params + NPARAMS * COLS);
   auto full_bar = [&](int s) { return bars + 8 * s; };
@@ -300,8 +441,8 @@ spade_style_sm90_kernel(const __grid_constant__ CUtensorMap tm_actv,
   const int col0 = blockIdx.y * BN;
   const int c_base = col0 / 2;                  // first channel of the tile
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  // x and out in 16-byte vectors of 8 channels where rows allow it
-  const bool vec = (C & 7) == 0 &&
+  // x and out in 16-byte vectors where rows allow it
+  const bool vec = C % VEC == 0 &&
                    (((uintptr_t)x | (uintptr_t)out) & 15) == 0;
   // device-memory element of tile row m, channel c_base + c; -1 outside
   auto elem = [&](int m, int c) -> long long {
@@ -326,19 +467,19 @@ spade_style_sm90_kernel(const __grid_constant__ CUtensorMap tm_actv,
     if (warp > CONSUMER_WARPS) {                // stage x and the params
       const int t = threadIdx.x - 32 * (CONSUMER_WARPS + 1);
       if (vec) {
-        for (int v = t; v < BM * COLS / 8; v += STAGERS) {
-          const int m = v / (COLS / 8), c = 8 * (v % (COLS / 8));
+        for (int v = t; v < BM * COLS / VEC; v += STAGERS) {
+          const int m = v / (COLS / VEC), c = VEC * (v % (COLS / VEC));
           const long long e = elem(m, c);
           const uint4 val = e < 0 ? make_uint4(0, 0, 0, 0)
                                   : __ldg(reinterpret_cast<const uint4*>(x + e));
-          *reinterpret_cast<uint4*>(x_tile + m * X_ROW + 2 * c) = val;
+          *reinterpret_cast<uint4*>(x_tile + m * X_ROW + sizeof(T) * c) = val;
         }
       } else {
         for (int v = t; v < BM * COLS; v += STAGERS) {
           const int m = v / COLS, c = v % COLS;
           const long long e = elem(m, c);
-          reinterpret_cast<__nv_bfloat16*>(x_tile + m * X_ROW)[c] =
-              e < 0 ? __float2bfloat16(0.f) : x[e];
+          reinterpret_cast<T*>(x_tile + m * X_ROW)[c] =
+              e < 0 ? Op::from_float(0.f) : x[e];
         }
       }
       for (int c = t; c < COLS; c += STAGERS) {
@@ -354,64 +495,102 @@ spade_style_sm90_kernel(const __grid_constant__ CUtensorMap tm_actv,
       }
       mbar_arrive(x_bar);
     } else if (threadIdx.x == 32 * CONSUMER_WARPS) {   // the TMA issuer
-      mbar_expect_tx(halo_bar, 2 * halo_bytes);
-      for (int h = 0; h < 2; ++h)
-        tma_load_4d(a_smem + h * halo_stride, &tm_actv, halo_bar, h * BK,
+      mbar_expect_tx(halo_bar, L::NBOX * halo_bytes);
+      for (int h = 0; h < L::NBOX; ++h)
+        tma_load_4d(a_smem + h * halo_stride, tm_actv, halo_bar, h * Op::BK,
                     x0 - 1, y0 - 1, n);
-      for (int s = 0; s < KSTEPS; ++s) {
+      // k-step s: tap s / NBOX, k from (s % NBOX) * BK; the parts of one
+      // stage (float32: hi, lo) are 9 * np_cols rows apart
+      for (int s = 0; s < L::KSTEPS; ++s) {
         const int st = s % STAGES;
         if (s >= STAGES) mbar_wait(empty_bar(st), ((s / STAGES) - 1) & 1);
-        mbar_expect_tx(full_bar(st), B_STAGE_BYTES);
-        tma_load_2d(b_smem + st * B_STAGE_BYTES, &tm_w, full_bar(st),
-                    (s & 1) * BK, (s >> 1) * np_cols + col0);
+        mbar_expect_tx(full_bar(st), L::B_STAGE);
+        for (int p = 0; p < Op::PARTS; ++p)
+          tma_load_2d(b_smem + st * L::B_STAGE + p * L::B_TILE, tm_w,
+                      full_bar(st), (s % L::NBOX) * Op::BK,
+                      (p * 9 + s / L::NBOX) * np_cols + col0);
       }
     }
   } else {                                      // the consumer warpgroups
     asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;" ::"n"(CONSUMER_REGS));
     // warpgroup wg owns tile rows 64 wg .. 64 wg + 63
     const int wg = warp / 4;
-    // the A row this lane addresses for ldmatrix, and its 8-k half
+    // the A row this lane addresses for ldmatrix, and its 16-byte k chunk
     const int m_lane = wg * 64 + (warp % 4) * 16 + (lane & 15);
     const int a_row0 = (m_lane >> tw_log2) * halo_w + (m_lane & (tw - 1));
     const int kc = lane >> 4;
 
-    // A fragments of k-step s: tap s / 2 (dy, dx) over the 64 channels of
-    // halo box s % 2, four 16-wide k slices
-    auto load_a = [&](uint32_t (&a)[4][4], int s) {
-      const int tap = s >> 1;
+    // A fragments of k-step s: tap s / NBOX (dy, dx) over the channels of
+    // halo box s % NBOX, four 32-byte k slices
+    auto load_a = [&](uint32_t (&a)[4][Op::PARTS][4], int s) {
+      const int tap = s / L::NBOX;
       const int r = a_row0 + (tap / 3) * halo_w + tap % 3;
-      const uint32_t row = a_smem + (s & 1) * halo_stride + r * ROW_BYTES;
+      const uint32_t row = a_smem + (s % L::NBOX) * halo_stride + r * ROW_BYTES;
 #pragma unroll
-      for (int kk = 0; kk < 4; ++kk)
-        ldmatrix_x4(a[kk], row + (((2 * kk + kc) ^ (r & 7)) << 4));
+      for (int kk = 0; kk < 4; ++kk) {
+        ldmatrix_x4(a[kk][0], row + (((2 * kk + kc) ^ (r & 7)) << 4));
+        Op::split(a[kk]);
+      }
     };
 
     float acc[BN / 2];
 #pragma unroll
     for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
-    uint32_t a[2][4][4];
-    mbar_wait(halo_bar, 0);
-    load_a(a[0], 0);
-    // step s: issue its wgmmas, then wait for step s - 1's, release its B
-    // stage and load step s + 1's A into the registers step s - 1 read
-#pragma unroll
-    for (int s = 0; s < KSTEPS; ++s) {
+    // step s: issue its wgmmas from a (the first one overwrites acc when
+    // `fresh`), then wait for step s - 1's (for all, step s's too, when
+    // `last`), release step s - 1's B stage and load step s + 1's A into
+    // `next`, which step s - 1 read
+    auto step = [&](int s, const uint32_t (&a)[4][Op::PARTS][4],
+                    uint32_t (&next)[4][Op::PARTS][4], bool fresh,
+                    bool last) {
       const int st = s % STAGES;
       mbar_wait(full_bar(st), (s / STAGES) & 1);
       fence_acc(acc);
       wgmma_fence();
-      const uint64_t desc = sw128_desc(b_smem + st * B_STAGE_BYTES);
+      const uint32_t b = b_smem + st * L::B_STAGE;
+      const uint64_t desc = sw128_desc(b), desc_lo = sw128_desc(b + L::B_TILE);
 #pragma unroll
-      for (int kk = 0; kk < 4; ++kk)      // 16 k = 32 bytes = 2 desc units
-        wgmma(acc, a[s & 1][kk], desc + 2 * kk);
+      for (int kk = 0; kk < 4; ++kk)      // 32 bytes = 2 descriptor units
+        Op::mma(acc, a[kk], desc + 2 * kk, desc_lo + 2 * kk, fresh && kk == 0);
       wgmma_commit();
-      wgmma_wait<1>();
+      if (last)
+        wgmma_wait<0>();
+      else
+        wgmma_wait<1>();
       fence_acc(acc);
       if (s > 0 && lane == 0) mbar_arrive(empty_bar((s - 1) % STAGES));
-      if (s + 1 < KSTEPS) load_a(a[(s + 1) & 1], s + 1);
+      if (s + 1 < L::KSTEPS) load_a(next, s + 1);
+    };
+    uint32_t a[2][4][Op::PARTS][4];
+    mbar_wait(halo_bar, 0);
+    load_a(a[0], 0);
+    if constexpr (Op::FLUSH_TAPS == 0) {
+#pragma unroll
+      for (int s = 0; s < L::KSTEPS; ++s)
+        step(s, a[s & 1], a[(s + 1) & 1], false, false);
+      wgmma_wait<0>();
+      fence_acc(acc);
+    } else {
+      // one tap per trip; every FLUSH_TAPS taps, acc is added to the total
+      float total[BN / 2];
+#pragma unroll
+      for (int i = 0; i < BN / 2; ++i) total[i] = 0.f;
+#pragma unroll 1
+      for (int tap = 0; tap < 9; ++tap) {
+        const bool fresh = tap % Op::FLUSH_TAPS == 0;
+        const bool last = (tap + 1) % Op::FLUSH_TAPS == 0;
+#pragma unroll
+        for (int j = 0; j < L::NBOX; ++j)
+          step(tap * L::NBOX + j, a[j & 1], a[(j + 1) & 1], fresh && j == 0,
+               last && j == L::NBOX - 1);
+        if (last) {
+#pragma unroll
+          for (int i = 0; i < BN / 2; ++i) total[i] += acc[i];
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < BN / 2; ++i) acc[i] = total[i];
     }
-    wgmma_wait<0>();
-    fence_acc(acc);
 
     // epilogue: acc[4i + 2h + j] is row (lane / 4) + 8h of this warp's 16,
     // column col0 + 8i + 2 (lane % 4) + j, i.e. tile channel
@@ -427,35 +606,68 @@ spade_style_sm90_kernel(const __grid_constant__ CUtensorMap tm_actv,
       const float bg = params[4 * COLS + c], bb = params[5 * COLS + c];
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
-        __nv_bfloat16* const p =
-            reinterpret_cast<__nv_bfloat16*>(x_tile + (m0 + 8 * h) * X_ROW) + c;
-        const float xv = __bfloat162float(*p);
+        T* const p = reinterpret_cast<T*>(x_tile + (m0 + 8 * h) * X_ROW) + c;
+        const float xv = Op::to_float(*p);
         const float gamma = acc[4 * i + 2 * h] + bg;
         const float beta = acc[4 * i + 2 * h + 1] + bb;
         const float spade = (xv - m) * rstd * (1.f + gamma) + beta;
         const float adain = xv * s0p1 + s1;
-        *p = __float2bfloat16((spade + adain) * 0.5f);
+        *p = Op::from_float((spade + adain) * 0.5f);
       }
     }
     consumer_sync();
     const int t = threadIdx.x;
     if (vec) {
-      for (int v = t; v < BM * COLS / 8; v += 32 * CONSUMER_WARPS) {
-        const int m = v / (COLS / 8), c = 8 * (v % (COLS / 8));
+      for (int v = t; v < BM * COLS / VEC; v += 32 * CONSUMER_WARPS) {
+        const int m = v / (COLS / VEC), c = VEC * (v % (COLS / VEC));
         const long long e = elem(m, c);
         if (e >= 0)
           *reinterpret_cast<uint4*>(out + e) =
-              *reinterpret_cast<const uint4*>(x_tile + m * X_ROW + 2 * c);
+              *reinterpret_cast<const uint4*>(x_tile + m * X_ROW +
+                                              sizeof(T) * c);
       }
     } else {
       for (int v = t; v < BM * COLS; v += 32 * CONSUMER_WARPS) {
         const int m = v / COLS, c = v % COLS;
         const long long e = elem(m, c);
-        if (e >= 0)
-          out[e] = reinterpret_cast<const __nv_bfloat16*>(x_tile + m * X_ROW)[c];
+        if (e >= 0) out[e] = reinterpret_cast<const T*>(x_tile + m * X_ROW)[c];
       }
     }
   }
+}
+
+// bfloat16, BN = 128 or 256.
+template <int BN>
+__global__ void __launch_bounds__(THREADS, 1)
+spade_style_sm90_kernel(const __grid_constant__ CUtensorMap tm_actv,
+                        const __grid_constant__ CUtensorMap tm_w,
+                        const __nv_bfloat16* __restrict__ x,
+                        const float* __restrict__ style,
+                        const float* __restrict__ mean,
+                        const float* __restrict__ var,
+                        const float* __restrict__ bcat,
+                        __nv_bfloat16* __restrict__ out, int H, int W, int C,
+                        int np_cols, int tw_log2, int tiles_w, float eps) {
+  spade_style_sm90<Bf16Operand, BN>(&tm_actv, &tm_w, x, style, mean, var,
+                                    bcat, out, H, W, C, np_cols, tw_log2,
+                                    tiles_w, eps);
+}
+
+// float32 (3xTF32), BN = 128.
+__global__ void __launch_bounds__(THREADS, 1)
+spade_style_3xtf32_sm90_kernel(const __grid_constant__ CUtensorMap tm_actv,
+                               const __grid_constant__ CUtensorMap tm_w,
+                               const float* __restrict__ x,
+                               const float* __restrict__ style,
+                               const float* __restrict__ mean,
+                               const float* __restrict__ var,
+                               const float* __restrict__ bcat,
+                               float* __restrict__ out, int H, int W, int C,
+                               int np_cols, int tw_log2, int tiles_w,
+                               float eps) {
+  spade_style_sm90<Tf32x3Operand, 128>(&tm_actv, &tm_w, x, style, mean, var,
+                                       bcat, out, H, W, C, np_cols, tw_log2,
+                                       tiles_w, eps);
 }
 
 typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType,
@@ -488,67 +700,110 @@ EncodeTiledFn encode_tiled() {
 constexpr int ERR_NO_TENSOR_MAP = -1;    // see seg2eye_cuda_error_string
 constexpr int ERR_TENSOR_MAP = -2;
 
+// The arguments of every entry point.
+struct Site {
+  int device;
+  const void *actv, *x, *style, *mean, *var, *wcat, *bcat;
+  void* out;
+  int N, H, W, C;
+  float eps;
+  void* stream;
+};
+
+// Encodes the two tensor maps and launches `kernel`, the (Op, BN) block.
+template <class Op, int BN, class Kernel>
+int launch(Kernel kernel, const Site& a) {
+  using T = typename Op::T;
+  constexpr cuuint64_t E = sizeof(T);
+  cudaError_t err = cudaSetDevice(a.device);
+  if (err != cudaSuccess) return (int)err;
+  EncodeTiledFn encode = encode_tiled();
+  if (encode == nullptr) return ERR_NO_TENSOR_MAP;
+
+  // the packed weights' columns: 2C rounded up to 128 where 2C <= 128, else
+  // to 256 (pack_weights does the same); BN divides it
+  const int cols_tile = 2 * a.C <= 128 ? 128 : 256;
+  const int np_cols = (2 * a.C + cols_tile - 1) / cols_tile * cols_tile;
+  const int tw_log2 = a.W <= 8 ? 3 : 4;
+  const int tw = 1 << tw_log2, th = BM >> tw_log2;
+  const cuuint32_t ones[4] = {1, 1, 1, 1};
+
+  CUtensorMap tm_actv, tm_w;
+  const cuuint64_t a_dim[4] = {NHIDDEN, (cuuint64_t)a.W, (cuuint64_t)a.H,
+                               (cuuint64_t)a.N};
+  const cuuint64_t a_stride[3] = {NHIDDEN * E, (cuuint64_t)a.W * NHIDDEN * E,
+                                  (cuuint64_t)a.H * a.W * NHIDDEN * E};
+  const cuuint32_t a_box[4] = {Op::BK, (cuuint32_t)tw + 2, (cuuint32_t)th + 2,
+                               1};
+  if (encode(&tm_actv, Op::TMA_TYPE, 4, const_cast<void*>(a.actv), a_dim,
+             a_stride, a_box, ones, CU_TENSOR_MAP_INTERLEAVE_NONE,
+             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
+    return ERR_TENSOR_MAP;
+  const cuuint64_t w_dim[2] = {NHIDDEN,
+                               (cuuint64_t)Op::PARTS * 9 * np_cols};
+  const cuuint64_t w_stride[1] = {NHIDDEN * E};
+  const cuuint32_t w_box[2] = {Op::BK, BN};
+  if (encode(&tm_w, Op::TMA_TYPE, 2, const_cast<void*>(a.wcat), w_dim,
+             w_stride, w_box, ones, CU_TENSOR_MAP_INTERLEAVE_NONE,
+             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
+    return ERR_TENSOR_MAP;
+
+  const uint32_t smem = Tile<Op, BN>::smem_bytes(tw_log2);
+  err = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const int tiles_w = (a.W + tw - 1) / tw;
+  const int tiles_h = (a.H + th - 1) / th;
+  const dim3 grid(tiles_h * tiles_w, np_cols / BN, a.N);
+  kernel<<<grid, THREADS, smem, (cudaStream_t)a.stream>>>(
+      tm_actv, tm_w, (const T*)a.x, (const float*)a.style,
+      (const float*)a.mean, (const float*)a.var, (const float*)a.bcat,
+      (T*)a.out, a.H, a.W, a.C, np_cols, tw_log2, tiles_w, a.eps);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
 
 // actv, x, out: (N, H, W, 128|C|C) bf16 contiguous, actv 16-byte aligned.
-// wcat: (9, np_cols, 128) bf16 with np_cols = 2C rounded up to the N tile.
+// wcat: (9, np_cols, 128) bf16 with np_cols = 2C rounded up to 128 or 256.
 int spade_style_fwd_bf16_sm90(int device, const void* actv, const void* x,
                               const void* style, const void* mean,
                               const void* var, const void* wcat,
                               const void* bcat, void* out, int N, int H,
                               int W, int C, float eps, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return (int)err;
-  EncodeTiledFn encode = encode_tiled();
-  if (encode == nullptr) return ERR_NO_TENSOR_MAP;
+  const Site a{device, actv, x, style, mean, var, wcat, bcat, out,
+               N, H, W, C, eps, stream};
+  if (2 * C <= 128)
+    return launch<Bf16Operand, 128>(spade_style_sm90_kernel<128>, a);
+  return launch<Bf16Operand, 256>(spade_style_sm90_kernel<256>, a);
+}
 
-  // the N tile: 128 columns where 2C fits in them, else 256; the packed
-  // weights' columns are 2C rounded up to it (pack_weights does the same)
-  const int bn = 2 * C <= 128 ? 128 : 256;
-  const int np_cols = (2 * C + bn - 1) / bn * bn;
-  const int tw_log2 = W <= 8 ? 3 : 4;
-  const int tw = 1 << tw_log2, th = BM >> tw_log2;
-  const cuuint32_t ones[4] = {1, 1, 1, 1};
+// actv, x, out: (N, H, W, 128|C|C) f32 contiguous, actv 16-byte aligned.
+// wcat: (2, 9, np_cols, 128) f32, TF32 hi then lo, np_cols as above.
+int spade_style_fwd_f32_3xtf32_sm90(int device, const void* actv,
+                                    const void* x, const void* style,
+                                    const void* mean, const void* var,
+                                    const void* wcat, const void* bcat,
+                                    void* out, int N, int H, int W, int C,
+                                    float eps, void* stream) {
+  const Site a{device, actv, x, style, mean, var, wcat, bcat, out,
+               N, H, W, C, eps, stream};
+  return launch<Tf32x3Operand, 128>(spade_style_3xtf32_sm90_kernel, a);
+}
 
-  CUtensorMap tm_actv, tm_w;
-  const cuuint64_t a_dim[4] = {NHIDDEN, (cuuint64_t)W, (cuuint64_t)H,
-                               (cuuint64_t)N};
-  const cuuint64_t a_stride[3] = {NHIDDEN * 2, (cuuint64_t)W * NHIDDEN * 2,
-                                  (cuuint64_t)H * W * NHIDDEN * 2};
-  const cuuint32_t a_box[4] = {BK, (cuuint32_t)tw + 2, (cuuint32_t)th + 2, 1};
-  if (encode(&tm_actv, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
-             const_cast<void*>(actv), a_dim, a_stride, a_box, ones,
-             CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-             CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
-    return ERR_TENSOR_MAP;
-  const cuuint64_t w_dim[2] = {NHIDDEN, (cuuint64_t)9 * np_cols};
-  const cuuint64_t w_stride[1] = {NHIDDEN * 2};
-  const cuuint32_t w_box[2] = {BK, (cuuint32_t)bn};
-  if (encode(&tm_w, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
-             const_cast<void*>(wcat), w_dim, w_stride, w_box, ones,
-             CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-             CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
-    return ERR_TENSOR_MAP;
-
-  auto kernel = bn == 128 ? spade_style_sm90_kernel<128>
-                          : spade_style_sm90_kernel<256>;
-  const uint32_t smem = smem_bytes(tw_log2, bn);
-  err = cudaFuncSetAttribute(kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const int tiles_w = (W + tw - 1) / tw;
-  const int tiles_h = (H + th - 1) / th;
-  const dim3 grid(tiles_h * tiles_w, np_cols / bn, N);
-  kernel<<<grid, THREADS, smem, (cudaStream_t)stream>>>(
-      tm_actv, tm_w, (const __nv_bfloat16*)x, (const float*)style,
-      (const float*)mean, (const float*)var, (const float*)bcat,
-      (__nv_bfloat16*)out, H, W, C, np_cols, tw_log2, tiles_w, eps);
-  return (int)cudaGetLastError();
+// Error codes of every entry point of the library: CUDA runtime errors, and
+// the negative codes of the tensor-map encoding.
+const char* seg2eye_cuda_error_string(int err) {
+  if (err == ERR_NO_TENSOR_MAP)
+    return "cuTensorMapEncodeTiled is not available (TMA needs CUDA 12 or "
+           "later)";
+  if (err == ERR_TENSOR_MAP) return "cuTensorMapEncodeTiled refused a tensor map";
+  return cudaGetErrorString((cudaError_t)err);
 }
 
 }  // extern "C"

@@ -9,20 +9,25 @@ Per norm site (reference normalization.py:172-192):
     out   = (normalize(x) * (1 + gamma) + beta + x * (s0 + 1) + s1) / 2
 
 ``spade_style`` is the entry point.  A CPU tensor takes the plain version,
-``spade_style_reference``; a CUDA tensor takes a kernel or raises:
-bfloat16 the tensor-core kernel (``csrc/spade_style_sm90.cu``: wgmma with
-TMA loads), float32 the FFMA kernel (``csrc/spade_style.cu``; tensor cores
-in float32 would mean TF32).  ``spade_style_from_actv`` is the plain
-version of exactly what the kernels compute, from ``actv`` on.  The
-backward of both routes is the autograd of ``spade_style_reference``,
-recomputed from the inputs, as the TPU kernel's custom VJP does; there is
-no backward kernel.
+``spade_style_reference``; a CUDA tensor takes its dtype's tensor-core
+kernel (``csrc/spade_style_sm90.cu``: wgmma with TMA loads) or raises:
+bfloat16 in one pass, float32 in three TF32 passes (3xTF32: each operand
+split into a TF32 hi and lo, hi*hi + hi*lo + lo*hi summed in float32),
+which keeps float32's accuracy; one TF32 pass would not.
+``spade_style_from_actv`` is the plain version of exactly what the kernels
+compute, from ``actv`` on.  Its float32 convolutions run in full float32
+whatever the process's TF32 flags (``full_float32``).  The backward of
+both routes is the autograd of ``spade_style_reference``, recomputed from
+the inputs, as the TPU kernel's custom VJP does; there is no backward
+kernel.
 
 Layouts are the JAX package's: x (N,H,W,C), seg (N,H,W,S), style (N,2C)
 holding [s0|s1], mean/var (N,C) float32.  Weights are torch's OIHW:
 ws (128,S,3,3), wg/wb (C,128,3,3), biases (128,) and (C,).
 """
 from __future__ import annotations
+
+import contextlib
 
 import torch
 import torch.nn.functional as F
@@ -31,16 +36,37 @@ EPS = 1e-5
 NHIDDEN = 128
 # the kernel, and its source, per dtype
 KERNELS = {torch.bfloat16: "spade_style_fwd_bf16_sm90",
-           torch.float32: "spade_style_fwd_f32"}
-SOURCE = {torch.bfloat16: "seg2eye_tpu_torch/ops/csrc/spade_style_sm90.cu",
-          torch.float32: "seg2eye_tpu_torch/ops/csrc/spade_style.cu"}
+           torch.float32: "spade_style_fwd_f32_3xtf32_sm90"}
+SOURCE = {dtype: "seg2eye_tpu_torch/ops/csrc/spade_style_sm90.cu"
+          for dtype in KERNELS}
 REPLACES = "seg2eye_tpu/ops/pallas/spade_style.py:83"   # the Pallas _kernel
 
 
+@contextlib.contextmanager
+def full_float32(enabled: bool = True):
+    """Inside, cuDNN convolutions and matmuls of float32 tensors run in
+    full float32, not TF32 (PyTorch lets cuDNN use TF32 by default); the
+    two flags are restored on exit.  The flags matter on CUDA only.  Not
+    ``torch.backends.cudnn.flags``, whose defaults would also reset
+    cuDNN's ``enabled``, ``benchmark`` and ``deterministic``."""
+    if not enabled:
+        yield
+        return
+    cudnn, matmul = torch.backends.cudnn, torch.backends.cuda.matmul
+    saved = cudnn.allow_tf32, matmul.allow_tf32
+    cudnn.allow_tf32 = matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        cudnn.allow_tf32, matmul.allow_tf32 = saved
+
+
 def _conv3x3(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """NHWC 3x3 'same' conv in x's dtype (cuDNN on the card)."""
-    y = F.conv2d(x.permute(0, 3, 1, 2), w.to(x.dtype), b.to(x.dtype),
-                 padding=1)
+    """NHWC 3x3 'same' conv in x's dtype (cuDNN on the card; float32 in
+    full float32)."""
+    with full_float32(x.dtype == torch.float32):
+        y = F.conv2d(x.permute(0, 3, 1, 2), w.to(x.dtype), b.to(x.dtype),
+                     padding=1)
     return y.permute(0, 2, 3, 1)
 
 
@@ -54,11 +80,17 @@ def spade_style_from_actv(x, actv, style, mean, var, wg, bg, wb, bb,
                           eps: float = EPS):
     """The plain version of what the kernels compute: from ``actv`` on,
     line for line the JAX reference math."""
+    return spade_style_epilogue(x, _conv3x3(actv, wg, bg),
+                                _conv3x3(actv, wb, bb), style, mean, var, eps)
+
+
+def spade_style_epilogue(x, gamma, beta, style, mean, var, eps: float = EPS):
+    """out from gamma and beta (N,H,W,C): the normalise + AdaIN + average
+    epilogue, in float32 (at least), stored in x's dtype."""
     c = x.shape[-1]
     f32 = torch.promote_types(x.dtype, torch.float32)
     x32 = x.to(f32)
-    gamma = _conv3x3(actv, wg, bg).to(f32)
-    beta = _conv3x3(actv, wb, bb).to(f32)
+    gamma, beta = gamma.to(f32), beta.to(f32)
     normalized = (x32 - mean[:, None, None, :]) * \
         torch.rsqrt(var[:, None, None, :] + eps)
     spade = normalized * (1.0 + gamma) + beta
@@ -88,37 +120,47 @@ def n_tile(c: int) -> int:
 
 
 def packed_columns(c: int) -> int:
-    """Columns of the bfloat16 layout: 2C rounded up to the N tile."""
+    """Columns of the packed layouts: 2C rounded up to the bfloat16 N tile
+    (the float32 kernel's N tile, 128, divides it too)."""
     return -(-2 * c // n_tile(c)) * n_tile(c)
+
+
+def tf32_round(t: torch.Tensor) -> torch.Tensor:
+    """float32 -> the nearest TF32 value, ties away from zero, as
+    ``cvt.rna.tf32.f32`` rounds: the low 13 mantissa bits become zero."""
+    bits = t.to(torch.float32).contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
 
 
 def pack_weights(wg, bg, wb, bb, dtype: torch.dtype):
     """The kernel's weight layout for ``dtype``, and bcat (C,2) float32
     holding (bg[c], bb[c]).
 
-    bfloat16 (the tensor-core kernel): wcat (9, packed_columns(C), 128),
-    K-major per tap: wcat[3*dy + dx, j, k] is column j of tap (dy, dx) at
-    actv channel k, with columns interleaved j = 2c (gamma) and 2c + 1
-    (beta), and the columns past 2C zero.
+    Per tap, K-major: column j of tap (dy, dx) at actv channel k, with
+    columns interleaved j = 2c (gamma) and 2c + 1 (beta), and the columns
+    past 2C zero, packed_columns(C) of them.
 
-    float32 (the FFMA kernel): wcat (3,3,128,C,2), gamma's and beta's
-    weights of channel c side by side."""
+    bfloat16: wcat (9, cols, 128), wcat[3*dy + dx, j, k].
+    float32 (3xTF32): wcat (2, 9, cols, 128), wcat[0] = hi = tf32(w) and
+    wcat[1] = lo = tf32(w - hi), so that hi + lo is w to about 2^-22."""
     c = wg.shape[0]
     bcat = torch.stack([bg, bb], dim=-1).to(torch.float32).contiguous()
-    if dtype == torch.float32:
-        wcat = torch.stack([wg, wb], dim=-1).permute(2, 3, 1, 0, 4)
-        return wcat.to(dtype).contiguous(), bcat
     cols = torch.stack([wg, wb], dim=1).reshape(2 * c, NHIDDEN, 3, 3)
-    wcat = torch.zeros((9, packed_columns(c), NHIDDEN), dtype=dtype,
-                       device=wg.device)
-    wcat[:, :2 * c] = cols.permute(2, 3, 0, 1).reshape(9, 2 * c, NHIDDEN)
-    return wcat, bcat
+    cols = cols.permute(2, 3, 0, 1).reshape(9, 2 * c, NHIDDEN)
+    parts = [cols]
+    if dtype == torch.float32:
+        hi = tf32_round(cols)
+        parts = [hi, tf32_round(cols - hi)]
+    wcat = torch.zeros((len(parts), 9, packed_columns(c), NHIDDEN),
+                       dtype=dtype, device=wg.device)
+    for i, part in enumerate(parts):
+        wcat[i, :, :2 * c] = part
+    return (wcat if dtype == torch.float32 else wcat[0]), bcat
 
 
 def packed_shape(c: int, dtype: torch.dtype) -> tuple:
-    if dtype == torch.float32:
-        return (3, 3, NHIDDEN, c, 2)
-    return (9, packed_columns(c), NHIDDEN)
+    shape = (9, packed_columns(c), NHIDDEN)
+    return (2, *shape) if dtype == torch.float32 else shape
 
 
 class PackedWeights:
@@ -188,7 +230,8 @@ def spade_style_cuda(x, actv, style, mean, var, wcat, bcat,
 
 class _SpadeStyle(torch.autograd.Function):
     """Kernel (CUDA) or plain version (CPU) forward; the backward is the
-    autograd of ``spade_style_reference``, recomputed."""
+    autograd of ``spade_style_reference``, recomputed (float32 in full
+    float32)."""
 
     @staticmethod
     def forward(ctx, x, seg, style, mean, var, ws, bs, wg, bg, wb, bb, eps,
@@ -208,7 +251,8 @@ class _SpadeStyle(torch.autograd.Function):
         inputs = [t.detach().requires_grad_(need) for t, need in
                   zip(ctx.saved_tensors, ctx.needs_input_grad)]
         wanted = [t for t in inputs if t.requires_grad]
-        with torch.enable_grad():
+        with torch.enable_grad(), full_float32(
+                grad_out.dtype == torch.float32):
             out = spade_style_reference(*inputs, eps=ctx.eps)
             grads = iter(torch.autograd.grad(out, wanted, grad_out))
         return tuple(next(grads) if t.requires_grad else None

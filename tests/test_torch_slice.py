@@ -183,6 +183,36 @@ def test_latent_style_and_encode_only(jax_variables):
                                   model.inference(batch))
 
 
+@pytest.mark.parametrize("dtype,tf32", [("float32", False),
+                                        ("bfloat16", True)])
+def test_float32_model_keeps_convolutions_out_of_tf32(jax_variables,
+                                                      monkeypatch, dtype,
+                                                      tf32):
+    """With PyTorch's default flags (cuDNN may use TF32), every convolution
+    of a float32 ``inference`` and ``encode_only`` runs with both TF32
+    flags off, and the flags are back on after each; a bfloat16 model
+    leaves them as they are."""
+    cudnn, matmul = torch.backends.cudnn, torch.backends.cuda.matmul
+    monkeypatch.setattr(cudnn, "allow_tf32", True)
+    monkeypatch.setattr(matmul, "allow_tf32", True)
+    seen = []
+    conv2d = torch.nn.functional.conv2d
+
+    def recording_conv2d(*args, **kwargs):
+        seen.append((cudnn.allow_tf32, matmul.allow_tf32))
+        return conv2d(*args, **kwargs)
+
+    monkeypatch.setattr(torch.nn.functional, "conv2d", recording_conv2d)
+    opt = tiny_opt(compute_dtype=dtype, **GEOMETRIES["square"])
+    model = port_model(opt, jax_variables("square"))
+    batch = make_batch(opt)
+    for run in (model.inference, model.encode_only):
+        seen.clear()
+        run(batch)
+        assert seen and set(seen) == {(tf32, tf32)}, run.__name__
+        assert (cudnn.allow_tf32, matmul.allow_tf32) == (True, True)
+
+
 def test_cpu_slice_launches_no_kernel(jax_variables, monkeypatch):
     monkeypatch.setattr(K.spade_style, "launches", 0)
     opt = tiny_opt(**GEOMETRIES["square"])
@@ -317,13 +347,15 @@ def imports_of_jax_package(path):
 
 
 def test_port_source_never_imports_jax_package(tmp_path):
-    """No file of the port, nor chip_smoke.py or the port's profiler, has an
+    """No file of the port, nor chip_smoke.py or the port's card tools, has an
     ``import seg2eye_tpu...`` or ``from seg2eye_tpu... import`` anywhere,
     lazy imports included."""
     files = sorted(glob.glob(os.path.join(REPO, "seg2eye_tpu_torch", "**",
                                           "*.py"), recursive=True))
     files += [os.path.join(REPO, "chip_smoke.py"),
-              os.path.join(REPO, "tools", "profile_torch_slice.py")]
+              os.path.join(REPO, "tools", "profile_torch_slice.py"),
+              os.path.join(REPO, "tools", "tf32_flush_study.py"),
+              os.path.join(REPO, "tools", "time_torch_slice.py")]
     assert len(files) >= 20
     bad = {os.path.relpath(f, REPO): imports_of_jax_package(f) for f in files}
     assert not {f: v for f, v in bad.items() if v}
@@ -416,10 +448,12 @@ def test_profile_groups_follow_kernel_symbols():
     prof = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(prof)
     assert prof.group_of(
-        "(anonymous namespace)::spade_style_sm90_kernel(CUtensorMap_st, "
-        "CUtensorMap_st, __nv_bfloat16 const*)").endswith("(bf16)")
-    assert prof.group_of("(anonymous namespace)::spade_style_kernel(float "
-                         "const*, float const*)").endswith("(f32)")
+        "void (anonymous namespace)::spade_style_sm90_kernel<256>("
+        "CUtensorMap_st, CUtensorMap_st, __nv_bfloat16 const*)"
+    ).endswith("(bf16)")
+    assert prof.group_of(
+        "(anonymous namespace)::spade_style_3xtf32_sm90_kernel("
+        "CUtensorMap_st, CUtensorMap_st, float const*)").endswith("(f32)")
     assert prof.group_of("sm90_xmma_fprop_implicit_gemm_bf16").startswith(
         "cuDNN")
     assert prof.group_of("void at::native::vectorized_elementwise_kernel"

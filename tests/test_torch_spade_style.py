@@ -5,9 +5,10 @@ inputs and shapes (forward rtol/atol 2e-4, gradients 5e-4).
 
 The CUDA kernels themselves run only on the card; ``chip_smoke.py`` holds
 them against the plain version there, at every site shape of the generator.
-Here the weight layouts they read are checked: the float32 layout directly,
-and the bfloat16 tensor-core layout by rebuilding gamma|beta from it tap by
-tap, in the kernel's tap and k order."""
+Here the weight layouts they read are checked by rebuilding gamma|beta from
+them tap by tap, in the kernels' tap and k order: the bfloat16 layout, and
+the float32 one with the 3xTF32 kernel's arithmetic emulated in numpy
+(TF32 hi and lo of both operands, hi*hi + hi*lo + lo*hi)."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -90,30 +91,38 @@ def test_kernel_wrapper_refuses_cpu_tensors():
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_pack_weights_layout(dtype):
-    """float32: wcat[dy, dx, k, c] = (wg[c, k, dy, dx], wb[c, k, dy, dx]).
-    bfloat16: wcat[3 dy + dx, j, k] is wg[c, k, dy, dx] at j = 2c and
+    """wcat[.., 3 dy + dx, j, k] is wg[c, k, dy, dx] at j = 2c and
     wb[c, k, dy, dx] at j = 2c + 1, K-major, the columns padded with zeros
-    to the N tile (128 wide here).  Both in the kernel's dtype; bcat[c] = (bg[c],
-    bb[c]) in float32."""
+    to the N tile (128 wide here).  bfloat16: (9, 128, 128), the weights
+    rounded to bfloat16.  float32: (2, 9, 128, 128), hi then lo: each has
+    its low 13 mantissa bits zero (a TF32 value), and hi + lo rebuilds the
+    weights to 2^-21 relative.  bcat[c] = (bg[c], bb[c]) in float32."""
     *_, wg, bg, wb, bb = to_torch(make_inputs(n=1, h=4, w=4, c=8))
     wcat, bcat = K.pack_weights(wg, bg, wb, bb, dtype)
     assert wcat.dtype == dtype and wcat.is_contiguous()
     assert bcat.dtype == torch.float32
     torch.testing.assert_close(bcat, torch.stack([bg, bb], -1), rtol=0, atol=0)
+    assert wcat.shape == K.packed_shape(8, dtype)
     if dtype == torch.float32:
-        assert wcat.shape == (3, 3, K.NHIDDEN, 8, 2)
-        for i, w in enumerate((wg, wb)):
-            torch.testing.assert_close(wcat[..., i], w.permute(2, 3, 1, 0),
-                                       rtol=0, atol=0)
-        return
-    assert wcat.shape == (9, 128, K.NHIDDEN) == K.packed_shape(8, dtype)
+        assert wcat.shape == (2, 9, 128, K.NHIDDEN)
+        hi, lo = wcat
+        assert not (hi.view(torch.int32) & 0x1FFF).any()
+        assert not (lo.view(torch.int32) & 0x1FFF).any()
+        w = hi.double() + lo.double()
+    else:
+        assert wcat.shape == (9, 128, K.NHIDDEN)
+        w = wcat
     for dy in range(3):
         for dx in range(3):
-            for i, w in enumerate((wg, wb)):
-                torch.testing.assert_close(
-                    wcat[3 * dy + dx, i:16:2], w[:, :, dy, dx].to(dtype),
-                    rtol=0, atol=0)
-    assert not wcat[:, 16:].any()
+            for i, wt in enumerate((wg, wb)):
+                want, got = wt[:, :, dy, dx], w[3 * dy + dx, i:16:2]
+                if dtype == torch.float32:
+                    assert ((got - want.double()).abs()
+                            <= 2.0 ** -21 * want.double().abs()).all()
+                else:
+                    torch.testing.assert_close(got, want.to(dtype),
+                                               rtol=0, atol=0)
+    assert not w[:, 16:].any()
 
 
 @pytest.mark.parametrize("c,tile,cols", [
@@ -165,6 +174,77 @@ def test_bf16_layout_rebuilds_the_convs(shape):
         torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
 
 
+def tf32_rna(a):
+    """float32 -> TF32 as cvt.rna.tf32.f32 rounds (nearest, ties away from
+    zero): add half the weight of the 13 dropped bits, then drop them."""
+    bits = np.asarray(a, np.float32).view(np.uint32)
+    return ((bits + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(
+        np.float32)
+
+
+def gamma_beta_tf32(actv, wcat, bcat, c, passes):
+    """gamma|beta as the float32 kernel sums them, read from the packed
+    (2, 9, cols, 128) layout: per tap, the shifted zero-padded actv split
+    into TF32 hi and lo, and the products hi*hi, hi*lo, lo*hi (the first
+    ``passes`` of them; 1 is single-pass TF32), exact in float64, summed."""
+    n, h, w, _ = actv.shape
+    halo = np.pad(actv, ((0, 0), (1, 1), (1, 1), (0, 0)))
+    a_hi = tf32_rna(halo)
+    a_lo = tf32_rna(halo - a_hi)
+    w_hi, w_lo = np.asarray(wcat, np.float64)
+    terms = [(a_hi, w_hi), (a_hi, w_lo), (a_lo, w_hi)][:passes]
+    acc = np.zeros((n, h, w, wcat.shape[2]))
+    for tap in range(9):
+        dy, dx = divmod(tap, 3)
+        for a, wt in terms:
+            acc += a[:, dy:dy + h, dx:dx + w].astype(np.float64) @ wt[tap].T
+    acc = acc[..., :2 * c].reshape(n, h, w, c, 2) + bcat
+    return acc[..., 0].astype(np.float32), acc[..., 1].astype(np.float32)
+
+
+@pytest.mark.parametrize("shape", [(1, 10, 8, 16), (2, 13, 7, 72)],
+                         ids=["odd_1x10x8x16", "2x13x7x72"])
+def test_3xtf32_arithmetic_matches_jax_float32(shape):
+    """The float32 kernel's arithmetic (3xTF32 from the packed layout, then
+    the epilogue in float32) equals the JAX float32 reference to 1e-5; a
+    single TF32 pass does not, so the check tells the two apart."""
+    args = make_inputs(*shape)
+    want = np.asarray(spade_style_reference(*args))
+    x, seg, style, mean, var, ws, bs, wg, bg, wb, bb = to_torch(args)
+    actv = K.seg_mlp_shared(seg, ws, bs).numpy()
+    wcat, bcat = K.pack_weights(wg, bg, wb, bb, torch.float32)
+    x, style, mean, var = (t.numpy() for t in (x, style, mean, var))
+    c = x.shape[-1]
+    s0, s1 = style[:, None, None, :c], style[:, None, None, c:]
+    rstd = 1 / np.sqrt(var[:, None, None] + np.float32(K.EPS))
+    tol = 1e-5 + 1e-5 * np.abs(want)
+    worst = []
+    for passes in (3, 1):
+        gamma, beta = gamma_beta_tf32(actv, wcat.numpy(), bcat.numpy(), c,
+                                      passes)
+        spade = (x - mean[:, None, None]) * rstd * (1 + gamma) + beta
+        out = (spade + x * (s0 + 1) + s1) * np.float32(0.5)
+        assert out.dtype == np.float32
+        worst.append(float((np.abs(out - want) / tol).max()))
+    assert worst[0] <= 1.0 < worst[1], worst
+
+
+def test_full_float32_sets_and_restores_the_tf32_flags(monkeypatch):
+    """Inside full_float32 both TF32 flags are off; on exit, after an
+    exception too, each is back as it was; disabled, it changes nothing."""
+    cudnn, matmul = torch.backends.cudnn, torch.backends.cuda.matmul
+    monkeypatch.setattr(cudnn, "allow_tf32", True)
+    monkeypatch.setattr(matmul, "allow_tf32", True)
+    with K.full_float32():
+        assert (cudnn.allow_tf32, matmul.allow_tf32) == (False, False)
+    assert (cudnn.allow_tf32, matmul.allow_tf32) == (True, True)
+    with pytest.raises(RuntimeError), K.full_float32():
+        raise RuntimeError("inside")
+    assert (cudnn.allow_tf32, matmul.allow_tf32) == (True, True)
+    with K.full_float32(enabled=False):
+        assert (cudnn.allow_tf32, matmul.allow_tf32) == (True, True)
+
+
 def test_packed_weights_follow_the_weights():
     """The cache packs once per dtype, and anew after an in-place change
     or when a weight is replaced."""
@@ -178,8 +258,10 @@ def test_packed_weights_follow_the_weights():
         wb.mul_(2.0)
     again = packed(wg, bg, wb, bb, torch.float32)
     assert again[0] is not first[0]
-    torch.testing.assert_close(again[0][..., 1], wb.permute(2, 3, 1, 0),
-                               rtol=0, atol=0)
+    assert not torch.equal(again[0], first[0])
+    torch.testing.assert_close(
+        again[0], K.pack_weights(wg, bg, wb, bb, torch.float32)[0],
+        rtol=0, atol=0)
     bg = bg + 1.0
     torch.testing.assert_close(packed(wg, bg, wb, bb, torch.float32)[1][:, 0],
                                bg, rtol=0, atol=0)
@@ -188,8 +270,7 @@ def test_packed_weights_follow_the_weights():
 def test_build_is_keyed_on_sources(tmp_path, monkeypatch):
     """An edited source gets a new build directory; the real sources and
     the Hopper target are what gets built."""
-    assert {"spade_style.cu", "spade_style_sm90.cu"} <= {
-        p.name for p in _build.sources()}
+    assert [p.name for p in _build.sources()] == ["spade_style_sm90.cu"]
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
     src = tmp_path / "k.cu"
     src.write_text("// one")
@@ -212,10 +293,11 @@ def test_sass_counts_per_kernel():
         /*0010*/                   HGMMA.64x256x16.F32.BF16 R24, gdesc[UR4], R24 ;  /* 0x0 */
         /*0020*/              @!P0 HGMMA.64x256x16.F32.BF16 R24, gdesc[UR8], R24 ;  /* 0x0 */
         /*0030*/                   FFMA R5, R2, R3, R5 ;         /* 0x0 */
-\t\tFunction : _Z18spade_style_kernel
+\t\tFunction : _Z30spade_style_3xtf32_sm90_kernel
         /*0000*/                   FFMA.FTZ R5, R2, R3, R5 ;     /* 0x0 */
         /*0010*/                   FMUL R5, R2, R3 ;             /* 0x0 */
+        /*0020*/                   HGMMA.64x128x8.F32.TF32 R24, gdesc[UR4], R24 ;  /* 0x0 */
 """
     assert _build.sass_counts(sass) == {
         "_Z23spade_style_sm90_kernel": {"HGMMA": 2, "FFMA": 1},
-        "_Z18spade_style_kernel": {"HGMMA": 0, "FFMA": 1}}
+        "_Z30spade_style_3xtf32_sm90_kernel": {"HGMMA": 1, "FFMA": 1}}

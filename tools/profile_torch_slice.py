@@ -16,7 +16,9 @@ CUDA kernels, everything else unchanged.
 Printed per dtype and route: wall ms/batch (host clock around the traced
 batches), device busy ms/batch (the union of the card's kernel and copy
 intervals), the card's idle share (1 - busy / wall), then the device time
-per group and the heaviest kernels.  TF32 is off, as in ``chip_smoke.py``.
+per group and the heaviest kernels.  The process keeps PyTorch's default
+TF32 flags, as a user's would: a float32 model turns TF32 off around its
+own forward.
 """
 import argparse
 import collections
@@ -40,7 +42,8 @@ from seg2eye_tpu_torch.utils.weights import init_networks  # noqa: E402
 # otherwise take any kernel name that holds it
 GROUPS = [
     ("spade_style tensor-core kernel (bf16)", ("spade_style_sm90_kernel",)),
-    ("spade_style FFMA kernel (f32)", ("spade_style_kernel",)),
+    ("spade_style 3xTF32 tensor-core kernel (f32)",
+     ("spade_style_3xtf32_sm90_kernel",)),
     ("cuDNN convs and layout transposes",
      ("cudnn", "xmma", "cutlass", "fft", "DSE::", "pointwise_mult_and_sum",
       "nchwToNhwc", "nhwcToNchw", "implicit_gemm", "conv")),
@@ -100,8 +103,6 @@ def main(argv=None):
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_torch_slice: no CUDA device")
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
 
     opt = Options(isTrain=False).finalize()
     nets = init_networks(opt, torch.Generator().manual_seed(0), "cuda")
