@@ -27,7 +27,26 @@ Phases; any failure raises and the script exits non-zero:
      same batch then runs with every norm site on the plain version: fakes
      and errors must agree, and both routes are timed.  A batch-1 float32
      forward on the card must agree with the port's CPU forward on the same
-     weights.  Nothing of JAX or of the JAX package may have been imported.
+     weights;
+  5. train: training of the default model (seeded G, E and D, a seeded
+     synthetic batch of 16) through ``train.steps.train_step``, in float32
+     and bfloat16.  For 3 iterations, the kernel route (the port as it
+     runs) and the plain route (every norm site on the plain version) take
+     each iteration from identical copies of the state (weights, buffers,
+     both Adam states): their loss dicts and gradients must agree.  The
+     kernel must launch 36 times in one iteration (18 sites in the G
+     step's forward and 18 in the D step's regeneration of the fake), the
+     losses be finite, every spectral u/v, running statistic and
+     parameter with a nonzero gradient have moved, and netE's fc_var
+     (no gradient) not; ms/iteration and img/s of both
+     routes and the peak memory are printed.  One small float32 iteration
+     on the card must agree with the same iteration on the CPU, each of
+     its two steps from the same state, and the discriminator's pool
+     must have the CPU's gradient.  Last,
+     the entry point ``train.loop.train`` runs 3 steps of in-memory batches
+     into a temporary checkpoints_dir (108 launches), and its ``latest`` G
+     and E strict-load and score a batch through ``Tester``.
+Nothing of JAX or of the JAX package may have been imported.
 The port keeps float32 in full float32 by itself (its float32 forward and
 plain versions turn TF32 off around their own convolutions); the cuDNN
 calls this script makes directly set the flags around themselves.  The
@@ -514,11 +533,523 @@ def phase_slice():
     return launches
 
 
+# ---------------------------------------------------------------- phase 5
+TRAIN_BATCH = 16
+# K1 launches in one training iteration: the G step's forward and the D
+# step's regeneration of the fake with the updated G, 18 sites each (the
+# backward recomputes through the plain version and launches nothing)
+TRAIN_LAUNCHES = 2 * len(SITES)
+ROUTE_ITERS, TIMED_ITERS, LOOP_STEPS = 3, 5, 3
+EXPECTED_D_PARAMS = 5_531_778
+# Kernel route against plain route.  Each of ROUTE_ITERS iterations starts
+# both routes from identical copies of the kernel route's state (weights,
+# spectral u/v, running statistics, both Adam states).  Left to run apart,
+# they do not stay comparable: Adam at beta1 = 0 steps every element by
+# about lr * sign(g), a large step at this init scale, and an element whose
+# gradient is round-off may step either way; by the second iteration
+# GAN_Feat was 0.3% apart (on an H100).
+# float32: at a site the routes differ by float32 summation order (phase 3:
+# max abs err 1.2e-5 at unit-scale outputs).  The losses then agree to
+# 1e-7 relative (measured), so: |d| <= 1e-3 |L| + 1e-4.  The gradients
+# agree less well at the first iteration, where they are small sums of
+# terms that nearly cancel (D cannot yet tell fake from real): measured
+# 1.4e-3 of the net's gradient norm in G, 1.8e-3 in E, and 1.4e-2 in D,
+# whose gradients are taken after the G update, in which Adam's sign steps
+# go the other way wherever G's gradients differ in sign; 2.9e-5, 2.4e-5
+# and 7.7e-4 at the second iteration, 6.3e-6, 1.4e-5 and 3.8e-4 at the
+# third (on an H100).  So, per tensor: ||d|| <=
+# 2e-2 ||g|| + 2e-3 ||g of the net||, the floor for tensors whose gradient
+# is zero up to round-off (D's last biases under the hinge loss, while
+# every logit is inside the margin).  A kernel that read weights one Adam
+# step old would miss by far more: at this init scale (xavier, gain 0.02)
+# one step moves a weight by a tenth of its size or more.
+F32_ROUTE = dict(loss_rtol=1e-3, loss_atol=1e-4, grad_rtol=2e-2,
+                 grad_floor=2e-3)
+# bfloat16: the kernel keeps gamma|beta in float32 where the plain version
+# rounds them to bfloat16, so the distance between the two routes is a
+# part of the bfloat16 rounding.  It may be no larger than the distance of
+# the plain bfloat16 route from the plain float32 route, from the same
+# state: per iteration for the loss dict and per net for the gradients, by
+# Euclidean norm.  Per gradient tensor, where both distances are sums of
+# different roundings, within twice that tensor's own distance (measured
+# at most 1.28 on an H100, at a small bias).
+BF16_TENSOR_RATIO = 2.0
+# crop 128 at aspect 0.8: the generator's output, 2^5 times its (5, 4)
+# latent grid, is the 160x128 image (crop 64 would need a 2.5-row grid)
+CARD_CPU = dict(ngf=16, ndf=16, crop_size=128, batchSize=2)
+# card (kernel, float32) against CPU (plain version), one iteration, each
+# step from the same state: the G step from the same weights, then the D
+# step from a card copy of the CPU's state after its G step.  Across the
+# whole iteration the two would not stay comparable: the G update steps
+# each element by about lr * sign(g), the other way wherever the two
+# gradients differ in sign (0.6% of the elements, measured), and the D
+# step's regenerated fake, G's second power iteration and its running
+# update all see that (D's gradients then 3.5e-2 apart on an H100).
+# Per step: losses |d| <= 1e-4 |L| + 1e-4; gradients as F32_ROUTE
+# (measured: 8.0e-4 of the net's norm in G, 9.7e-4 in E, 1.4e-3 in D);
+# spectral u/v (unit vectors) max abs 1e-4 (measured 8.9e-8); running
+# statistics ||d|| <= 1e-4 ||stat|| (5.2e-7); at most 5% of the parameter
+# elements beyond 1e-6 (0.59% after the G step), none beyond one sign step
+# each way (2 lr) + 1e-6.
+CARD_CPU_LOSS_RTOL, CARD_CPU_PARAM_ATOL = 1e-4, 1e-6
+CARD_CPU_UV_ATOL, CARD_CPU_RUN_RTOL, CARD_CPU_FLIPPED = 1e-4, 1e-4, 0.05
+
+
+def make_train_batch(opt, b, seed=0):
+    """A synthetic batch as the training loader gives it (int labels, uint8
+    references and target), with ``target_original`` for scoring."""
+    rng = np.random.default_rng(seed)
+    h, w = opt.image_height, opt.image_width
+    batch = make_batch(opt, b, seed + 1)
+    batch["target"] = rng.integers(0, 256, (b, h, w, 1), dtype=np.uint8)
+    return batch
+
+
+def nets_of(model):
+    return {"G": model.netG, "E": model.netE, "D": model.netD}
+
+
+def train_state(opt, nets_cpu, device="cuda"):
+    """A TrainState of a deep copy of ``nets_cpu`` on ``device``, with
+    fresh optimizers."""
+    import copy
+
+    from seg2eye_tpu_torch.models.pix2pix import Pix2Pix
+    from seg2eye_tpu_torch.train import state as state_lib
+
+    nets = {k: copy.deepcopy(v) for k, v in nets_cpu.items()}
+    return state_lib.create_state(Pix2Pix(opt, nets, device))
+
+
+def clone_state(state, opt=None):
+    """A deep copy of a TrainState on its device (weights, buffers, both
+    Adam states); with ``opt``, the copy computes in that configuration's
+    dtype."""
+    import copy
+
+    from seg2eye_tpu_torch.models.pix2pix import Pix2Pix
+
+    new = copy.deepcopy(state)
+    if opt is not None:
+        new.model = Pix2Pix(opt, nets_of(new.model), new.model.device)
+    return new
+
+
+def timed_iteration(state, batch):
+    from seg2eye_tpu_torch.train import steps
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    losses, _ = steps.train_step(state, batch)
+    torch.cuda.synchronize()
+    return ({k: float(torch.mean(v.float())) for k, v in losses.items()},
+            (time.perf_counter() - t0) * 1e3)
+
+
+def grads_of(model):
+    return {f"{n}.{k}": p.grad for n, net in nets_of(model).items()
+            for k, p in net.named_parameters()}
+
+
+def vec_gap(a, b, keys):
+    return float(np.sqrt(sum((a[k] - b[k]) ** 2 for k in keys)))
+
+
+def net_gaps(a, b, net):
+    """(||a - b||, ||b||) over the net's gradient tensors, and per tensor."""
+    keys = [k for k in b if k.startswith(net + ".") and b[k] is not None]
+    per = {k: (float((a[k] - b[k]).norm()), float(b[k].norm()))
+           for k in keys}
+    return (float(np.sqrt(sum(d * d for d, _ in per.values()))),
+            float(np.sqrt(sum(g * g for _, g in per.values())))), per
+
+
+def compare_losses(where, lk, lp, lr, rtol=F32_ROUTE["loss_rtol"]):
+    """-> failures.  lk, lp, lr: loss dicts of the kernel route, the plain
+    route and (bfloat16) the plain float32 route."""
+    if sorted(lk) != sorted(lp):
+        return [f"{where}: loss keys {sorted(lk)} != {sorted(lp)}"]
+    if not all(np.isfinite(v) for v in (*lk.values(), *lp.values())):
+        return [f"{where}: non-finite losses {lk} {lp}"]
+    keys = sorted(lk)
+    values = ", ".join(f"{k} {lk[k]:.6f}/{lp[k]:.6f}" for k in keys)
+    if lr is None:
+        worst = max(abs(lk[k] - lp[k]) / (F32_ROUTE["loss_atol"]
+                                          + rtol * abs(lp[k])) for k in keys)
+        log(f"  {where.split(', ')[-1]}: losses worst err/tolerance "
+            f"{worst:.4f}; " + values)
+        ok = worst <= 1.0
+    else:
+        gap, ref = vec_gap(lk, lp, keys), vec_gap(lp, lr, keys)
+        log(f"  {where.split(', ')[-1]}: loss dicts kernel vs plain "
+            f"{gap:.4e}, plain bf16 vs plain f32 {ref:.4e}; " + values)
+        ok = gap <= ref
+    return [] if ok else [f"{where}: losses disagree"]
+
+
+def compare_grads(where, gk, gp, gr, what="kernel - plain",
+                  nets=("G", "E", "D")):
+    """-> failures; the gradients of ``nets``, as compare_losses."""
+    failures = [f"{where}: gradient of {k} is None on one side only"
+                for k in gp if k.split(".")[0] in nets
+                and (gk[k] is None) != (gp[k] is None)]
+    for net in nets:
+        (d, g), per = net_gaps(gk, gp, net)
+        if gr is None:
+            ratios = {k: dk / (F32_ROUTE["grad_rtol"] * gk_
+                               + F32_ROUTE["grad_floor"] * g)
+                      for k, (dk, gk_) in per.items()}
+            worst = max(ratios, key=ratios.get)
+            log(f"    gradients of {net}: ||{what}|| / ||g|| "
+                f"{d / g:.3e}; worst tensor {worst} err/tolerance "
+                f"{ratios[worst]:.4f}")
+            ok = ratios[worst] <= 1.0
+        else:
+            (ref, _), ref_per = net_gaps(gp, gr, net)
+            ratios = {k: per[k][0] / max(ref_per[k][0], 1e-30) for k in per}
+            worst = max(ratios, key=ratios.get)
+            log(f"    gradients of {net}: ||kernel - plain|| {d:.4e} "
+                f"(relative {d / g:.3e}), plain bf16 vs plain f32 {ref:.4e}; "
+                f"largest per-tensor ratio of the two: {worst} "
+                f"{ratios[worst]:.3f}")
+            ok = d <= ref and ratios[worst] <= BF16_TENSOR_RATIO
+        if not ok:
+            failures.append(f"{where}: gradients of {net} differ")
+    return failures
+
+
+def lockstep(dname, state, batch, ref_opt=None):
+    """ROUTE_ITERS iterations of the kernel route from ``state``.  The plain
+    route (and, given ``ref_opt``, the plain route in its float32) takes
+    each of them from an identical copy of the state; losses and gradients
+    are compared, and every failure raised at the end."""
+    from seg2eye_tpu_torch.ops import spade_style as K
+
+    failures = []
+    for it in range(ROUTE_ITERS):
+        plain = clone_state(state)
+        ref = None if ref_opt is None else clone_state(state, ref_opt)
+        lk = timed_iteration(state, batch)[0]
+        launched = K.spade_style.launches
+        with plain_norm_sites():
+            lp = timed_iteration(plain, batch)[0]
+            lr = None if ref is None else timed_iteration(ref, batch)[0]
+        if K.spade_style.launches != launched:
+            failures.append("the plain route launched the kernel")
+        where = f"{dname} kernel vs plain, iteration {it + 1}"
+        failures += compare_losses(where, lk, lp, lr)
+        failures += compare_grads(where, grads_of(state.model),
+                                  grads_of(plain.model),
+                                  None if ref is None else
+                                  grads_of(ref.model))
+        del plain, ref
+        torch.cuda.empty_cache()
+    if failures:
+        raise AssertionError("; ".join(failures))
+
+
+def timed(state, batch, plain=False):
+    """(median ms of TIMED_ITERS iterations, peak GiB allocated)."""
+    torch.cuda.reset_peak_memory_stats()
+    with plain_norm_sites() if plain else contextlib.nullcontext():
+        ms = statistics.median(timed_iteration(state, batch)[1]
+                               for _ in range(TIMED_ITERS))
+    return ms, torch.cuda.max_memory_allocated() / 2 ** 30
+
+
+def check_trained(dname, state, before):
+    """Every spectral u/v and running statistic moved, and every parameter
+    that ever had a nonzero gradient (Adam's second moment is not all
+    zero); a parameter whose gradient was zero at every step (D's last
+    biases under the hinge loss, while the fake and real terms cancel) did
+    not, nor did netE's fc_var, which has no gradient and no Adam state."""
+    moved, zero = 0, []
+    for name, net in nets_of(state.model).items():
+        optimizer = state.opt_d if name == "D" else state.opt_g
+        params = dict(net.named_parameters())
+        for k, t in net.state_dict().items():
+            if "num_batches_tracked" in k:
+                continue
+            same = torch.equal(t.detach().cpu(), before[name][k])
+            p = params.get(k)
+            if name == "E" and k.startswith("fc_var."):
+                want_same = True
+                if p.grad is not None or p in optimizer.state:
+                    raise AssertionError(f"{dname}: netE.{k} was trained")
+            elif p is None:
+                want_same = False                 # a buffer
+            else:
+                sq = optimizer.state[p]["exp_avg_sq"]
+                want_same = not bool(sq.any())
+                if want_same:
+                    zero.append(f"{name}.{k}")
+            if same != want_same:
+                raise AssertionError(f"{dname}: {name}.{k} "
+                                     + ("did not move" if same else "moved"))
+            moved += not same
+    log(f"  {dname}: {moved} parameters and buffers of G, E and D moved "
+        "(every spectral u/v and running statistic among them); netE fc_var "
+        f"unchanged, no gradient; zero gradient at every step: {zero}")
+
+
+def check_packed(dname, model):
+    """Every norm site serves the packing of its current weights: the card's
+    Adam step moved each weight's ``_version``, the key of the kernel's
+    packed copies, so the D step's forward did not run on the weights from
+    before the G step's update."""
+    from seg2eye_tpu_torch.models.normalization import SpadeStyleBlock
+    from seg2eye_tpu_torch.ops import spade_style as K
+
+    sites = [m for m in model.netG.modules() if isinstance(m, SpadeStyleBlock)]
+    for m in sites:
+        s = m.spade
+        ws = (s.mlp_gamma.weight, s.mlp_gamma.bias, s.mlp_beta.weight,
+              s.mlp_beta.bias)
+        with torch.no_grad():
+            got = m.packed(*ws, model.dtype)
+            want = K.pack_weights(*ws, model.dtype)
+        if not all(torch.equal(a, b) for a, b in zip(got, want)):
+            raise AssertionError(f"{dname}: a norm site kept the packed "
+                                 "weights from before the optimizer step")
+    log(f"  {dname}: all {len(sites)} norm sites serve the packing of their "
+        "updated weights")
+
+
+def card_vs_cpu():
+    """One float32 iteration of a small model on the card (kernel) and on
+    the CPU (plain version), from the same weights and batch."""
+    from seg2eye_tpu_torch.options import Options
+    from seg2eye_tpu_torch.ops.image import avg_pool_3x3s2
+    from seg2eye_tpu_torch.train import steps
+    from seg2eye_tpu_torch.train.state import ttur_lrs
+    from seg2eye_tpu_torch.utils.weights import init_networks
+
+    # the discriminator's downsampler alone first: PyTorch's CUDA backward
+    # of this pool on channels_last input is wrong, so the port pools a
+    # contiguous copy
+    gen = torch.Generator().manual_seed(2)
+    x, w = torch.randn(4, 160, 128, 5, generator=gen), torch.randn(
+        4, 80, 64, 5, generator=gen)
+    pool_grads = []
+    for device in ("cuda", "cpu"):
+        t = x.to(device).requires_grad_(True)
+        (avg_pool_3x3s2(t) * w.to(device)).sum().backward()
+        pool_grads.append(t.grad.cpu())
+    pool_err = float((pool_grads[0] - pool_grads[1]).abs().max())
+    log(f"card vs CPU, avg_pool_3x3s2 input gradient: max abs diff "
+        f"{pool_err:.3e} (tolerance 1e-6)")
+    if not pool_err <= 1e-6:
+        raise AssertionError("the pool's gradient on the card is not the "
+                             "CPU's")
+
+    opt = Options(compute_dtype="float32", **CARD_CPU).finalize()
+    nets = init_networks(opt, torch.Generator().manual_seed(1), "cpu")
+    batch = make_train_batch(opt, opt.batchSize, seed=3)
+    log(f"card vs CPU, one float32 iteration at ngf {opt.ngf}, ndf "
+        f"{opt.ndf}, crop {opt.crop_size}, batch {opt.batchSize}: the G "
+        "step from the same weights, then the D step from the same state "
+        "(the CPU's after its G step) (losses card/CPU)")
+    cpu, card = train_state(opt, nets, "cpu"), train_state(opt, nets, "cuda")
+    g_lr, d_lr = ttur_lrs(opt, opt.lr)
+    failures = []
+    for half, checked, lr in (("G step", ("G", "E"), g_lr),
+                              ("D step", ("D",), d_lr)):
+        if half == "G step":
+            l_card, l_cpu = (steps.g_step(s_, batch)[0] for s_ in (card, cpu))
+        else:
+            card = state_on(cpu, "cuda")
+            l_card, l_cpu = (steps.d_step(s_, batch) for s_ in (card, cpu))
+        where = f"card vs CPU, {half}"
+        failures += compare_losses(
+            where, {k: float(v) for k, v in l_card.items()},
+            {k: float(v) for k, v in l_cpu.items()}, None, CARD_CPU_LOSS_RTOL)
+        failures += compare_grads(
+            where, {k: None if g is None else g.cpu()
+                    for k, g in grads_of(card.model).items()},
+            grads_of(cpu.model), None, "card - CPU", checked)
+        failures += compare_state(where, card, cpu, lr)
+    if failures:
+        raise AssertionError("; ".join(failures))
+
+
+def state_on(state, device):
+    """A copy of a TrainState on ``device``: networks, Adam states, step."""
+    new = train_state(state.model.opt, nets_of(state.model), device)
+    new.opt_g.load_state_dict(state.opt_g.state_dict())
+    new.opt_d.load_state_dict(state.opt_d.state_dict())
+    new.step = state.step
+    return new
+
+
+def compare_state(where, card, cpu, lr):
+    """-> failures: spectral u/v, running statistics and parameters of the
+    two states, as CARD_CPU_* states."""
+    sd_card = {f"{n}.{k}": t.detach().cpu() for n, net in
+               nets_of(card.model).items() for k, t in net.state_dict().items()}
+    uv = run = worst_param = 0.0
+    flipped = total = 0
+    for n, net in nets_of(cpu.model).items():
+        for k, t in net.state_dict().items():
+            if "num_batches_tracked" in k:
+                continue
+            diff = (sd_card[f"{n}.{k}"] - t).abs()
+            if k.endswith(("weight_u", "weight_v")):
+                uv = max(uv, float(diff.max()))
+            elif k.endswith(("running_mean", "running_var")):
+                run = max(run, float(diff.norm() / t.norm()))
+            else:
+                flipped += int((diff > CARD_CPU_PARAM_ATOL).sum())
+                total += diff.numel()
+                worst_param = max(worst_param, float(diff.max()))
+    step = 2 * lr + CARD_CPU_PARAM_ATOL
+    log(f"    spectral u/v max abs diff {uv:.3e} (tolerance "
+        f"{CARD_CPU_UV_ATOL}); running statistics, worst ||diff|| / ||stat|| "
+        f"{run:.3e} (tolerance {CARD_CPU_RUN_RTOL}); parameters: {flipped} "
+        f"of {total} elements ({flipped / total:.2e}) beyond "
+        f"{CARD_CPU_PARAM_ATOL} (tolerance {CARD_CPU_FLIPPED}), largest "
+        f"{worst_param:.3e} (tolerance 2 lr + atol = {step:.3e})")
+    if (uv > CARD_CPU_UV_ATOL or run > CARD_CPU_RUN_RTOL
+            or flipped > CARD_CPU_FLIPPED * total or worst_param > step):
+        return [f"{where}: updated state differs"]
+    return []
+
+
+class InMemoryBatches:
+    """The training loop's dataloader interface over batches in memory."""
+
+    def __init__(self, batches):
+        self.batches = batches
+
+    def __len__(self):
+        return len(self.batches)
+
+    def set_epoch(self, epoch):
+        pass
+
+    def skip_next_batches(self, n):
+        raise AssertionError("not resuming")
+
+    def __iter__(self):
+        return iter(self.batches)
+
+
+def train_entry_point():
+    """``train.loop.train`` for LOOP_STEPS steps of the default model into a
+    temporary checkpoints_dir; its latest G and E score a batch."""
+    import tempfile
+
+    from seg2eye_tpu_torch.eval.tester import Tester
+    from seg2eye_tpu_torch.models.pix2pix import Pix2Pix, build_networks
+    from seg2eye_tpu_torch.ops import spade_style as K
+    from seg2eye_tpu_torch.options import Options
+    from seg2eye_tpu_torch.train.loop import train
+    from seg2eye_tpu_torch.utils.checkpoint import load_networks
+
+    with tempfile.TemporaryDirectory() as tmp:
+        # losses printed every step; one checkpoint, the final 'latest'
+        opt = Options(batchSize=TRAIN_BATCH, checkpoints_dir=tmp,
+                      name="chip_smoke", print_freq=TRAIN_BATCH,
+                      save_epoch_freq=10 ** 6).finalize()
+        batches = [make_train_batch(opt, TRAIN_BATCH, seed=10 + i)
+                   for i in range(LOOP_STEPS + 1)]
+        K.spade_style.launches = 0
+        t0 = time.perf_counter()
+        result = train(opt, max_steps=LOOP_STEPS,
+                       dataloader=InMemoryBatches(batches), device="cuda")
+        seconds = time.perf_counter() - t0
+        launches = K.spade_style.launches
+        if result["steps"] != LOOP_STEPS or launches != LOOP_STEPS * \
+                TRAIN_LAUNCHES:
+            raise AssertionError(f"train.loop.train ran {result['steps']} "
+                                 f"steps and {launches} kernel launches, "
+                                 f"expected {LOOP_STEPS} and "
+                                 f"{LOOP_STEPS * TRAIN_LAUNCHES}")
+        if not all(np.isfinite(v) for v in result["losses"].values()):
+            raise AssertionError(f"non-finite losses {result['losses']}")
+        nets = load_networks(build_networks(opt.replace(isTrain=False)), opt,
+                             "latest")
+        trained = result["state"].model.netG.state_dict()
+        for k, t in nets["G"].state_dict().items():
+            if not torch.equal(t, trained[k].cpu()):
+                raise AssertionError(f"latest_net_G.pth: {k} is not the "
+                                     "trained weight")
+        del result, trained
+        model = Pix2Pix(opt.replace(isTrain=False), nets, "cuda")
+        errors, fake = Tester(model.opt).score_batch(model, batches[0])
+    if not (np.isfinite(errors).all() and np.isfinite(fake).all()):
+        raise AssertionError("the trained checkpoint scores non-finite")
+    log(f"train.loop.train: {LOOP_STEPS} steps of the default model "
+        f"(bfloat16, batch {TRAIN_BATCH}) in {seconds:.1f} s, set-up "
+        f"included, {launches} kernel launches; latest_net_G/E.pth "
+        f"strict-loaded and scored a batch (mean x1471 = "
+        f"{float(np.mean(errors)) * 1471:.2f})")
+    return launches
+
+
+def phase_train():
+    from seg2eye_tpu_torch.ops import spade_style as K
+    from seg2eye_tpu_torch.options import Options
+    from seg2eye_tpu_torch.utils.weights import init_networks
+
+    opt = Options(batchSize=TRAIN_BATCH).finalize()
+    t0 = time.perf_counter()
+    nets_cpu = init_networks(opt, torch.Generator().manual_seed(0), "cpu")
+    counts = {k: sum(p.numel() for p in v.parameters())
+              for k, v in nets_cpu.items()}
+    want = {**EXPECTED_PARAMS, "D": EXPECTED_D_PARAMS}
+    log(f"train: default model, params G {counts['G']:,} E {counts['E']:,} "
+        f"D {counts['D']:,}, seeded init {time.perf_counter() - t0:.1f} s")
+    if counts != want:
+        raise AssertionError(f"parameter counts {counts} != {want}")
+    before = {n: {k: t.detach().clone() for k, t in net.state_dict().items()}
+              for n, net in nets_cpu.items()}
+    batch = make_train_batch(opt, TRAIN_BATCH)
+    flags = tf32_flags()
+    launches = {}
+    for dname in ("float32", "bfloat16"):
+        dopt = opt.replace(compute_dtype=dname)
+        state = train_state(dopt, nets_cpu)
+        log(f"train {dname}: kernel route against plain route, "
+            f"{ROUTE_ITERS} iterations, each from identical copies of the "
+            "kernel route's state (losses kernel/plain)")
+        lockstep(dname, state, batch, None if dname == "float32"
+                 else opt.replace(compute_dtype="float32"))
+        K.spade_style.launches = 0
+        timed_iteration(state, batch)
+        launches[dname] = K.spade_style.launches
+        if launches[dname] != TRAIN_LAUNCHES:
+            raise AssertionError(f"{dname}: kernel launched "
+                                 f"{launches[dname]} times in one training "
+                                 f"iteration, expected {TRAIN_LAUNCHES}")
+        ms, peak = timed(state, batch)
+        check_trained(dname, state, before)
+        check_packed(dname, state.model)
+        plain = clone_state(state)
+        del state
+        torch.cuda.empty_cache()
+        p_ms, p_peak = timed(plain, batch, plain=True)
+        del plain
+        torch.cuda.empty_cache()
+        if tf32_flags() != flags:
+            raise AssertionError(f"{dname}: training left the TF32 flags at "
+                                 f"{tf32_flags()}, not {flags}")
+        log(f"train {dname} bs{TRAIN_BATCH}: {launches[dname]} kernel "
+            f"launches per iteration; kernel route {ms:.2f} ms/iteration, "
+            f"{TRAIN_BATCH / ms * 1e3:.2f} img/s, peak {peak:.2f} GiB; plain "
+            f"route {p_ms:.2f} ms/iteration, {TRAIN_BATCH / p_ms * 1e3:.2f} "
+            f"img/s, peak {p_peak:.2f} GiB (median of {TIMED_ITERS}, host "
+            "clock, synchronised)")
+    card_vs_cpu()
+    train_entry_point()
+    return launches
+
+
 def main():
     kind = phase_device()
     phase_build()
     summary = phase_kernel()
     launches = phase_slice()
+    train_launches = phase_train()
     foreign = sorted(m for m in sys.modules if m.split(".")[0] in
                      ("jax", "jaxlib", "flax", "seg2eye_tpu"))
     if foreign:
@@ -526,7 +1057,8 @@ def main():
 
     from seg2eye_tpu_torch.ops import spade_style as K
     log("kernel summary, one entry per kernel: launches in one forward of "
-        f"the slice in that dtype; max_abs_err over the crop-256 and odd "
+        "the slice in that dtype, train_launches in one training iteration "
+        f"in that dtype; max_abs_err over the crop-256 and odd "
         f"site checks; ms, plain_ms, library_ms and bound_ms summed over the "
         f"18 sites at N={SITE_N}")
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
@@ -535,6 +1067,7 @@ def main():
         {"name": SUMMARY_NAMES[d], "route": "cuda",
          "source": K.SOURCE[DTYPES[d]],
          "replaces": K.REPLACES, "launches": launches[d],
+         "train_launches": train_launches[d],
          **{k: summary[d][k] for k in keys}}
         for d in ("bfloat16", "float32")]}))
     print(json.dumps({"ok": True, "device": {

@@ -1,23 +1,31 @@
-"""OpenEDS H5 reader and batcher for evaluation (the port's own trim of
+"""OpenEDS H5 reader and batcher (the port's own trim of
 ``seg2eye_tpu/data/{schema,transforms,openeds,loader}.py``).
 
-What the evaluation CLI needs, and no more: the split-dependent keys, the
+What training and the evaluation CLI need: the split-dependent keys, the
 style-reference sampling (random, first, ref_first, ref_randomN) drawn
-from the JAX package's per-sample generators, the 'fixed' resize (bicubic
-with PIL's antialiasing for images, nearest for masks) and the uint8
-transport, in serial batches without flips.  Given the same options and
-file, it yields the same batches byte for byte as the JAX package's
-``DataLoader`` (tested).  Training-time augmentation is not here.
+from per-sample generators, the 'fixed' resize (bicubic with PIL's
+antialiasing for images, nearest for masks), the training-time horizontal
+flip (one coin per sample, shared by mask, references and target), and the
+uint8 transport.  ``DataLoader`` shuffles with a stateless (seed, epoch)
+permutation, drops the last short batch when training, can skip the first
+batches of its next pass (mid-epoch resume) and reads batches ahead on a
+worker thread.  Given the same options and file, it yields the same
+batches byte for byte as the JAX package's ``DataLoader`` (tested).
+``device_prefetch`` moves each batch to the card one step ahead, from
+pinned memory.
 
 ``h5py``, ``cv2`` and ``PIL`` are imported inside the functions that use
 them, so that ``import seg2eye_tpu_torch`` works without them.
 """
 from __future__ import annotations
 
+import queue
 import re
-from typing import Dict, List, Optional
+import threading
+from typing import Dict, Iterable, Iterator, List, Optional
 
 import numpy as np
+import torch
 
 
 def split_keys(dataset_key: str) -> Dict[str, str]:
@@ -43,18 +51,15 @@ def resize_fixed(img: np.ndarray, w: int, h: int, is_mask: bool) -> np.ndarray:
 
 
 class OpenEDSDataset:
-    """One split of an OpenEDS H5 file, items for scored evaluation."""
+    """One split of an OpenEDS H5 file."""
 
     def __init__(self, opt, dataset_key: Optional[str] = None):
         import h5py
 
         if opt.preprocess_mode != "fixed" or not opt.device_normalize:
             raise NotImplementedError(
-                "the port's evaluation loader takes preprocess_mode 'fixed' "
-                "with uint8 transport (device_normalize) only")
-        if opt.isTrain and not opt.no_flip:
-            raise NotImplementedError("flips are training-time augmentation, "
-                                      "which the port's loader does not do")
+                "the port's loader takes preprocess_mode 'fixed' with uint8 "
+                "transport (device_normalize) only")
         self.opt = opt
         self.dataset_key = dataset_key or opt.dataset_key
         self.keys = split_keys(self.dataset_key)
@@ -115,7 +120,7 @@ class OpenEDSDataset:
                 None if subsets is None else [subsets[i] for i in picks])
 
     def _style_images(self, user: str, rng: np.random.Generator,
-                      filename: str) -> np.ndarray:
+                      filename: str, flip: bool) -> np.ndarray:
         grp = self.h5[user]
         key_style = self.keys["style_images"]
         n_images = grp[key_style].shape[0]
@@ -126,7 +131,8 @@ class OpenEDSDataset:
             if subsets is not None and subsets[i] == b"s":
                 # sequence frames are ranked after the generative images
                 key, sel = "images_seq", sel - n_images
-            images.append(self._resize(grp[key][sel], is_mask=False))
+            image = self._resize(grp[key][sel], is_mask=False)
+            images.append(image[:, ::-1] if flip else image)
         return np.ascontiguousarray(np.stack(images))[..., None]
 
     def __getitem__(self, index: int,
@@ -138,22 +144,30 @@ class OpenEDSDataset:
         grp = self.h5[user]
         mask = grp[self.keys["labels"]][within]
         # the JAX package's get_params draws a crop position even in 'fixed'
-        # mode, from the mask's (H, W) read as (w, h); those draws come first
-        # in the sample's generator
+        # mode, from the mask's (H, W) read as (w, h), then the flip coin
+        # when training with flips; those draws come first in the sample's
+        # generator
         w, h = mask.shape[:2]
         for extent in (w, h):
             rng.integers(0, max(0, extent - self.opt.crop_size) + 1)
+        flip = (not self.opt.no_flip and self.opt.isTrain
+                and bool(rng.random() > 0.5))
+
+        def flipped(a):
+            return a[:, ::-1] if flip else a
+
         filename = re.sub(r"\.", "", grp[self.keys["filenames"]][within]
                           .decode("utf-8"))
-        item = {"label": np.ascontiguousarray(self._resize(mask, True)),
+        item = {"label": np.ascontiguousarray(flipped(self._resize(mask,
+                                                                   True))),
                 "filename": filename, "user": user,
-                "style_image": self._style_images(user, rng, filename)}
+                "style_image": self._style_images(user, rng, filename, flip)}
         if self.dataset_key != "test":
             target = np.asarray(grp["images_ss"][within])
             item["target"] = np.ascontiguousarray(
-                self._resize(target, False))[..., None]
+                flipped(self._resize(target, False)))[..., None]
             item["target_original"] = np.ascontiguousarray(
-                target).astype(np.uint8)[..., None]
+                flipped(target)).astype(np.uint8)[..., None]
         return item
 
     def get_validation_indices(self) -> List[int]:
@@ -180,27 +194,112 @@ def collate(items: List[Dict]) -> Dict:
             for k in items[0]}
 
 
+def threaded_iter(src: Iterable, transform, depth: int) -> Iterator:
+    """``transform(item)`` for each item of ``src``, computed ahead of the
+    consumer on a daemon thread through a queue of ``depth``.  A worker
+    exception re-raises on the consumer after the items queued before it;
+    a consumer that stops early releases the worker (the put polls a stop
+    event, and the queue is drained)."""
+    q: queue.Queue = queue.Queue(maxsize=max(1, depth))
+    done = object()
+    stop = threading.Event()
+    err: List[BaseException] = []
+
+    def put(item) -> bool:
+        while not stop.is_set():
+            try:
+                q.put(item, timeout=0.2)
+                return True
+            except queue.Full:
+                continue
+        return False
+
+    def work():
+        try:
+            for item in src:
+                if stop.is_set() or not put(transform(item)):
+                    return
+        except BaseException as e:          # re-raised on the consumer
+            err.append(e)
+        finally:
+            put(done)
+
+    threading.Thread(target=work, daemon=True).start()
+    try:
+        while True:
+            out = q.get()
+            if out is done:
+                if err:
+                    raise err[0]
+                return
+            yield out
+    finally:
+        stop.set()
+        while not q.empty():
+            try:
+                q.get_nowait()
+            except queue.Empty:
+                break
+
+
 class DataLoader:
-    """Serial batches of an ``OpenEDSDataset``, the last one short.  Sample
-    i of the e-th pass (e = 1, 2, ...) draws from the generator seeded
-    (seed, e, i), as the JAX package's loader does, so both give the same
-    style references."""
+    """Batches of an ``OpenEDSDataset``.  The e-th pass (e = 1, 2, ...)
+    shuffles with the generator seeded (seed, e), and sample i of it draws
+    from the generator seeded (seed, e, i), as the JAX package's loader
+    does: no state carries from one pass to the next, so a run resumed at
+    epoch e (``set_epoch``) sees the batches the unbroken run saw there.
+    ``prefetch`` > 0 reads that many batches ahead on a worker thread."""
 
     def __init__(self, dataset: OpenEDSDataset, batch_size: int,
-                 seed: int = 0):
+                 shuffle: bool = False, drop_last: bool = False,
+                 seed: int = 0, prefetch: int = 0):
         self.dataset = dataset
         self.batch_size = batch_size
+        self.shuffle = shuffle
+        self.drop_last = drop_last
         self.seed = seed
+        self.prefetch = prefetch
         self._epoch = 0
+        self._skip_next = 0
 
     def __len__(self) -> int:
-        return -(-len(self.dataset) // self.batch_size)
+        n = len(self.dataset)
+        if self.drop_last:
+            return n // self.batch_size
+        return -(-n // self.batch_size)
+
+    def set_epoch(self, epoch: int) -> None:
+        """The next pass is training epoch ``epoch``."""
+        self._epoch = epoch - 1
+
+    def skip_next_batches(self, n: int) -> None:
+        """The next pass leaves out its first ``n`` batches (they were
+        trained before a mid-epoch restart); they are never read."""
+        self._skip_next = n
+
+    def _index_batches(self) -> List[np.ndarray]:
+        n = len(self.dataset)
+        order = np.arange(n)
+        if self.shuffle:
+            np.random.default_rng((self.seed, self._epoch)).shuffle(order)
+        batches = [order[i:i + self.batch_size]
+                   for i in range(0, n, self.batch_size)]
+        if self.drop_last and batches and len(batches[-1]) < self.batch_size:
+            batches.pop()
+        return batches
 
     def __iter__(self):
         self._epoch += 1
-        for lo in range(0, len(self.dataset), self.batch_size):
-            idxs = range(lo, min(lo + self.batch_size, len(self.dataset)))
-            yield collate([self._item(i) for i in idxs])
+        batches = self._index_batches()[self._skip_next:]
+        self._skip_next = 0
+        if self.prefetch <= 0:
+            for idxs in batches:
+                yield self._load(idxs)
+            return
+        yield from threaded_iter(batches, self._load, self.prefetch)
+
+    def _load(self, idxs) -> Dict:
+        return collate([self._item(i) for i in idxs])
 
     def _item(self, idx: int) -> Dict:
         rng = np.random.default_rng((self.seed, self._epoch, int(idx)))
@@ -209,3 +308,44 @@ class DataLoader:
     def get_particular(self, idx: int) -> Dict:
         """One-sample batch (reference openeds_dataset.py:121-127)."""
         return collate([self._item(idx)])
+
+
+def create_dataloader(opt, dataset_key: Optional[str] = None) -> DataLoader:
+    """The loader of ``opt``: shuffled unless ``serial_batches``, the last
+    short batch dropped when training."""
+    return DataLoader(OpenEDSDataset(opt, dataset_key=dataset_key),
+                      batch_size=opt.batchSize,
+                      shuffle=not opt.serial_batches, drop_last=opt.isTrain,
+                      seed=opt.seed, prefetch=opt.prefetch)
+
+
+MODEL_KEYS = ("label", "style_image", "target")
+
+
+def to_device(batch: Dict, device: torch.device) -> Dict:
+    """The arrays the model reads, on ``device``; for a card, from pinned
+    host memory and without waiting for the copy."""
+    out = {}
+    for k in MODEL_KEYS:
+        if k in batch:
+            t = torch.from_numpy(np.ascontiguousarray(batch[k]))
+            if device.type == "cuda":
+                t = t.pin_memory()
+            out[k] = t.to(device, non_blocking=True)
+    return out
+
+
+def device_prefetch(batches: Iterable[Dict], device) -> Iterator:
+    """(host batch, device batch) pairs, the copy of each batch to the
+    device started one step ahead: before the previous pair is handed
+    out."""
+    device = torch.device(device)
+    it = iter(batches)
+    ahead = None
+    for batch in it:
+        pair = (batch, to_device(batch, device))
+        if ahead is not None:
+            yield ahead
+        ahead = pair
+    if ahead is not None:
+        yield ahead

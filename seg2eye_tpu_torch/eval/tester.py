@@ -5,7 +5,8 @@
     only the error vector (and, when asked, the fake) comes back.
   * ``run(mode=full|rand|fix)``: the reference's index selection, the
     ``counter > limit`` break, "Error so far" prints, and the relative
-    (x1471) error statistics.
+    (x1471) error statistics; ``run_partial_modes``, the training loop's
+    periodic check (mode 'rand', as the JAX package runs it).
   * ``run_test``: one uint8 .npy per image plus ``pred_npy_list.txt``.
 
 The dataloader is passed in (the CLI builds it from the H5 file), so that
@@ -109,6 +110,14 @@ class Tester:
             all_errors, mode=mode, dataset_key=self.opt.dataset_key)
         self.print_results(all_errors, errors_dict, epoch, n_steps)
         return errors_dict
+
+    def run_partial_modes(self, model, epoch, n_steps,
+                          limit: int) -> Dict[str, Dict]:
+        """The training loop's periodic check: ``run`` in mode 'rand' on at
+        most ``limit`` samples (the JAX package runs no other mode there;
+        ``run(mode='fix')`` is the fixed-index one)."""
+        return {"rand": self.run(model, mode="rand", epoch=epoch,
+                                 n_steps=n_steps, limit=limit)}
 
     def print_results(self, all_errors, errors_dict, epoch="n.a.",
                       n_steps="n.a."):

@@ -43,15 +43,17 @@ class ConvEncoder(nn.Module):
         self.fc_mu = nn.Linear(fin * grid * grid, w_dim)
         self.fc_var = nn.Linear(fin * grid * grid, w_dim)
 
-    def forward(self, x: torch.Tensor
+    def forward(self, x: torch.Tensor, update_stats: bool = False
                 ) -> Tuple[torch.Tensor, torch.Tensor, List[torch.Tensor]]:
-        """x: (N,1,H,W) in [-1,1], channels_last."""
+        """x: (N,1,H,W) in [-1,1], channels_last.  ``update_stats``: a
+        training forward, which power-iterates every spectral conv."""
         if x.shape[2:] != (ENC_SIZE, ENC_SIZE):
             x = resize_bilinear(x.permute(0, 2, 3, 1), ENC_SIZE, ENC_SIZE)
             x = x.permute(0, 3, 1, 2)
         features = []
         for i in range(self.n_layers):
-            x = getattr(self, f"layer{i}")(x)
+            conv, norm = getattr(self, f"layer{i}")
+            x = norm(conv(x, update_stats))
             features.append(x)
         out = at_least_f32(F.leaky_relu(x, 0.2)).reshape(x.shape[0], -1)
         return self.fc_mu(out), self.fc_var(out), features

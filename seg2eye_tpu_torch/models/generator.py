@@ -65,9 +65,12 @@ class SpadeStyleGenerator(nn.Module):
         self.conv_img = SpectralConv(final_nc, output_nc, 3, spectral=False)
 
     def forward(self, seg: torch.Tensor, w: torch.Tensor,
-                use_running_average: bool = False) -> torch.Tensor:
+                use_running_average: bool = False,
+                update_stats: bool = False) -> torch.Tensor:
         """seg: (B,H,W,semantic_nc) one-hot, NHWC; w: (B,w_dim).
-        -> (B,output_nc,H,W) in channels_last memory."""
+        -> (B,output_nc,H,W) in channels_last memory.  ``update_stats``:
+        a training forward, which advances every spectral u/v and BN
+        running statistic."""
         pyramid = {}
 
         def seg_at(h, w_):
@@ -77,7 +80,7 @@ class SpadeStyleGenerator(nn.Module):
 
         def run(blk, x):
             return blk(x, seg_at(x.shape[2], x.shape[3]), w,
-                       use_running_average)
+                       use_running_average, update_stats)
 
         x = self.fc(seg_at(*self.latent_size))
         x = run(self.head_0, x)

@@ -2,11 +2,13 @@
 
   * ``SpectralConv`` keeps torch's spectral-norm state names:
     ``weight_orig`` (a parameter) and ``weight_u``/``weight_v`` (buffers),
-    and divides by ``sigma = u . (W.view(O,-1) @ v)``.  At inference the
-    stored (u, v) pair is used as it is: there is no power iteration, as in
-    the JAX package with ``update_stats=False``.  ``torch.nn.utils.
-    spectral_norm`` is not used because its hook power-iterates on every
-    forward in train mode.
+    and divides by ``sigma = u . (W.view(O,-1) @ v)`` with u and v held
+    constant.  A training forward (``update_stats=True``) first runs one
+    power iteration under ``no_grad``, v = normalize(W^T u) then
+    u = normalize(W v), and stores both as NEW tensors: a graph saved by an
+    earlier forward keeps the pair it used.  Otherwise the stored pair is
+    used as it is.  ``torch.nn.utils.spectral_norm`` is not used because its
+    hook power-iterates on every forward in train mode.
   * ``instance_norm`` is torch ``InstanceNorm2d(affine=False)``: biased
     statistics over (H, W), eps 1e-5, computed in at least float32.
   * ``FCStyle`` is the StyleGAN FC layer: linear in float32, LeakyReLU(0.2).
@@ -124,12 +126,17 @@ class SpectralConv(nn.Module):
             self.weight = w
         self.bias = nn.Parameter(torch.zeros(out_ch)) if bias else None
 
-    def kernel(self) -> torch.Tensor:
+    def kernel(self, update_stats: bool = False) -> torch.Tensor:
         if not self.spectral:
             return self.weight
         w = self.weight_orig
-        sigma = torch.dot(self.weight_u, w.reshape(w.shape[0], -1)
-                          @ self.weight_v)
+        mat = w.reshape(w.shape[0], -1)
+        if update_stats:
+            with torch.no_grad():
+                v = _l2_normalize(mat.T @ self.weight_u)
+                self.weight_u = _l2_normalize(mat @ v)
+                self.weight_v = v
+        sigma = torch.dot(self.weight_u, mat @ self.weight_v)
         return w / sigma
 
     @torch.no_grad()
@@ -144,9 +151,10 @@ class SpectralConv(nn.Module):
             self.weight_u.copy_(u)
             self.weight_v.copy_(_l2_normalize(w.reshape(w.shape[0], -1).T @ u))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor,
+                update_stats: bool = False) -> torch.Tensor:
         bias = None if self.bias is None else self.bias.to(x.dtype)
-        return F.conv2d(x, self.kernel().to(x.dtype), bias,
+        return F.conv2d(x, self.kernel(update_stats).to(x.dtype), bias,
                         self.stride, self.padding)
 
 

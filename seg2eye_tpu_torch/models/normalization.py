@@ -7,8 +7,10 @@
     (the CUDA kernel for CUDA tensors).
   * Param-free batch statistics are biased, over (N, H, W), in float32;
     the running statistics are used only when asked
-    (``use_running_average``, from ``opt.eval_use_running_stats``).  This
-    slice runs inference only, so the running statistics are never updated.
+    (``use_running_average``, from ``opt.eval_use_running_stats``).  A
+    training forward (``update_stats=True``) updates them as torch's
+    BatchNorm does: momentum 0.1, the unbiased variance into
+    ``running_var``, ``num_batches_tracked`` counted.
 """
 from __future__ import annotations
 
@@ -67,7 +69,8 @@ class SpadeStyleBlock(nn.Module):
         self.packed = PackedWeights()      # the kernel's weight layout
 
     def forward(self, x: torch.Tensor, seg: torch.Tensor, w: torch.Tensor,
-                use_running_average: bool = False) -> torch.Tensor:
+                use_running_average: bool = False,
+                update_stats: bool = False) -> torch.Tensor:
         """x: (N,C,H,W) channels_last; seg: (N,S,H,W); w: (N,w_dim)."""
         n, c = x.shape[:2]
         style = self.adain(at_least_f32(w))                       # (N, 2C)
@@ -78,6 +81,8 @@ class SpadeStyleBlock(nn.Module):
             else:
                 var, mean = torch.var_mean(at_least_f32(x), dim=(0, 2, 3),
                                            correction=0)
+                if update_stats:
+                    self._update_running_stats(mean, var, x.numel() // c)
             mean_nc, var_nc = mean.expand(n, c), var.expand(n, c)
         else:
             var_nc, mean_nc = torch.var_mean(at_least_f32(x), dim=(2, 3),
@@ -90,6 +95,14 @@ class SpadeStyleBlock(nn.Module):
             s.mlp_gamma.weight, s.mlp_gamma.bias,
             s.mlp_beta.weight, s.mlp_beta.bias, packed=self.packed)
         return out.permute(0, 3, 1, 2)
+
+    @torch.no_grad()
+    def _update_running_stats(self, mean, var, count: int) -> None:
+        pfn = self.spade.param_free_norm
+        unbiased = var * (count / max(count - 1, 1))
+        pfn.running_mean.mul_(0.9).add_(0.1 * mean)
+        pfn.running_var.mul_(0.9).add_(0.1 * unbiased)
+        pfn.num_batches_tracked += 1
 
 
 class SpadeStyleResnetBlock(nn.Module):
@@ -114,12 +127,15 @@ class SpadeStyleResnetBlock(nn.Module):
                                        spectral=spectral)
             self.norm_s = norm(fin)
 
-    def forward(self, x, seg, w, use_running_average: bool = False):
+    def forward(self, x, seg, w, use_running_average: bool = False,
+                update_stats: bool = False):
         def norm(layer, t):
-            return layer(t, seg, w, use_running_average)
+            return layer(t, seg, w, use_running_average, update_stats)
 
-        x_s = (self.conv_s(norm(self.norm_s, x)) if self.learned_shortcut
-               else x)
-        dx = self.conv_0(F.leaky_relu(norm(self.norm_0, x), 0.2))
-        dx = self.conv_1(F.leaky_relu(norm(self.norm_1, dx), 0.2))
+        x_s = (self.conv_s(norm(self.norm_s, x), update_stats)
+               if self.learned_shortcut else x)
+        dx = self.conv_0(F.leaky_relu(norm(self.norm_0, x), 0.2),
+                         update_stats)
+        dx = self.conv_1(F.leaky_relu(norm(self.norm_1, dx), 0.2),
+                         update_stats)
         return x_s + dx

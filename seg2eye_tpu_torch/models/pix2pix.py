@@ -1,22 +1,36 @@
-"""Pix2Pix (Seg2Eye) inference (counterpart of the inference subset of
-``seg2eye_tpu/models/pix2pix.py``).
+"""Pix2Pix (Seg2Eye): inference and the two training losses (counterpart
+of ``seg2eye_tpu/models/pix2pix.py``).
 
-  * ``preprocess``: one-hot label map; uint8 style images are normalised
-    on the device, (x / 255 - 0.5) / 0.5.
+  * ``preprocess``: one-hot label map; uint8 style images and target are
+    normalised on the device, (x / 255 - 0.5) / 0.5.
   * ``encode_w``: the (B, k) style references run as ONE fused (B*k)
     encoder batch; mu and every feature map are then aggregated over k
     (mean or max).
   * ``generate``: the generator with batch statistics, as the reference's
     Tester runs it (train mode); running statistics only under
-    ``opt.eval_use_running_stats``.
+    ``opt.eval_use_running_stats``.  A training forward uses batch
+    statistics and updates the running ones.
+  * ``discriminate``: fake and real run through D as ONE 2B batch,
+    [all fake | all real], and every output is split back in halves.
+  * ``generator_loss``/``discriminator_loss``: the reference's loss dicts,
+    weighted entries beside their ``/raw`` side channel; the total is the
+    sum of the weighted entries.  The style-consistency terms
+    (``lambda_style_w``/``lambda_style_feat``/``lambda_gram``) encode the
+    fake a second time.
+
+Every training forward (``update_stats=True``) advances the spectral u/v
+and the BN running statistics of the nets it runs, as torch's train mode
+does: D's inside the generator loss, G's and E's when the discriminator
+step regenerates the fake.  The port's modules read no train/eval flag:
+each forward is told what to do.
 
 A float32 model computes in full float32: ``inference`` and
 ``encode_only`` run under ``ops.spade_style.full_float32``, so that cuDNN
-does not take its TF32 default on the card; bfloat16 leaves the flags as
-they are.
+does not take its TF32 default on the card (the training steps wrap
+forward, backward and update in it); bfloat16 leaves the flags as they are.
 
 Batches keep the JAX package's layouts: label (B,H,W) int, style_image
-(B,k,H,W,1) float or uint8, and the result (B,H,W,1) float32.
+(B,k,H,W,1) and target (B,H,W,1) float or uint8, and fakes (B,H,W,1).
 """
 from __future__ import annotations
 
@@ -24,9 +38,12 @@ from typing import Dict, List, Optional, Tuple
 
 import torch
 
+from seg2eye_tpu_torch.models.discriminator import MultiscaleDiscriminator
 from seg2eye_tpu_torch.models.encoder import ConvEncoder
 from seg2eye_tpu_torch.models.generator import SpadeStyleGenerator
 from seg2eye_tpu_torch.models.layers import at_least_f32
+from seg2eye_tpu_torch.ops import losses as L
+from seg2eye_tpu_torch.ops import metrics
 from seg2eye_tpu_torch.ops.image import one_hot_label
 from seg2eye_tpu_torch.ops.spade_style import full_float32
 
@@ -34,8 +51,9 @@ _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
 
 def build_networks(opt) -> Dict[str, torch.nn.Module]:
-    """Generator and encoder for ``opt``, on the CPU, with placeholder
-    weights: load a checkpoint or run ``utils.weights.init_networks``."""
+    """Generator and encoder for ``opt``, and the discriminator when
+    ``opt.isTrain``, on the CPU, with placeholder weights: load a
+    checkpoint or run ``utils.weights.init_networks``."""
     if opt.netG != "spadestyle" or opt.netE != "conv":
         raise ValueError(f"unknown netG/netE '{opt.netG}'/'{opt.netE}'")
     gen = SpadeStyleGenerator(
@@ -45,11 +63,19 @@ def build_networks(opt) -> Dict[str, torch.nn.Module]:
         w_dim=opt.w_dim)
     enc = ConvEncoder(ngf=opt.ngf, w_dim=opt.w_dim, crop_size=opt.crop_size,
                       norm_e=opt.norm_E, input_nc=opt.input_nc)
-    return {"G": gen, "E": enc}
+    nets = {"G": gen, "E": enc}
+    if opt.isTrain:
+        if opt.netD != "multiscale" or opt.netD_subarch != "n_layer":
+            raise ValueError(f"unknown netD '{opt.netD}/{opt.netD_subarch}'")
+        nets["D"] = MultiscaleDiscriminator(
+            opt.semantic_nc + opt.output_nc, ndf=opt.ndf,
+            n_layers=opt.n_layers_D, num_d=opt.num_D, norm_d=opt.norm_D,
+            get_intermediate_features=not opt.no_ganFeat_loss)
+    return nets
 
 
 class Pix2Pix:
-    """The generator and encoder of one configuration, on one device."""
+    """The networks of one configuration, on one device."""
 
     def __init__(self, opt, nets: Dict[str, torch.nn.Module],
                  device: str | torch.device = "cuda"):
@@ -59,11 +85,15 @@ class Pix2Pix:
         self.opt = opt
         self.device = torch.device(device)
         self.dtype = _DTYPES[opt.compute_dtype]
-        self.netG = nets["G"].to(self.device).eval()
-        self.netE = nets["E"].to(self.device).eval()
+        self.netG = nets["G"].to(self.device)
+        self.netE = nets["E"].to(self.device)
+        self.netD = nets["D"].to(self.device) if "D" in nets else None
 
-    def preprocess(self, batch: Dict) -> Tuple[torch.Tensor, torch.Tensor]:
-        """-> (seg (B,H,W,S), style (B,k,H,W,1)) on the device, compute dtype."""
+    def preprocess(self, batch: Dict
+                   ) -> Tuple[torch.Tensor, torch.Tensor,
+                              Optional[torch.Tensor]]:
+        """-> (seg (B,H,W,S), style (B,k,H,W,1), target (B,H,W,1) or None)
+        on the device, in the compute dtype."""
         def norm(x):
             x = torch.as_tensor(x).to(self.device)
             if x.dtype == torch.uint8:
@@ -72,7 +102,9 @@ class Pix2Pix:
 
         label = torch.as_tensor(batch["label"]).to(self.device)
         seg = one_hot_label(label, self.opt.semantic_nc).to(self.dtype)
-        return seg, norm(batch["style_image"])
+        target = batch.get("target")
+        return (seg, norm(batch["style_image"]),
+                None if target is None else norm(target))
 
     def _aggregate(self, t: torch.Tensor, dim: int) -> torch.Tensor:
         if self.opt.style_aggr_method == "mean":
@@ -81,7 +113,7 @@ class Pix2Pix:
             return t.amax(dim)
         raise ValueError(self.opt.style_aggr_method)
 
-    def encode_w(self, style: torch.Tensor
+    def encode_w(self, style: torch.Tensor, update_stats: bool = False
                  ) -> Tuple[torch.Tensor, List[torch.Tensor]]:
         """style (B,k,H,W,1) -> (w (B,w_dim), aggregated NCHW features)."""
         b, k = style.shape[:2]
@@ -89,25 +121,108 @@ class Pix2Pix:
             raise NotImplementedError(
                 "per-sample encoding (batch-subnorm encoders) is not ported")
         flat = style.reshape(b * k, *style.shape[2:]).permute(0, 3, 1, 2)
-        mu, _, feats = self.netE(flat)
+        mu, _, feats = self.netE(flat, update_stats)
         w = self._aggregate(mu.reshape(b, k, -1), 1)
         feats = [self._aggregate(f.reshape(b, k, *f.shape[1:]), 1)
                  for f in feats]
         return w, feats
 
-    def generate(self, seg: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-        """-> fake (B,H,W,output_nc) in the compute dtype."""
-        fake = self.netG(seg, at_least_f32(w),
-                         use_running_average=self.opt.eval_use_running_stats)
+    def generate(self, seg: torch.Tensor, w: torch.Tensor,
+                 update_stats: bool = False) -> torch.Tensor:
+        """-> fake (B,H,W,output_nc) in the compute dtype.  A training
+        forward (``update_stats``) always uses batch statistics."""
+        running = self.opt.eval_use_running_stats and not update_stats
+        fake = self.netG(seg, at_least_f32(w), use_running_average=running,
+                         update_stats=update_stats)
         return fake.permute(0, 2, 3, 1)
 
+    def discriminate(self, seg: torch.Tensor, fake: torch.Tensor,
+                     real: torch.Tensor):
+        """A training forward of D on [all fake | all real] -> (pred_fake,
+        pred_real), each a list per scale of NCHW stage outputs."""
+        both = torch.cat([torch.cat([seg, fake], -1),
+                          torch.cat([seg, real], -1)], 0)
+        out = self.netD(both.permute(0, 3, 1, 2), update_stats=True)
+        half = fake.shape[0]
+        pred_fake = [[t[:half] for t in scale] for scale in out]
+        pred_real = [[t[half:] for t in scale] for scale in out]
+        return pred_fake, pred_real
+
+    # ------------------------------------------------------------------ #
+    def generator_loss(self, batch: Dict
+                       ) -> Tuple[torch.Tensor, Dict, torch.Tensor]:
+        """One training forward of E, G and D -> (total, loss dict with the
+        raw side channel, fake)."""
+        opt = self.opt
+        seg, style, target = self.preprocess(batch)
+        w_real, feats_real = self.encode_w(style, update_stats=True)
+        fake = self.generate(seg, w_real, update_stats=True)
+        pred_fake, pred_real = self.discriminate(seg, fake, target)
+
+        losses: Dict[str, torch.Tensor] = {}
+        raw: Dict[str, torch.Tensor] = {}
+        losses["GAN"] = L.gan_loss(pred_fake, True, for_discriminator=False,
+                                   mode=opt.gan_mode)
+        if opt.lambda_l2:
+            l2 = L.l2_loss(fake, target)
+            losses["L2/weighted"] = l2 * opt.lambda_l2
+            raw["L2/raw"] = l2
+        if opt.lambda_l1:
+            l1 = L.l1_loss(fake, target)
+            losses["L1/weighted"] = l1 * opt.lambda_l1
+            raw["L1/raw"] = l1
+        if opt.lambda_openeds:
+            eds = torch.mean(metrics.mse_for_tensors(at_least_f32(fake),
+                                                     at_least_f32(target)))
+            losses["openeds/weighted"] = eds * opt.lambda_openeds
+            raw["openeds/raw"] = eds
+
+        if opt.lambda_style_feat or opt.lambda_style_w or opt.lambda_gram:
+            w_fake, feats_fake = self.encode_w(fake[:, None],
+                                               update_stats=True)
+            if opt.lambda_style_w > 0:
+                sw = L.l2_loss(w_fake, w_real)
+                losses["style_w/weighted"] = sw * opt.lambda_style_w
+                raw["style_w/raw"] = sw
+            if opt.lambda_style_feat > 0:
+                sf = L.multi_feature_mse(feats_fake, feats_real)
+                losses["style_feat/weighted"] = sf * opt.lambda_style_feat
+                raw["style_feat/raw"] = sf
+            if opt.lambda_gram > 0:
+                gl = L.multi_gram_loss(feats_fake, feats_real)
+                losses["gram/weighted"] = gl * opt.lambda_gram
+                raw["gram/raw"] = gl
+
+        if not opt.no_ganFeat_loss:
+            losses["GAN_Feat"] = L.feature_matching_loss(
+                pred_fake, pred_real, opt.lambda_feat)
+        if not opt.no_vgg_loss:
+            raise NotImplementedError("the VGG loss is not ported")
+        total = sum(torch.mean(v) for v in losses.values())
+        return total, {**losses, **raw}, fake
+
+    def discriminator_loss(self, batch: Dict, fake: torch.Tensor
+                           ) -> Tuple[torch.Tensor, Dict]:
+        """One training forward of D on the detached ``fake`` and the real
+        target -> (total, loss dict)."""
+        seg, _, target = self.preprocess(batch)
+        pred_fake, pred_real = self.discriminate(seg, fake.detach(), target)
+        losses = {
+            "D/Fake": L.gan_loss(pred_fake, False, for_discriminator=True,
+                                 mode=self.opt.gan_mode),
+            "D/real": L.gan_loss(pred_real, True, for_discriminator=True,
+                                 mode=self.opt.gan_mode),
+        }
+        return sum(torch.mean(v) for v in losses.values()), losses
+
+    # ------------------------------------------------------------------ #
     @torch.no_grad()
     def inference(self, batch: Dict,
                   latent_style: Optional[torch.Tensor] = None) -> torch.Tensor:
         """Encode the style references (unless ``latent_style`` is given)
         and generate -> (B,H,W,1) float32."""
         with full_float32(self.dtype == torch.float32):
-            seg, style = self.preprocess(batch)
+            seg, style, _ = self.preprocess(batch)
             if latent_style is None:
                 latent_style, _ = self.encode_w(style)
             latent_style = torch.as_tensor(latent_style, device=self.device)
@@ -116,5 +231,5 @@ class Pix2Pix:
     @torch.no_grad()
     def encode_only(self, batch: Dict) -> torch.Tensor:
         with full_float32(self.dtype == torch.float32):
-            _, style = self.preprocess(batch)
+            _, style, _ = self.preprocess(batch)
             return self.encode_w(style)[0]

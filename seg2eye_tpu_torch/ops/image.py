@@ -71,6 +71,19 @@ def resize_bilinear(x: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
     return out.to(dt)
 
 
+def avg_pool_3x3s2(x: torch.Tensor) -> torch.Tensor:
+    """3x3 stride-2 pad-1 average pool of an NHWC tensor, padding not
+    counted (``count_include_pad=False``): the multiscale discriminator's
+    downsampler.  -> NHWC-contiguous (channels_last NCHW once permuted).
+
+    It pools a contiguous NCHW copy: on CUDA, PyTorch's backward of this
+    pool on channels_last input is wrong (torch 2.11: an input gradient
+    105% off the CPU's, while the contiguous input's matches it)."""
+    y = F.avg_pool2d(x.permute(0, 3, 1, 2).contiguous(), 3, stride=2,
+                     padding=1, count_include_pad=False)
+    return y.permute(0, 2, 3, 1).contiguous()
+
+
 def to_255(x: torch.Tensor) -> torch.Tensor:
     """[-1,1] -> [0,255], truncated toward zero (the reference's ``.int()``)."""
     return torch.trunc((x + 1.0) * 255.0 / 2.0)

@@ -40,6 +40,8 @@ KERNELS = {torch.bfloat16: "spade_style_fwd_bf16_sm90",
 SOURCE = {dtype: "seg2eye_tpu_torch/ops/csrc/spade_style_sm90.cu"
           for dtype in KERNELS}
 REPLACES = "seg2eye_tpu/ops/pallas/spade_style.py:83"   # the Pallas _kernel
+# the profiler range around the backward's recompute
+BACKWARD_RANGE = "spade_style backward (plain recompute)"
 
 
 @contextlib.contextmanager
@@ -167,7 +169,10 @@ class PackedWeights:
     """``pack_weights`` of one norm site, kept from one forward to the next
     and made anew, per dtype, once a weight is replaced or changed in place
     (its storage or ``_version`` moves).  The cache holds detached views of
-    the weights it packed, so their storage cannot be reused unseen."""
+    the weights it packed, so their storage cannot be reused unseen.  An
+    in-place update that leaves ``_version`` alone (``torch.optim.Adam(
+    fused=True)`` does) is not seen, so the port's optimizers are never
+    fused (``train.state``)."""
 
     def __init__(self):
         self._cache = {}
@@ -252,7 +257,8 @@ class _SpadeStyle(torch.autograd.Function):
                   zip(ctx.saved_tensors, ctx.needs_input_grad)]
         wanted = [t for t in inputs if t.requires_grad]
         with torch.enable_grad(), full_float32(
-                grad_out.dtype == torch.float32):
+                grad_out.dtype == torch.float32), \
+                torch.profiler.record_function(BACKWARD_RANGE):
             out = spade_style_reference(*inputs, eps=ctx.eps)
             grads = iter(torch.autograd.grad(out, wanted, grad_out))
         return tuple(next(grads) if t.requires_grad else None

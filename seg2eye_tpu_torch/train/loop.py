@@ -1,0 +1,174 @@
+"""The training loop (counterpart of ``seg2eye_tpu/train/loop.py``, the
+reference's train.py).
+
+Per epoch: the learning rate of that epoch, the loader pinned to it (its
+shuffle and flips are keyed on the epoch), then one iteration per batch:
+the fused G-then-D ``train_step``, or with ``D_steps_per_G`` > 1 a G step
+every D_steps_per_G-th iteration and a D step on every one.  Then, on the
+reference's cadence: the losses to stdout and ``loss_log.txt``, a partial
+('rand') validation of the train and validation splits, the ``latest``
+checkpoint with ``iter.txt``, and full validation; at the end of an epoch,
+``latest`` and ``{epoch}`` checkpoints.  A resumed run (``continue_train``)
+loads networks, optimizers and step, and skips the batches its epoch had
+already trained, so it continues the unbroken run bit for bit.  Ctrl-C and
+SIGTERM end in the same final save as a normal finish.
+
+Batches move to the device one step ahead (``data.openeds.
+device_prefetch``).  ``dataloader`` replaces the H5 loader with any
+iterable of batches with ``set_epoch``/``skip_next_batches`` and a length;
+the validation loaders are still built from ``opt.dataroot``, when a
+validation comes due.  ``--tf_log``, ``--write_error_log``,
+``--profile_steps``, ``--remat``, the VGG loss and the multi-device
+options are not ported, and raise.
+"""
+from __future__ import annotations
+
+import contextlib
+import traceback
+from typing import Dict, Optional
+
+import torch
+
+from seg2eye_tpu_torch.data.openeds import create_dataloader, device_prefetch
+from seg2eye_tpu_torch.eval.tester import Tester
+from seg2eye_tpu_torch.models.pix2pix import Pix2Pix
+from seg2eye_tpu_torch.train import state as state_lib
+from seg2eye_tpu_torch.train import steps
+from seg2eye_tpu_torch.utils import checkpoint
+from seg2eye_tpu_torch.utils.iter_counter import IterationCounter
+from seg2eye_tpu_torch.utils.signals import is_preemption, sigterm_raises
+from seg2eye_tpu_torch.utils.visualizer import Visualizer
+from seg2eye_tpu_torch.utils.weights import init_networks
+
+
+def _check_ported(opt, device: torch.device) -> None:
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("training on 'cuda': no CUDA device is available")
+    missing = {"--write_error_log": opt.write_error_log,
+               "--profile_steps": opt.profile_steps,
+               "--remat": opt.remat,
+               "the VGG loss (--no_vgg_loss False)": not opt.no_vgg_loss,
+               "--spatial_shard": opt.spatial_shard,
+               "--model_axis > 1": opt.model_axis > 1}
+    for what, asked in missing.items():
+        if asked:
+            raise NotImplementedError(f"{what} is not ported")
+
+
+def _testers(opt):
+    """Train and validation Testers on the H5 file's splits."""
+    out = []
+    for key in ("train", "validation"):
+        topt = opt.replace(serial_batches=True, no_flip=True, isTrain=False,
+                           dataset_key=key)
+        out.append(Tester(opt, key, create_dataloader(topt, key)))
+    return out
+
+
+def _host_losses(losses: Dict) -> Dict[str, float]:
+    return {k: float(torch.mean(v.float())) for k, v in losses.items()}
+
+
+def train(opt, max_steps: Optional[int] = None, step_hook=None,
+          dataloader=None, device="cuda") -> Dict:
+    """-> {"losses": the last iteration's losses as floats, "steps": the
+    iterations run, "state": the TrainState}.
+
+    ``step_hook(step, losses)`` fires after every iteration with its
+    1-based index and the loss dict (tensors on the device)."""
+    device = torch.device(device)
+    _check_ported(opt, device)
+    visualizer = Visualizer(opt)
+    if dataloader is None:
+        dataloader = create_dataloader(opt)
+    nets = init_networks(opt, torch.Generator().manual_seed(opt.seed), device)
+    state = state_lib.create_state(Pix2Pix(opt, nets, device))
+    model = state.model
+    iter_counter = IterationCounter(opt, len(dataloader) * opt.batchSize)
+    resume_skip = 0
+    if opt.continue_train and checkpoint.has_checkpoint(opt, opt.which_epoch):
+        checkpoint.load_state(state, opt, opt.which_epoch)
+        print(f"Resumed networks from '{opt.which_epoch}' checkpoint")
+        resume_skip = iter_counter.epoch_iter // opt.batchSize
+    testers = None
+
+    max_steps = max_steps or (opt.max_steps or None)
+    last_losses: Dict = {}
+    g_losses: Dict = {}
+    n_iters = 0
+    stop = False
+    exit_stack = contextlib.ExitStack()
+    exit_stack.enter_context(sigterm_raises())
+    try:
+        for epoch in iter_counter.training_epochs():
+            if iter_counter.current_epoch != epoch:
+                iter_counter.record_epoch_start(epoch)
+            state_lib.set_learning_rate(state, opt, epoch)
+            dataloader.set_epoch(epoch)
+            if resume_skip and epoch == iter_counter.first_epoch:
+                dataloader.skip_next_batches(resume_skip)
+
+            for i, (_, batch) in enumerate(device_prefetch(dataloader, device),
+                                           start=iter_counter.epoch_iter):
+                iter_counter.record_one_iteration()
+                if opt.D_steps_per_G == 1:
+                    losses, _ = steps.train_step(state, batch)
+                else:
+                    if i % opt.D_steps_per_G == 0:
+                        g_losses, _ = steps.g_step(state, batch)
+                    # D-only iterations report the latest G losses
+                    losses = {**g_losses, **steps.d_step(state, batch)}
+                last_losses = losses
+                n_iters += 1
+                if step_hook is not None:
+                    step_hook(n_iters, losses)
+
+                if iter_counter.needs_printing():
+                    visualizer.print_current_errors(
+                        epoch, iter_counter.total_steps_so_far,
+                        _host_losses(losses), iter_counter.time_per_iter)
+                if iter_counter.needs_displaying():
+                    testers = testers or _testers(opt)
+                    for tester in testers:
+                        tester.run_partial_modes(
+                            model, epoch=epoch,
+                            n_steps=iter_counter.total_steps_so_far,
+                            limit=min(opt.validation_limit, tester.N))
+                if iter_counter.needs_saving():
+                    print("saving the latest model (epoch %d, total_steps %d)"
+                          % (epoch, iter_counter.total_steps_so_far))
+                    checkpoint.save_state(state, opt, "latest")
+                    iter_counter.record_current_iter()
+                if iter_counter.needs_full_validation():
+                    testers = testers or _testers(opt)
+                    for tester in testers:
+                        tester.run(model, mode="full", epoch=epoch,
+                                   n_steps=iter_counter.total_steps_so_far)
+                if max_steps and n_iters >= max_steps:
+                    stop = True
+                    break
+
+            iter_counter.record_epoch_end()
+            if (epoch % opt.save_epoch_freq == 0
+                    or epoch == iter_counter.total_epochs):
+                print("saving the model at the end of epoch %d, iters %d"
+                      % (epoch, iter_counter.total_steps_so_far))
+                checkpoint.save_state(state, opt, "latest")
+                checkpoint.save_state(state, opt, epoch)
+            if stop:
+                break
+        print("Training was successfully finished.")
+    except (KeyboardInterrupt, SystemExit) as e:
+        name = ("SIGTERM (preemption)" if is_preemption(e)
+                else "KeyboardInterrupt")
+        print(f"{name}. Shutting down.")
+    except Exception:
+        print(traceback.format_exc())
+        raise
+    finally:
+        exit_stack.close()
+        print("saving the model before quitting")
+        checkpoint.save_state(state, opt, "latest")
+        iter_counter.record_current_iter()
+    return {"losses": _host_losses(last_losses), "steps": n_iters,
+            "state": state}

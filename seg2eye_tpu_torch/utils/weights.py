@@ -2,8 +2,9 @@
 
   * ``from_jax_variables``: the JAX package's variables (as numpy arrays)
     -> state_dicts that load into the port's modules with ``strict=True``.
-    The layout work is the port's own copy of the generator and encoder
-    half of ``seg2eye_tpu/utils/torch_export.py``: HWIO kernels -> OIHW,
+    The layout work is the port's own copy of the generator, encoder and
+    discriminator exports of ``seg2eye_tpu/utils/torch_export.py``: HWIO
+    kernels -> OIHW,
     (in, out) linears -> (out, in), the encoder fc re-flattened from HWC
     to CHW, spectral ``weight_v`` in torch's (I, kh, kw) flatten order, BN
     statistics -> running_{mean,var}.
@@ -142,15 +143,54 @@ def export_encoder(variables: Dict) -> Dict[str, np.ndarray]:
     return sd
 
 
+def export_discriminator(variables: Dict, num_d: int = 2,
+                         n_layers: int = 4) -> Dict[str, np.ndarray]:
+    """Multiscale discriminator variables -> the port's (and the
+    reference's) discriminator state_dict, as numpy arrays."""
+    p, sp = variables["params"], variables.get("spectral", {})
+    sd: Dict[str, np.ndarray] = {}
+    for k in range(num_d):
+        dk = f"discriminator_{k}"
+        sd[f"{dk}.model0.0.weight"] = _conv(p[dk]["model0_conv"]["kernel"])
+        sd[f"{dk}.model0.0.bias"] = _f32(p[dk]["model0_conv"]["bias"])
+        for n in range(1, n_layers):
+            conv_p = p[dk][f"model{n}_conv"]
+            if "bias" in conv_p:
+                # no sub-norm: the bare conv, bias kept, at model{n}.0
+                _spectral(sd, f"{dk}.model{n}.0", conv_p,
+                          sp.get(dk, {}).get(f"model{n}_conv"))
+                sd[f"{dk}.model{n}.0.bias"] = _f32(conv_p["bias"])
+                continue
+            _spectral(sd, f"{dk}.model{n}.0.0", conv_p,
+                      sp.get(dk, {}).get(f"model{n}_conv"))
+            if "TorchBatchNorm_0" in p[dk].get(f"norm{n}", {}):
+                raise NotImplementedError(
+                    "batch-subnorm discriminators (norm_D='spectralbatch') "
+                    "are not ported")
+        last = f"model{n_layers}_conv"
+        sd[f"{dk}.model{n_layers}.0.weight"] = _conv(p[dk][last]["kernel"])
+        sd[f"{dk}.model{n_layers}.0.bias"] = _f32(p[dk][last]["bias"])
+    return sd
+
+
 def from_jax_variables(variables: Dict) -> Dict[str, Dict[str, torch.Tensor]]:
-    """{"G": generator variables, "E": encoder variables} (numpy arrays)
-    -> {"G": state_dict, "E": state_dict} of CPU tensors."""
+    """{"G": generator variables, "E": encoder variables[, "D":
+    discriminator variables]} (numpy arrays) -> state_dicts of CPU tensors
+    under the same keys."""
     def to_torch(sd):
         return {k: torch.from_numpy(np.ascontiguousarray(v))
                 for k, v in sd.items()}
 
-    return {"G": to_torch(export_generator(variables["G"])),
-            "E": to_torch(export_encoder(variables["E"]))}
+    out = {"G": to_torch(export_generator(variables["G"])),
+           "E": to_torch(export_encoder(variables["E"]))}
+    if "D" in variables:
+        d = variables["D"]["params"]
+        num_d = sum(1 for k in d if k.startswith("discriminator_"))
+        n_layers = sum(1 for k in d["discriminator_0"]
+                       if k.startswith("model")) - 1
+        out["D"] = to_torch(export_discriminator(variables["D"], num_d,
+                                                 n_layers))
+    return out
 
 
 @torch.no_grad()
@@ -170,7 +210,8 @@ def _init_module(net: nn.Module, init, generator: torch.Generator) -> None:
 def init_networks(opt, generator: torch.Generator,
                   device: str | torch.device = "cuda"
                   ) -> Dict[str, nn.Module]:
-    """Generator and encoder for ``opt`` with seeded random weights: xavier
+    """Generator and encoder (and the discriminator when ``opt.isTrain``)
+    for ``opt`` with seeded random weights: xavier
     (gain ``opt.init_variance``) for convs and linears, He for the style FC
     layers, zero biases, random normalised spectral u with v = normalize(W^T u).
     ``generator`` is a CPU generator: weights are drawn on the CPU, so one
