@@ -45,7 +45,22 @@ Phases; any failure raises and the script exits non-zero:
      must have the CPU's gradient.  Last,
      the entry point ``train.loop.train`` runs 3 steps of in-memory batches
      into a temporary checkpoints_dir (108 launches), and its ``latest`` G
-     and E strict-load and score a batch through ``Tester``.
+     and E strict-load and score a batch through ``Tester``;
+  6. refinenet: the RefineNet system at full width (ResNet-101
+     DeepLabV3+, os16, 640x400, seeded weights, seeded uint8 batches in
+     memory; the optimizer settings of refinenet/configs/*.json).  SegNet
+     and RefineNet must count 59,339,940 and 59,339,169 parameters; each
+     serves batches of 32 through ``Trainer.eval_step`` (masks in 0..3;
+     predictions in [-1, 1] and a finite score) and takes 3 train steps at
+     batch 8, in bfloat16 and float32 (finite losses, every parameter with
+     a nonzero gradient and every running statistic moved), each timed
+     beside its FLOP bound.  Card against CPU: single ops of the DeepLab
+     path on channels_last input, then one eval forward and one train step
+     of SegNet, RefineNet and a MobileNet RefineNet at ResNet-14 and
+     64x40, from identical states, in float32 and float64.  Last,
+     ``main_loop`` trains RefineNet 3 steps into a temporary directory and
+     its last checkpoint reloads to bit-identical eval outputs.  No
+     SPADE+Style kernel launches in this phase.
 Nothing of JAX or of the JAX package may have been imported.
 The port keeps float32 in full float32 by itself (its float32 forward and
 plain versions turn TF32 off around their own convolutions); the cuDNN
@@ -135,15 +150,19 @@ def tf32(allowed: bool):
 
 
 # ---------------------------------------------------------------- phase 1
+def card_line() -> str:
+    """The card's name and power limit, as nvidia-smi prints them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip()
+
+
 def phase_device() -> str:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; "
                          "this run needs an NVIDIA GPU")
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True, timeout=60).stdout.strip()
-    log(smi)
+    log(card_line())
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"python {sys.version.split()[0]}, devices "
         f"{torch.cuda.device_count()}")
@@ -915,10 +934,14 @@ def compare_state(where, card, cpu, lr):
 
 
 class InMemoryBatches:
-    """The training loop's dataloader interface over batches in memory."""
+    """The training loops' dataloader interface over batches in memory,
+    with a ``dataset`` of the matching length (RefineNet's main_loop reads
+    it)."""
 
     def __init__(self, batches):
         self.batches = batches
+        self.dataset = [None] * sum(len(b["input" if "input" in b
+                                          else "label"]) for b in batches)
 
     def __len__(self):
         return len(self.batches)
@@ -1044,18 +1067,431 @@ def phase_train():
     return launches
 
 
+# ---------------------------------------------------------------- phase 6
+RN_SERVE_BATCH, RN_TRAIN_STEPS, RN_SERVE_REPEATS = 32, 3, 5
+RN_DEVICE = "cuda"
+RN_CONFIGS = {"SegNet": "refinenet/configs/segnet.json",
+              "RefineNet": "refinenet/configs/refinenet.json"}
+RN_PARAMS = {"SegNet": 59_339_940, "RefineNet": 59_339_169}
+# card against CPU, one eval forward and one train step of a tiny config
+# (ResNet-14, 64x40) from identical states, in float32 (the card's cuDNN in
+# full float32) and in float64.  Distances: outputs and losses relative to
+# 1 + |x|, running statistics max abs, gradients, update and momentum per
+# tensor ||d|| / (||x|| + RN_NET_FLOOR ||x of the net||).  The train-mode
+# BNs over few values amplify round-off into the gradients: float32 CPU
+# runs are 2e-5 to 5e-3 from a float64 run of the same step (measured), so
+# float32 gradients are held at 5e-2, which a wrong kernel (PR 4's
+# avg_pool2d backward: 105%) misses by far; float64 (where only the pool's
+# mean and the loss head stay float32, on both sides) holds them to 1e-4
+# (measured 4e-7 to 2e-6 on an H100).  Batch 4,
+# not 2: at batch 2 the ASPP global pool's BN normalises over two values
+# per channel.  The BN affine parameters start from a seeded perturbation
+# of the init: at the init itself a MobileNet block's fixed padding passes
+# through the expand conv and a BN whose input has zero mean (the previous
+# block's BN output), so the padded border comes out of that BN as 0 up to
+# round-off (1e-17), and ReLU6's gradient there (passed at x >= 0, blocked
+# below) is decided by the round-off: CPU against CPU in another memory
+# layout, in float64, 14-38% apart in those BNs' bias gradients.
+RN_CARD_CPU = dict(resnet_depth=14, input_height=64, input_width=40,
+                   batch_size=4, test_batch_size=4)
+RN_NET_FLOOR = 1e-2
+RN_CARD_CPU_TOL = {
+    "float32": {"outputs": 1e-4, "losses": 1e-4, "statistics": 1e-4,
+                "gradients": 5e-2, "update": 5e-2, "momentum": 5e-2},
+    "float64": {"outputs": 1e-5, "losses": 1e-5, "statistics": 1e-5,
+                "gradients": 1e-4, "update": 1e-4, "momentum": 1e-4}}
+
+
+def rn_config(name, **kw):
+    from seg2eye_tpu_torch.refinenet.config import RefineNetConfig
+
+    return RefineNetConfig.from_json(RN_CONFIGS[name], **kw)
+
+
+def rn_model(name, cfg, device):
+    from seg2eye_tpu_torch.refinenet import model
+
+    cls = model.SegNetModel if name == "SegNet" else model.RefineNetModel
+    return cls(cfg, device)
+
+
+def rn_trainer(name, model):
+    from seg2eye_tpu_torch.refinenet.training import Trainer
+
+    return Trainer(model, model.cfg, "ce_loss" if name == "SegNet"
+                   else "eds_loss", 0.9 if name == "SegNet" else 0.99)
+
+
+def rn_batch(name, cfg, b, seed=0, device=None):
+    """A seeded uint8 batch as the loader gives it, on ``device`` (the
+    card by default)."""
+    device = device or RN_DEVICE
+    rng = np.random.default_rng(seed)
+    h, w = cfg.input_height, cfg.input_width
+    c = 1 if name == "SegNet" else 3
+    batch = {"input": rng.integers(0, 256, (b, h, w, c), dtype=np.uint8),
+             "target": (rng.integers(0, 4, (b, h, w), dtype=np.uint8)
+                        if name == "SegNet" else
+                        rng.integers(0, 256, (b, h, w, 1), dtype=np.uint8))}
+    return {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
+
+
+def rn_flops(name, model):
+    """(forward FLOPs of one image in eval, of one image's training step:
+    forward and backward) at the model's input size, counted by
+    torch.utils.flop_counter (convolutions; the rest is noise)."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    cfg = model.cfg
+    with FlopCounterMode(display=False) as fc, torch.no_grad():
+        model.forward(rn_batch(name, cfg, 1), train=False)
+    fwd = fc.get_total_flops()
+    state = {k: v.clone() for k, v in model.net.state_dict().items()}
+    with FlopCounterMode(display=False) as fc:
+        out = model.forward(rn_batch(name, cfg, 2), train=True)
+        out["ce_loss" if name == "SegNet" else "eds_loss"].backward()
+    model.net.load_state_dict(state)
+    model.net.zero_grad(set_to_none=True)
+    return fwd, fc.get_total_flops() / 2
+
+
+def rn_bound_ms(flops, dname):
+    """The least time of ``flops`` at the card's peak for the compute
+    dtype: the tensor cores' bf16 rate, or the FP32 pipes' (the port
+    keeps float32 out of TF32)."""
+    return flops / (PEAK_FLOPS["bfloat16"] if dname == "bfloat16"
+                    else FP32_PIPE_FLOPS) * 1e3
+
+
+def rn_serve(name, trainer, state, dname, flops):
+    """eval_step at bs32: checks, then the median host-clock ms of
+    RN_SERVE_REPEATS synchronised batches and the peak memory."""
+    cfg = state.model.cfg
+    batch = rn_batch(name, cfg, RN_SERVE_BATCH, seed=1)
+    if name == "SegNet":                  # masks for unlabeled images
+        del batch["target"]
+    out = trainer.eval_step(state, batch)                  # warm-up
+    pred = out["prediction"]
+    if name == "SegNet":
+        if pred.shape != (RN_SERVE_BATCH, cfg.input_height, cfg.input_width) \
+                or int(pred.min()) < 0 or int(pred.max()) > 3:
+            raise AssertionError(f"SegNet {dname}: predictions {pred.shape}, "
+                                 f"range {int(pred.min())}..{int(pred.max())}")
+        extra = f"classes {torch.bincount(pred.flatten().long(), minlength=4).tolist()}"
+    else:
+        score = float(out["score"])
+        if not (torch.isfinite(pred).all() and float(pred.abs().max()) <= 1.0
+                and np.isfinite(score)):
+            raise AssertionError(f"RefineNet {dname}: prediction or score "
+                                 "not finite and in [-1, 1]")
+        extra = f"score {score:.2f}"
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for _ in range(RN_SERVE_REPEATS):
+        t0 = time.perf_counter()
+        trainer.eval_step(state, batch)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    ms = statistics.median(times)
+    bound = rn_bound_ms(flops * RN_SERVE_BATCH, dname)
+    log(f"  serve {name} {dname} bs{RN_SERVE_BATCH}: {ms:.2f} ms/batch, "
+        f"{RN_SERVE_BATCH / ms * 1e3:.2f} img/s, peak "
+        f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB; bound "
+        f"{bound:.2f} ms ({flops * RN_SERVE_BATCH / 1e12:.3f} TFLOP), "
+        f"{100 * bound / ms:.1f}% of it; {extra} (median of "
+        f"{RN_SERVE_REPEATS}, host clock, synchronised)")
+    return ms
+
+
+def rn_train(name, trainer, state, dname, flops):
+    """RN_TRAIN_STEPS train steps at the config's batch (dropout on, as
+    main_loop runs them), after one warm-up step: finite losses, every
+    parameter with a nonzero gradient moved, every running statistic
+    moved; median ms/step and peak memory."""
+    from seg2eye_tpu_torch.refinenet.training import dropout_generator
+
+    cfg = state.model.cfg
+    lr = cfg.learning_rate
+    net = state.model.net
+    trainer.train_step(state, rn_batch(name, cfg, cfg.batch_size, seed=2), lr,
+                       dropout_generator(cfg, 0, RN_DEVICE))        # warm-up
+    before = {k: v.detach().clone() for k, v in net.state_dict().items()}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times, losses = [], []
+    nonzero = set()
+    for step in range(RN_TRAIN_STEPS):
+        batch = rn_batch(name, cfg, cfg.batch_size, seed=3 + step)
+        t0 = time.perf_counter()
+        scalars, _ = trainer.train_step(state, batch, lr,
+                                        dropout_generator(cfg, step + 1,
+                                                          RN_DEVICE))
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        losses.append({k: float(v) for k, v in scalars.items()})
+        nonzero |= {n for n, p in net.named_parameters()
+                    if p.grad is not None and bool(p.grad.any())}
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    if not all(np.isfinite(v) for d in losses for v in d.values()):
+        raise AssertionError(f"{name} {dname}: non-finite losses {losses}")
+    after = net.state_dict()
+    params = dict(net.named_parameters())
+    stuck = [k for k in after if "num_batches" not in k
+             and (k in nonzero or k not in params)
+             and torch.equal(after[k], before[k])]
+    if stuck:
+        raise AssertionError(f"{name} {dname}: did not move: {stuck[:5]}")
+    ms = statistics.median(times)
+    bound = rn_bound_ms(flops * cfg.batch_size, dname)
+    key = "ce_loss" if name == "SegNet" else "eds_loss"
+    log(f"  train {name} {dname} bs{cfg.batch_size} (momentum "
+        f"{trainer.momentum}, clip {cfg.gradient_norm_clip}, lr {lr:g}): "
+        f"{ms:.2f} ms/step, {cfg.batch_size / ms * 1e3:.2f} img/s, peak "
+        f"{peak:.2f} GiB; bound {bound:.2f} ms "
+        f"({flops * cfg.batch_size / 1e12:.3f} TFLOP), {100 * bound / ms:.1f}% "
+        f"of it; {key} " + ", ".join(f"{d[key]:.4f}" for d in losses)
+        + f"; {len(nonzero)} parameters with a nonzero gradient and every "
+        "running statistic moved (median of "
+        f"{RN_TRAIN_STEPS}, host clock, synchronised)")
+    return ms
+
+
+def rn_gap(got, want):
+    """max over tensors of ||got - want|| / (||want|| + floor ||want's
+    net||), float32."""
+    net = float(torch.sqrt(sum((w.double() ** 2).sum()
+                               for w in want.values())))
+    return max(float((got[k].double().cpu() - w.double()).norm()
+                     / (w.double().norm() + RN_NET_FLOOR * net))
+               for k, w in want.items())
+
+
+def rn_op_checks():
+    """Single ops of the DeepLab path on channels_last input, card against
+    CPU, input gradients included: max_pool2d (3x3/2, pad 1), a depthwise
+    3x3 conv, batch norm in train mode and resize_bilinear_ac."""
+    from seg2eye_tpu_torch.ops.image import resize_bilinear_ac
+    from seg2eye_tpu_torch.utils.precision import full_float32
+
+    gen = torch.Generator().manual_seed(4)
+    x = torch.randn(4, 24, 33, 21, generator=gen)
+    wdw = torch.randn(24, 1, 3, 3, generator=gen)
+    ops = {"max_pool2d": lambda t, w: F.max_pool2d(t, 3, 2, padding=1),
+           "depthwise conv": lambda t, w: F.conv2d(
+               F.pad(t, (2, 2, 2, 2)), w, stride=2, dilation=2, groups=24),
+           "batch_norm": lambda t, w: F.batch_norm(
+               t, None, None, w[:, 0, 0, 0], None, True),
+           "resize_bilinear_ac": lambda t, w: resize_bilinear_ac(t, 40, 25)}
+    worst = {}
+    for name, fn in ops.items():
+        outs, grads = [], []
+        for device in (RN_DEVICE, "cpu"):
+            t = x.to(device).contiguous(memory_format=torch.channels_last) \
+                .detach().requires_grad_(True)
+            w = wdw.detach().clone().to(device).requires_grad_(True)
+            with full_float32():
+                y = fn(t, w)
+                (y * torch.linspace(-1, 1, y.numel(), device=device)
+                 .reshape(y.shape)).sum().backward()
+            outs.append(y.detach().cpu())
+            grads.append((t.grad.cpu(), w.grad.cpu() if w.grad is not None
+                          else torch.zeros(1)))
+        err = max(float((outs[0] - outs[1]).abs().max()),
+                  *(float((a - b).abs().max() / (b.abs().max() + 1e-30))
+                    for a, b in zip(*grads)))
+        worst[name] = err
+        if not err <= 1e-4:
+            raise AssertionError(f"{name}: card and CPU differ by {err:.3e} "
+                                 "on channels_last input")
+    log("  card vs CPU, single ops on channels_last input, max abs output "
+        "difference and largest gradient difference relative to its max "
+        "(tolerance 1e-4): " + ", ".join(f"{k} {v:.2e}"
+                                          for k, v in worst.items()))
+
+
+def rn_run(name, cfg, device, batch, x64=False):
+    """One eval forward and one train step of a seeded state (BN affine
+    parameters perturbed, see RN_CARD_CPU) on ``device``: (eval outputs,
+    scalars, gradients, parameter update, momentum, running statistics),
+    the state in float64 when ``x64``."""
+    model = rn_model(name, cfg, device)
+    trainer = rn_trainer(name, model)
+    state = trainer.init_state(torch.Generator().manual_seed(5))
+    gen = torch.Generator().manual_seed(8)
+    with torch.no_grad():
+        for p in model.net.parameters():
+            if p.dim() == 1:                      # BN scale and bias
+                p.add_(0.1 * torch.randn(p.shape, generator=gen).to(device))
+    if x64:
+        model.net.double()          # the optimizer keeps the same tensors
+        model.dtype = torch.float64
+    b = {k: v.to(device) for k, v in batch.items()}
+    outs = trainer.eval_step(state, b)
+    net = model.net
+    before = {n: p.detach().clone() for n, p in net.named_parameters()}
+    scalars, _ = trainer.train_step(state, b, cfg.learning_rate)
+    return (outs, {k: float(v) for k, v in scalars.items()},
+            {n: p.grad for n, p in net.named_parameters()},
+            {n: p.detach() - before[n] for n, p in net.named_parameters()},
+            {n: state.optimizer.state[p]["momentum_buffer"]
+             for n, p in net.named_parameters()},
+            {k: v for k, v in net.state_dict().items() if "running" in k})
+
+
+def rn_distances(run, ref):
+    """Distances of an rn_run from a reference one: eval outputs and losses
+    relative to 1 + |x|, running statistics max abs, gradients, update and
+    momentum as rn_gap."""
+    outs, scal, grads, upd, mom, stats = run
+    routs, rscal, rgrads, rupd, rmom, rstats = ref
+    return {
+        "outputs": max(float((outs[k].double().cpu() - v.double()).abs().max()
+                             / (1 + float(v.double().abs().max())))
+                       for k, v in routs.items() if v.is_floating_point()),
+        "losses": max(abs(scal[k] - rscal[k]) / (1 + abs(rscal[k]))
+                      for k in rscal),
+        "statistics": max(float((stats[k].double().cpu() - v.double())
+                                .abs().max()) for k, v in rstats.items()),
+        "gradients": rn_gap(grads, rgrads), "update": rn_gap(upd, rupd),
+        "momentum": rn_gap(mom, rmom)}
+
+
+def rn_card_vs_cpu():
+    """One eval forward and one train step of SegNet, RefineNet and a
+    MobileNet RefineNet at the tiny config, from identical states on the
+    card and on the CPU, in float32 and again in float64: outputs, losses,
+    gradients, the parameter update, momentum and running statistics
+    within RN_CARD_CPU_TOL."""
+    rn_op_checks()
+    cases = (("SegNet", "resnet"), ("RefineNet", "resnet"),
+             ("RefineNet", "mobilenet"))
+    for name, backbone in cases:
+        cfg = rn_config(name, compute_dtype="float32", backbone=backbone,
+                        **RN_CARD_CPU)
+        batch = rn_batch(name, cfg, cfg.batch_size, seed=6, device="cpu")
+        worst = 0.0
+        for dname, x64 in (("float32", False), ("float64", True)):
+            d = rn_distances(rn_run(name, cfg, RN_DEVICE, batch, x64),
+                             rn_run(name, cfg, "cpu", batch, x64))
+            tol = RN_CARD_CPU_TOL[dname]
+            worst = max(worst, *(v / tol[k] for k, v in d.items()))
+            log(f"  card vs CPU, {name} ({backbone}), {dname}, batch "
+                f"{cfg.batch_size} at {cfg.input_height}x{cfg.input_width}: "
+                + ", ".join(f"{k} {v:.2e} ({tol[k]:g})" for k, v in d.items()))
+        if worst > 1.0:
+            raise AssertionError(f"card and CPU disagree: {name} "
+                                 f"({backbone}), worst distance/tolerance "
+                                 f"{worst:.3f}")
+
+
+def rn_entry_point():
+    """main_loop trains RefineNet for RN_TRAIN_STEPS steps into a temporary
+    directory; its last checkpoint reloads into a fresh state, whose
+    eval_step equals the trained state's bit for bit."""
+    import tempfile
+
+    from seg2eye_tpu_torch.refinenet.checkpoint_manager import \
+        CheckpointManager
+    from seg2eye_tpu_torch.refinenet.training import main_loop
+
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg = rn_config("RefineNet", max_steps=RN_TRAIN_STEPS,
+                        output_dir_base=tmp)
+
+        def host(seed):
+            return {k: v.cpu().numpy() for k, v in
+                    rn_batch("RefineNet", cfg, cfg.batch_size, seed).items()}
+
+        train = InMemoryBatches([host(10 + i)
+                                 for i in range(RN_TRAIN_STEPS)])
+        test = {"val": InMemoryBatches([host(20)])}
+        t0 = time.perf_counter()
+        result = main_loop(rn_model("RefineNet", cfg, RN_DEVICE), cfg, train,
+                           test, loss_key="eds_loss", model_name="RefineNet")
+        seconds = time.perf_counter() - t0
+        if result["steps"] != RN_TRAIN_STEPS or not np.isfinite(
+                result["final"]["val"]["eds_loss"]):
+            raise AssertionError(f"main_loop: {result['steps']} steps, final "
+                                 f"{result['final']}")
+        fresh_trainer = rn_trainer("RefineNet",
+                                   rn_model("RefineNet", cfg, RN_DEVICE))
+        fresh = fresh_trainer.init_state(torch.Generator().manual_seed(7))
+        step, fresh = CheckpointManager(result["output_dir"]) \
+            .load_last_checkpoint(fresh)
+        batch = {k: torch.from_numpy(v).to(RN_DEVICE)
+                 for k, v in host(20).items()}
+        a = result["trainer"].eval_step(result["state"], batch)
+        b = fresh_trainer.eval_step(fresh, batch)
+        same = all(torch.equal(a[k], b[k]) for k in a)
+        if step != RN_TRAIN_STEPS or not same:
+            raise AssertionError(f"checkpoint step {step}, eval outputs "
+                                 f"equal: {same}")
+    log(f"  main_loop: RefineNet {RN_TRAIN_STEPS} steps at bs{cfg.batch_size} "
+        f"in {seconds:.1f} s (set-up and final test included); checkpoint "
+        f"{step:07d}.ckpt reloads, eval_step bit for bit equal "
+        f"(final val eds_loss {result['final']['val']['eds_loss']:.4f})")
+
+
+def phase_refinenet():
+    """The RefineNet system at full width: ResNet-101, os16, 640x400,
+    seeded weights, seeded uint8 batches in memory."""
+    from seg2eye_tpu_torch.ops import spade_style as K
+
+    K.spade_style.launches = 0
+    t_phase = time.perf_counter()
+    flags = tf32_flags()
+    times = {}
+    for name in ("SegNet", "RefineNet"):
+        cfg = rn_config(name)
+        t0 = time.perf_counter()
+        model = rn_model(name, cfg, RN_DEVICE)
+        trainer = rn_trainer(name, model)
+        state = trainer.init_state(torch.Generator().manual_seed(0))
+        count = sum(p.numel() for p in model.net.parameters())
+        fwd, train = rn_flops(name, model)
+        log(f"refinenet: {name} ({cfg.backbone}-{cfg.resnet_depth}, os"
+            f"{cfg.output_stride}, {cfg.input_height}x{cfg.input_width}): "
+            f"{count:,} parameters, seeded init "
+            f"{time.perf_counter() - t0:.1f} s; {fwd / 1e9:.1f} GFLOP per "
+            f"image forward, {train / 1e9:.1f} per image training step")
+        if count != RN_PARAMS[name]:
+            raise AssertionError(f"{name}: {count} parameters, expected "
+                                 f"{RN_PARAMS[name]}")
+        for kind, fn, flops in (("serve", rn_serve, fwd),
+                                ("train", rn_train, train)):
+            for dname in ("bfloat16", "float32"):
+                model.dtype = DTYPES[dname]       # weights stay float32
+                times[(name, kind, dname)] = fn(name, trainer, state, dname,
+                                                flops)
+        del model, trainer, state
+        torch.cuda.empty_cache()
+    rn_card_vs_cpu()
+    rn_entry_point()
+    if K.spade_style.launches:
+        raise AssertionError(f"phase 6 launched the SPADE+Style kernel "
+                             f"{K.spade_style.launches} times")
+    if tf32_flags() != flags:
+        raise AssertionError(f"phase 6 left the TF32 flags at {tf32_flags()}")
+    log(f"refinenet: phase 6 in {time.perf_counter() - t_phase:.1f} s, no "
+        "SPADE+Style launch")
+    return times
+
+
 def main():
     kind = phase_device()
     phase_build()
     summary = phase_kernel()
     launches = phase_slice()
     train_launches = phase_train()
+    phase_refinenet()
     foreign = sorted(m for m in sys.modules if m.split(".")[0] in
                      ("jax", "jaxlib", "flax", "seg2eye_tpu"))
     if foreign:
         raise AssertionError(f"the port's run imported {foreign[:5]}")
 
     from seg2eye_tpu_torch.ops import spade_style as K
+    log(card_line())              # again, beside the results at the end
     log("kernel summary, one entry per kernel: launches in one forward of "
         "the slice in that dtype, train_launches in one training iteration "
         f"in that dtype; max_abs_err over the crop-256 and odd "

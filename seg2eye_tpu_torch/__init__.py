@@ -1,7 +1,9 @@
-"""Seg2Eye in PyTorch for NVIDIA Hopper: the scored-inference path of
+"""Seg2Eye in PyTorch for NVIDIA Hopper: training and scored inference of
 ``seg2eye_tpu`` (the JAX package, which stays the reference) ported to
-PyTorch, with the fused SPADE+Style norm as hand-written CUDA kernels
-(bfloat16 on the tensor cores, float32 on the FP32 pipes).
+PyTorch, with the fused SPADE+Style norm as hand-written CUDA kernels on
+the tensor cores (bfloat16 in one pass, float32 in 3xTF32), and the
+RefineNet system (DeepLabV3+ SegNet and RefineNet, ``refinenet``) on
+stock PyTorch.
 
 Module names follow ``seg2eye_tpu`` so each counterpart is easy to find.
 Inside, activations are logically NCHW in ``torch.channels_last`` memory

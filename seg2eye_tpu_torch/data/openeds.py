@@ -10,9 +10,11 @@ uint8 transport.  ``DataLoader`` shuffles with a stateless (seed, epoch)
 permutation, drops the last short batch when training, can skip the first
 batches of its next pass (mid-epoch resume) and reads batches ahead on a
 worker thread.  Given the same options and file, it yields the same
-batches byte for byte as the JAX package's ``DataLoader`` (tested).
-``device_prefetch`` moves each batch to the card one step ahead, from
-pinned memory.
+batches byte for byte as the JAX package's ``DataLoader`` (tested).  It
+batches any dataset with ``__len__`` and ``__getitem__(index, rng)``: the
+RefineNet datasets too, and their ``subsample``d test splits.
+``device_prefetch`` moves the arrays of the given keys of each batch to
+the card one step ahead, from pinned memory.
 
 ``h5py``, ``cv2`` and ``PIL`` are imported inside the functions that use
 them, so that ``import seg2eye_tpu_torch`` works without them.
@@ -22,7 +24,7 @@ from __future__ import annotations
 import queue
 import re
 import threading
-from typing import Dict, Iterable, Iterator, List, Optional
+from typing import Dict, Iterable, Iterator, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -242,15 +244,41 @@ def threaded_iter(src: Iterable, transform, depth: int) -> Iterator:
                 break
 
 
+class Subset:
+    """A fixed-index view of a dataset, indices sorted for H5 read
+    locality (the reference's random test-split subsampling,
+    refinenet/core/training.py:99-149)."""
+
+    def __init__(self, dataset, indices):
+        self.dataset = dataset
+        self.indices = np.sort(np.asarray(indices))
+
+    def __len__(self) -> int:
+        return len(self.indices)
+
+    def __getitem__(self, idx: int, rng: Optional[np.random.Generator] = None):
+        return self.dataset.__getitem__(int(self.indices[idx]), rng=rng)
+
+
+def subsample(dataset, n: int, seed: int = 0):
+    """``n`` samples drawn without replacement, seeded, when the dataset is
+    larger than ``n`` (training.py:119-127); otherwise the dataset."""
+    if n and len(dataset) > n:
+        rng = np.random.default_rng(seed)
+        return Subset(dataset, rng.choice(len(dataset), n, replace=False))
+    return dataset
+
+
 class DataLoader:
-    """Batches of an ``OpenEDSDataset``.  The e-th pass (e = 1, 2, ...)
+    """Batches of a dataset (an ``OpenEDSDataset``, a RefineNet dataset, a
+    ``Subset``).  The e-th pass (e = 1, 2, ...)
     shuffles with the generator seeded (seed, e), and sample i of it draws
     from the generator seeded (seed, e, i), as the JAX package's loader
     does: no state carries from one pass to the next, so a run resumed at
     epoch e (``set_epoch``) sees the batches the unbroken run saw there.
     ``prefetch`` > 0 reads that many batches ahead on a worker thread."""
 
-    def __init__(self, dataset: OpenEDSDataset, batch_size: int,
+    def __init__(self, dataset, batch_size: int,
                  shuffle: bool = False, drop_last: bool = False,
                  seed: int = 0, prefetch: int = 0):
         self.dataset = dataset
@@ -322,11 +350,13 @@ def create_dataloader(opt, dataset_key: Optional[str] = None) -> DataLoader:
 MODEL_KEYS = ("label", "style_image", "target")
 
 
-def to_device(batch: Dict, device: torch.device) -> Dict:
-    """The arrays the model reads, on ``device``; for a card, from pinned
-    host memory and without waiting for the copy."""
+def to_device(batch: Dict, device: torch.device,
+              keys: Sequence[str] = MODEL_KEYS) -> Dict:
+    """The arrays of ``keys`` that the batch has (by default those the
+    Seg2Eye model reads), on ``device``; for a card, from pinned host
+    memory and without waiting for the copy."""
     out = {}
-    for k in MODEL_KEYS:
+    for k in keys:
         if k in batch:
             t = torch.from_numpy(np.ascontiguousarray(batch[k]))
             if device.type == "cuda":
@@ -335,15 +365,16 @@ def to_device(batch: Dict, device: torch.device) -> Dict:
     return out
 
 
-def device_prefetch(batches: Iterable[Dict], device) -> Iterator:
-    """(host batch, device batch) pairs, the copy of each batch to the
-    device started one step ahead: before the previous pair is handed
-    out."""
+def device_prefetch(batches: Iterable[Dict], device,
+                    keys: Sequence[str] = MODEL_KEYS) -> Iterator:
+    """(host batch, device batch of ``keys``) pairs, the copy of each batch
+    to the device started one step ahead: before the previous pair is
+    handed out."""
     device = torch.device(device)
     it = iter(batches)
     ahead = None
     for batch in it:
-        pair = (batch, to_device(batch, device))
+        pair = (batch, to_device(batch, device, keys))
         if ahead is not None:
             yield ahead
         ahead = pair

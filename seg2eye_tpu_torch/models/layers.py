@@ -9,6 +9,8 @@
     earlier forward keeps the pair it used.  Otherwise the stored pair is
     used as it is.  ``torch.nn.utils.spectral_norm`` is not used because its
     hook power-iterates on every forward in train mode.
+  * ``BatchNorm`` is the affine batch norm of the DeepLab stacks, with
+    the JAX package's ``TorchBatchNorm`` semantics (torch's).
   * ``instance_norm`` is torch ``InstanceNorm2d(affine=False)``: biased
     statistics over (H, W), eps 1e-5, computed in at least float32.
   * ``FCStyle`` is the StyleGAN FC layer: linear in float32, LeakyReLU(0.2).
@@ -105,6 +107,27 @@ class SubNorm(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return instance_norm(x) if self.sub == "instance" else x
+
+
+class BatchNorm(nn.BatchNorm2d):
+    """Affine batch norm with ``TorchBatchNorm``'s semantics, which are
+    torch's: a training forward (``train=True``) normalises with the
+    biased variance of the batch and blends the unbiased one into
+    ``running_var`` (momentum 0.1, eps 1e-5); otherwise the running
+    statistics normalise.  Statistics and normalisation are computed in at
+    least float32; the result has the input's dtype.  ``train`` is an
+    argument, as in the JAX package, not the module's mode.  The
+    state_dict is ``BatchNorm2d``'s, ``num_batches_tracked`` included."""
+
+    def __init__(self, num_features: int):
+        super().__init__(num_features, eps=EPS, momentum=0.1)
+
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        if train:
+            self.num_batches_tracked.add_(1)
+        return F.batch_norm(x, self.running_mean, self.running_var,
+                            self.weight, self.bias, train, self.momentum,
+                            self.eps)
 
 
 class SpectralConv(nn.Module):

@@ -25,7 +25,7 @@ step regenerates the fake.  The port's modules read no train/eval flag:
 each forward is told what to do.
 
 A float32 model computes in full float32: ``inference`` and
-``encode_only`` run under ``ops.spade_style.full_float32``, so that cuDNN
+``encode_only`` run under ``utils.precision.full_float32``, so that cuDNN
 does not take its TF32 default on the card (the training steps wrap
 forward, backward and update in it); bfloat16 leaves the flags as they are.
 
@@ -45,7 +45,7 @@ from seg2eye_tpu_torch.models.layers import at_least_f32
 from seg2eye_tpu_torch.ops import losses as L
 from seg2eye_tpu_torch.ops import metrics
 from seg2eye_tpu_torch.ops.image import one_hot_label
-from seg2eye_tpu_torch.ops.spade_style import full_float32
+from seg2eye_tpu_torch.utils.precision import full_float32
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 

@@ -1,7 +1,8 @@
 """Image ops on NHWC tensors (counterpart of ``seg2eye_tpu/ops/image.py``).
 
 The layouts are the JAX package's: images and label maps are (B,H,W,C)
-at these functions, so both packages are compared like with like.  The
+at these functions, so both packages are compared like with like; only
+``resize_bilinear_ac``, which the DeepLab layers call, takes NCHW.  The
 sample positions are computed on the host in float64, as the JAX package
 does, and cast to the compute dtype.
 """
@@ -69,6 +70,45 @@ def resize_bilinear(x: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
     right = xh.index_select(2, idx(whi))
     out = left + (right - left) * frac(wf)[None, None, :, None]
     return out.to(dt)
+
+
+def _bilinear_ac_axis(out_n: int, in_n: int):
+    if out_n == 1 or in_n == 1:
+        lo = np.zeros(out_n, np.int64)
+        return lo, lo, np.zeros(out_n, np.float64)
+    pos = np.arange(out_n) * (in_n - 1) / (out_n - 1)
+    lo = np.minimum(np.floor(pos).astype(np.int64), in_n - 2)
+    return lo, lo + 1, pos - lo
+
+
+def resize_bilinear_ac(x: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
+    """Bilinear resize with align_corners=True of an NCHW tensor: sample
+    positions i*(in-1)/(out-1) per axis, taken in float64 on the host (a
+    1-pixel axis is broadcast), two 1-D lerps computed in at least float32
+    and cast back, as the JAX package does (``F.interpolate`` takes the
+    positions in float32: 4.6e-5 apart at 160x100 -> 640x400).  Unlike the
+    functions above it takes NCHW: its callers are the DeepLab layers,
+    whose activations are NCHW.  The same size returns ``x`` itself."""
+    _, _, h, w = x.shape
+    if (h, w) == (out_h, out_w):
+        return x
+    xf = x.to(torch.promote_types(x.dtype, torch.float32))
+    dev = x.device
+
+    def idx(a):
+        return torch.from_numpy(a).to(dev)
+
+    def frac(a):
+        return torch.from_numpy(a).to(device=dev, dtype=xf.dtype)
+
+    hlo, hhi, hf = _bilinear_ac_axis(out_h, h)
+    wlo, whi, wf = _bilinear_ac_axis(out_w, w)
+    top = xf.index_select(2, idx(hlo))
+    bot = xf.index_select(2, idx(hhi))
+    xh = top + (bot - top) * frac(hf)[:, None]
+    left = xh.index_select(3, idx(wlo))
+    right = xh.index_select(3, idx(whi))
+    return (left + (right - left) * frac(wf)).to(x.dtype)
 
 
 def avg_pool_3x3s2(x: torch.Tensor) -> torch.Tensor:

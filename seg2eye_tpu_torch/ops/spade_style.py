@@ -27,10 +27,10 @@ ws (128,S,3,3), wg/wb (C,128,3,3), biases (128,) and (C,).
 """
 from __future__ import annotations
 
-import contextlib
-
 import torch
 import torch.nn.functional as F
+
+from seg2eye_tpu_torch.utils.precision import full_float32
 
 EPS = 1e-5
 NHIDDEN = 128
@@ -42,25 +42,6 @@ SOURCE = {dtype: "seg2eye_tpu_torch/ops/csrc/spade_style_sm90.cu"
 REPLACES = "seg2eye_tpu/ops/pallas/spade_style.py:83"   # the Pallas _kernel
 # the profiler range around the backward's recompute
 BACKWARD_RANGE = "spade_style backward (plain recompute)"
-
-
-@contextlib.contextmanager
-def full_float32(enabled: bool = True):
-    """Inside, cuDNN convolutions and matmuls of float32 tensors run in
-    full float32, not TF32 (PyTorch lets cuDNN use TF32 by default); the
-    two flags are restored on exit.  The flags matter on CUDA only.  Not
-    ``torch.backends.cudnn.flags``, whose defaults would also reset
-    cuDNN's ``enabled``, ``benchmark`` and ``deterministic``."""
-    if not enabled:
-        yield
-        return
-    cudnn, matmul = torch.backends.cudnn, torch.backends.cuda.matmul
-    saved = cudnn.allow_tf32, matmul.allow_tf32
-    cudnn.allow_tf32 = matmul.allow_tf32 = False
-    try:
-        yield
-    finally:
-        cudnn.allow_tf32, matmul.allow_tf32 = saved
 
 
 def _conv3x3(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

@@ -22,7 +22,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
-from seg2eye_tpu_torch.ops.spade_style import full_float32
+from seg2eye_tpu_torch.utils.precision import full_float32
 from seg2eye_tpu_torch.train.state import TrainState
 
 

@@ -10,6 +10,11 @@
     statistics -> running_{mean,var}.
   * ``init_networks``: seeded random weights with the JAX package's init
     schemes, for runs without a checkpoint.
+  * ``export_deeplab`` (the port's copy of the JAX package's, for the
+    ResNet and MobileNet backbones) and ``deeplab_from_jax_variables``:
+    DeepLab variables -> the reference's DeepLab state_dict, MobileNet's
+    ``low_level_features``/``high_level_features`` aliases included;
+    ``init_deeplab``: a seeded DeepLab for a RefineNet configuration.
 """
 from __future__ import annotations
 
@@ -20,6 +25,8 @@ import numpy as np
 import torch
 from torch import nn
 
+from seg2eye_tpu_torch.models.deeplab import (RESNET_LAYERS, DeepLab,
+                                              kaiming_init_)
 from seg2eye_tpu_torch.models.layers import FCStyle, SpectralConv, weight_init
 from seg2eye_tpu_torch.models.pix2pix import build_networks
 
@@ -48,6 +55,14 @@ def _unperm_v(v, kernel_hwio):
     kh, kw, i, _ = kernel_hwio.shape
     return _f32(np.transpose(np.asarray(v).reshape(kh, kw, i),
                              (2, 0, 1)).reshape(-1))
+
+
+def _bn(sd: Dict, torch_base: str, p_node, bs_node):
+    """Affine BN: flax {scale,bias} + batch_stats {mean,var} -> the five
+    torch BatchNorm2d keys."""
+    sd[f"{torch_base}.weight"] = _f32(p_node["scale"])
+    sd[f"{torch_base}.bias"] = _f32(p_node["bias"])
+    _bn_stats(sd, torch_base, bs_node)
 
 
 def _bn_stats(sd: Dict, torch_base: str, bs_node):
@@ -177,20 +192,145 @@ def from_jax_variables(variables: Dict) -> Dict[str, Dict[str, torch.Tensor]]:
     """{"G": generator variables, "E": encoder variables[, "D":
     discriminator variables]} (numpy arrays) -> state_dicts of CPU tensors
     under the same keys."""
-    def to_torch(sd):
-        return {k: torch.from_numpy(np.ascontiguousarray(v))
-                for k, v in sd.items()}
-
-    out = {"G": to_torch(export_generator(variables["G"])),
-           "E": to_torch(export_encoder(variables["E"]))}
+    out = {"G": _to_torch(export_generator(variables["G"])),
+           "E": _to_torch(export_encoder(variables["E"]))}
     if "D" in variables:
         d = variables["D"]["params"]
         num_d = sum(1 for k in d if k.startswith("discriminator_"))
         n_layers = sum(1 for k in d["discriminator_0"]
                        if k.startswith("model")) - 1
-        out["D"] = to_torch(export_discriminator(variables["D"], num_d,
+        out["D"] = _to_torch(export_discriminator(variables["D"], num_d,
                                                  n_layers))
     return out
+
+
+def _export_resnet_into(sd, p, bs, prefix: str = ""):
+    def k(name):
+        return prefix + name
+
+    sd[k("conv1.weight")] = _conv(p["conv1"]["kernel"])
+    _bn(sd, k("bn1"), p["bn1"], bs["bn1"])
+    layers = {"layer1": 3, "layer2": 4, "layer3": 23, "layer4": 3}
+    for lname, blocks in layers.items():
+        for i in range(blocks):
+            fblk = f"{lname}_{i}"
+            if fblk not in p:
+                continue
+            tbase = k(f"{lname}.{i}")
+            for j in (1, 2, 3):
+                sd[f"{tbase}.conv{j}.weight"] = _conv(
+                    p[fblk][f"conv{j}"]["conv"]["kernel"])
+                _bn(sd, f"{tbase}.bn{j}", p[fblk][f"conv{j}"]["bn"],
+                    bs[fblk][f"conv{j}"]["bn"])
+            if "downsample" in p[fblk]:
+                sd[f"{tbase}.downsample.0.weight"] = _conv(
+                    p[fblk]["downsample"]["conv"]["kernel"])
+                _bn(sd, f"{tbase}.downsample.1", p[fblk]["downsample"]["bn"],
+                    bs[fblk]["downsample"]["bn"])
+
+
+def _export_mobilenet_into(sd, p, bs, prefix: str = ""):
+    def k(name):
+        return prefix + name
+
+    sd[k("features.0.0.weight")] = _conv(p["stem"]["conv"]["kernel"])
+    _bn(sd, k("features.0.1"), p["stem"]["bn"], bs["stem"]["bn"])
+    cfg = [(1, 1), (6, 2), (6, 3), (6, 4), (6, 3), (6, 3), (6, 1)]  # t, n
+    fi = 1
+    for bi, (t, n) in enumerate(cfg):
+        for i in range(n):
+            fb, tb = f"block{bi}_{i}", k(f"features.{fi}")
+            fi += 1
+            if t != 1:
+                sd[f"{tb}.conv.0.weight"] = _conv(
+                    p[fb]["expand"]["conv"]["kernel"])
+                _bn(sd, f"{tb}.conv.1", p[fb]["expand"]["bn"],
+                    bs[fb]["expand"]["bn"])
+                dwi = 3
+            else:
+                dwi = 0
+            sd[f"{tb}.conv.{dwi}.weight"] = _conv(p[fb]["dw"]["kernel"])
+            _bn(sd, f"{tb}.conv.{dwi + 1}", p[fb]["dw_bn"], bs[fb]["dw_bn"])
+            sd[f"{tb}.conv.{dwi + 3}.weight"] = _conv(
+                p[fb]["project"]["conv"]["kernel"])
+            _bn(sd, f"{tb}.conv.{dwi + 4}", p[fb]["project"]["bn"],
+                bs[fb]["project"]["bn"])
+
+    # the reference's low_level_features = features[0:4] and
+    # high_level_features = features[4:] share the modules of ``features``
+    # (original indices kept), so its state_dict carries every tensor under
+    # two names
+    feat_prefix = k("features.")
+    for key in [key for key in sd if key.startswith(feat_prefix)]:
+        rest = key[len(feat_prefix):]
+        idx = int(rest.split(".", 1)[0])
+        fam = "low_level_features" if idx < 4 else "high_level_features"
+        sd[k(f"{fam}.{rest}")] = sd[key]
+
+
+_BACKBONE_EXPORTERS = {
+    "resnet": _export_resnet_into,
+    "mobilenet": _export_mobilenet_into,
+}
+
+
+def export_deeplab(variables: Dict,
+                   backbone: str = "resnet") -> Dict[str, np.ndarray]:
+    """DeepLab variables -> the reference's DeepLab state_dict, as numpy
+    arrays.  Xception and DRN are not ported."""
+    if backbone not in _BACKBONE_EXPORTERS:
+        raise NotImplementedError(
+            f"the '{backbone}' backbone is not ported yet (ROADMAP Queue 1 "
+            "item 14)")
+    p, bs = variables["params"], variables["batch_stats"]
+    sd: Dict[str, np.ndarray] = {}
+    _BACKBONE_EXPORTERS[backbone](sd, p["backbone"], bs["backbone"],
+                                  "backbone.")
+
+    def convbn(fp, fbs, torch_conv, torch_bn):
+        sd[torch_conv] = _conv(fp["conv"]["kernel"])
+        _bn(sd, torch_bn, fp["bn"], fbs["bn"])
+
+    ap, abs_ = p["aspp"], bs["aspp"]
+    for i in (1, 2, 3, 4):
+        convbn(ap[f"aspp{i}"], abs_[f"aspp{i}"],
+               f"aspp.aspp{i}.atrous_conv.weight", f"aspp.aspp{i}.bn")
+    convbn(ap["global_pool"], abs_["global_pool"],
+           "aspp.global_avg_pool.1.weight", "aspp.global_avg_pool.2")
+    convbn(ap["proj"], abs_["proj"], "aspp.conv1.weight", "aspp.bn1")
+
+    dp, dbs = p["decoder"], bs["decoder"]
+    convbn(dp["low_proj"], dbs["low_proj"],
+           "decoder.conv1.weight", "decoder.bn1")
+    convbn(dp["conv1"], dbs["conv1"],
+           "decoder.last_conv.0.weight", "decoder.last_conv.1")
+    convbn(dp["conv2"], dbs["conv2"],
+           "decoder.last_conv.4.weight", "decoder.last_conv.5")
+    sd["decoder.last_conv.8.weight"] = _conv(dp["classifier"]["kernel"])
+    sd["decoder.last_conv.8.bias"] = _f32(dp["classifier"]["bias"])
+    return sd
+
+
+def _to_torch(sd: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
+    return {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in sd.items()}
+
+
+def deeplab_from_jax_variables(variables: Dict, backbone: str = "resnet"
+                               ) -> Dict[str, torch.Tensor]:
+    """DeepLab variables (numpy arrays) -> a state_dict of CPU tensors that
+    the port's ``DeepLab`` of that backbone loads with ``strict=True``."""
+    return _to_torch(export_deeplab(variables, backbone))
+
+
+def init_deeplab(cfg, num_classes: int, generator: torch.Generator,
+                 device: str | torch.device = "cuda") -> DeepLab:
+    """The DeepLab of a RefineNet configuration (backbone, output stride,
+    ResNet depth) with seeded kaiming weights (``models.deeplab.
+    kaiming_init_``), drawn on the CPU from ``generator``, then moved to
+    ``device``."""
+    net = DeepLab(cfg.backbone, cfg.output_stride, num_classes,
+                  RESNET_LAYERS[cfg.resnet_depth])
+    return kaiming_init_(net, generator).to(device)
 
 
 @torch.no_grad()

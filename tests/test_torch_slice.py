@@ -355,6 +355,7 @@ def test_port_source_never_imports_jax_package(tmp_path):
     files += [os.path.join(REPO, "chip_smoke.py"),
               os.path.join(REPO, "tools", "profile_torch_slice.py"),
               os.path.join(REPO, "tools", "profile_torch_train.py"),
+              os.path.join(REPO, "tools", "profile_torch_refinenet.py"),
               os.path.join(REPO, "tools", "tf32_flush_study.py"),
               os.path.join(REPO, "tools", "time_torch_slice.py")]
     assert len(files) >= 20
