@@ -44,8 +44,9 @@ Phases; any failure raises and the script exits non-zero:
      its two steps from the same state, and the discriminator's pool
      must have the CPU's gradient.  Last,
      the entry point ``train.loop.train`` runs 3 steps of in-memory batches
-     into a temporary checkpoints_dir (108 launches), and its ``latest`` G
-     and E strict-load and score a batch through ``Tester``;
+     into a temporary checkpoints_dir (108 launches, ``src.zip``
+     written), and its ``latest`` G and E strict-load and score a batch
+     through ``Tester``;
   6. refinenet: the RefineNet system at full width (ResNet-101
      DeepLabV3+, os16, 640x400, seeded weights, seeded uint8 batches in
      memory; the optimizer settings of refinenet/configs/*.json).  SegNet
@@ -60,7 +61,22 @@ Phases; any failure raises and the script exits non-zero:
      64x40, from identical states, in float32 and float64.  Last,
      ``main_loop`` trains RefineNet 3 steps into a temporary directory and
      its last checkpoint reloads to bit-identical eval outputs.  No
-     SPADE+Style kernel launches in this phase.
+     SPADE+Style kernel launches in this phase;
+  7. options (run before phase 6): 7a the default model at bs16 with
+     batch sub-norms in E and D (``spectralbatch``, per-sample encoding
+     on through 'auto') and the VGG loss (seeded full-width VGG19,
+     lambda_vgg 10), in float32 and bfloat16: kernel route against plain
+     route for 3 iterations as in phase 5, 36 launches per iteration,
+     every E/D running statistic moved, ms/iteration, img/s and peak
+     memory of both routes; 7b ``--remat`` at crop 512 (640x512), bs8,
+     both dtypes: the G step and then the D step with and without remat
+     from identical states (losses and gradients within F32_ROUTE, u/v
+     and running statistics bit for bit), 36 and 54 launches per
+     iteration, lower peak memory with remat, ms/iteration of both; 7c
+     one small float32 iteration with all of them on, card against CPU;
+     7d ``train.loop.train`` for 3 steps with ``--remat`` and
+     ``--profile_steps 1`` (162 launches, the trace and ``src.zip``
+     written), its checkpoint scored through ``Tester``.
 Nothing of JAX or of the JAX package may have been imported.
 The port keeps float32 in full float32 by itself (its float32 forward and
 plain versions turn TF32 off around their own convolutions); the cuDNN
@@ -628,6 +644,12 @@ def nets_of(model):
     return {"G": model.netG, "E": model.netE, "D": model.netD}
 
 
+def all_nets(model):
+    """nets_of and, with the VGG loss on, the frozen VGG19."""
+    vgg = {} if model.netVGG is None else {"VGG": model.netVGG}
+    return {**nets_of(model), **vgg}
+
+
 def train_state(opt, nets_cpu, device="cuda"):
     """A TrainState of a deep copy of ``nets_cpu`` on ``device``, with
     fresh optimizers."""
@@ -650,7 +672,7 @@ def clone_state(state, opt=None):
 
     new = copy.deepcopy(state)
     if opt is not None:
-        new.model = Pix2Pix(opt, nets_of(new.model), new.model.device)
+        new.model = Pix2Pix(opt, all_nets(new.model), new.model.device)
     return new
 
 
@@ -767,12 +789,12 @@ def lockstep(dname, state, batch, ref_opt=None):
         raise AssertionError("; ".join(failures))
 
 
-def timed(state, batch, plain=False):
-    """(median ms of TIMED_ITERS iterations, peak GiB allocated)."""
+def timed(state, batch, plain=False, iters=TIMED_ITERS):
+    """(median ms of ``iters`` iterations, peak GiB allocated)."""
     torch.cuda.reset_peak_memory_stats()
     with plain_norm_sites() if plain else contextlib.nullcontext():
         ms = statistics.median(timed_iteration(state, batch)[1]
-                               for _ in range(TIMED_ITERS))
+                               for _ in range(iters))
     return ms, torch.cuda.max_memory_allocated() / 2 ** 30
 
 
@@ -834,18 +856,12 @@ def check_packed(dname, model):
         "updated weights")
 
 
-def card_vs_cpu():
-    """One float32 iteration of a small model on the card (kernel) and on
-    the CPU (plain version), from the same weights and batch."""
-    from seg2eye_tpu_torch.options import Options
+def pool_card_vs_cpu():
+    """The discriminator's downsampler alone: PyTorch's CUDA backward of
+    this pool on channels_last input is wrong, so the port pools a
+    contiguous copy."""
     from seg2eye_tpu_torch.ops.image import avg_pool_3x3s2
-    from seg2eye_tpu_torch.train import steps
-    from seg2eye_tpu_torch.train.state import ttur_lrs
-    from seg2eye_tpu_torch.utils.weights import init_networks
 
-    # the discriminator's downsampler alone first: PyTorch's CUDA backward
-    # of this pool on channels_last input is wrong, so the port pools a
-    # contiguous copy
     gen = torch.Generator().manual_seed(2)
     x, w = torch.randn(4, 160, 128, 5, generator=gen), torch.randn(
         4, 80, 64, 5, generator=gen)
@@ -861,12 +877,23 @@ def card_vs_cpu():
         raise AssertionError("the pool's gradient on the card is not the "
                              "CPU's")
 
-    opt = Options(compute_dtype="float32", **CARD_CPU).finalize()
+
+def card_vs_cpu(what="", **options):
+    """One float32 iteration of a small model (CARD_CPU, with ``options``)
+    on the card (kernel) and on the CPU (plain version), from the same
+    weights and batch."""
+    from seg2eye_tpu_torch.options import Options
+    from seg2eye_tpu_torch.train import steps
+    from seg2eye_tpu_torch.train.state import ttur_lrs
+    from seg2eye_tpu_torch.utils.weights import init_networks
+
+    opt = Options(**{**CARD_CPU, **options,
+                     "compute_dtype": "float32"}).finalize()
     nets = init_networks(opt, torch.Generator().manual_seed(1), "cpu")
     batch = make_train_batch(opt, opt.batchSize, seed=3)
     log(f"card vs CPU, one float32 iteration at ngf {opt.ngf}, ndf "
-        f"{opt.ndf}, crop {opt.crop_size}, batch {opt.batchSize}: the G "
-        "step from the same weights, then the D step from the same state "
+        f"{opt.ndf}, crop {opt.crop_size}, batch {opt.batchSize}{what}: the "
+        "G step from the same weights, then the D step from the same state "
         "(the CPU's after its G step) (losses card/CPU)")
     cpu, card = train_state(opt, nets, "cpu"), train_state(opt, nets, "cuda")
     g_lr, d_lr = ttur_lrs(opt, opt.lr)
@@ -893,7 +920,7 @@ def card_vs_cpu():
 
 def state_on(state, device):
     """A copy of a TrainState on ``device``: networks, Adam states, step."""
-    new = train_state(state.model.opt, nets_of(state.model), device)
+    new = train_state(state.model.opt, all_nets(state.model), device)
     new.opt_g.load_state_dict(state.opt_g.state_dict())
     new.opt_d.load_state_dict(state.opt_d.state_dict())
     new.step = state.step
@@ -956,9 +983,12 @@ class InMemoryBatches:
         return iter(self.batches)
 
 
-def train_entry_point():
-    """``train.loop.train`` for LOOP_STEPS steps of the default model into a
-    temporary checkpoints_dir; its latest G and E score a batch."""
+def train_entry_point(per_iteration=None, **options):
+    """``train.loop.train`` for LOOP_STEPS steps of the default model (with
+    ``options``) into a temporary checkpoints_dir: ``per_iteration`` kernel
+    launches each (TRAIN_LAUNCHES by default), ``src.zip`` written, and
+    with ``profile_steps`` the trace; its latest G and E score a batch."""
+    import os
     import tempfile
 
     from seg2eye_tpu_torch.eval.tester import Tester
@@ -972,7 +1002,8 @@ def train_entry_point():
         # losses printed every step; one checkpoint, the final 'latest'
         opt = Options(batchSize=TRAIN_BATCH, checkpoints_dir=tmp,
                       name="chip_smoke", print_freq=TRAIN_BATCH,
-                      save_epoch_freq=10 ** 6).finalize()
+                      save_epoch_freq=10 ** 6, **options).finalize()
+        per_iteration = per_iteration or TRAIN_LAUNCHES
         batches = [make_train_batch(opt, TRAIN_BATCH, seed=10 + i)
                    for i in range(LOOP_STEPS + 1)]
         K.spade_style.launches = 0
@@ -982,13 +1013,18 @@ def train_entry_point():
         seconds = time.perf_counter() - t0
         launches = K.spade_style.launches
         if result["steps"] != LOOP_STEPS or launches != LOOP_STEPS * \
-                TRAIN_LAUNCHES:
+                per_iteration:
             raise AssertionError(f"train.loop.train ran {result['steps']} "
                                  f"steps and {launches} kernel launches, "
                                  f"expected {LOOP_STEPS} and "
-                                 f"{LOOP_STEPS * TRAIN_LAUNCHES}")
+                                 f"{LOOP_STEPS * per_iteration}")
         if not all(np.isfinite(v) for v in result["losses"].values()):
             raise AssertionError(f"non-finite losses {result['losses']}")
+        written = [f for f in ("src.zip", "profile/trace.json")
+                   if os.path.exists(os.path.join(opt.expr_dir, f))]
+        if written != ["src.zip", "profile/trace.json"][
+                :1 + bool(opt.profile_steps)]:
+            raise AssertionError(f"train.loop.train wrote {written}")
         nets = load_networks(build_networks(opt.replace(isTrain=False)), opt,
                              "latest")
         trained = result["state"].model.netG.state_dict()
@@ -1002,10 +1038,11 @@ def train_entry_point():
     if not (np.isfinite(errors).all() and np.isfinite(fake).all()):
         raise AssertionError("the trained checkpoint scores non-finite")
     log(f"train.loop.train: {LOOP_STEPS} steps of the default model "
-        f"(bfloat16, batch {TRAIN_BATCH}) in {seconds:.1f} s, set-up "
-        f"included, {launches} kernel launches; latest_net_G/E.pth "
-        f"strict-loaded and scored a batch (mean x1471 = "
-        f"{float(np.mean(errors)) * 1471:.2f})")
+        f"(bfloat16, batch {TRAIN_BATCH}{', ' if options else ''}"
+        f"{', '.join(f'{k} {v}' for k, v in options.items())}) in "
+        f"{seconds:.1f} s, set-up included, {launches} kernel launches; "
+        f"wrote {', '.join(written)}; latest_net_G/E.pth strict-loaded and "
+        f"scored a batch (mean x1471 = {float(np.mean(errors)) * 1471:.2f})")
     return launches
 
 
@@ -1062,9 +1099,197 @@ def phase_train():
             f"route {p_ms:.2f} ms/iteration, {TRAIN_BATCH / p_ms * 1e3:.2f} "
             f"img/s, peak {p_peak:.2f} GiB (median of {TIMED_ITERS}, host "
             "clock, synchronised)")
+    pool_card_vs_cpu()
     card_vs_cpu()
     train_entry_point()
     return launches
+
+
+# ---------------------------------------------------------------- phase 7
+# 7a: the default model with affine batch sub-norms in E and D (per-sample
+# encoding on through 'auto') and the VGG loss (seeded VGG19, weight 10)
+OPTIONS_7A = dict(norm_E="spectralbatch", norm_D="spectralbatch",
+                  no_vgg_loss=False, lambda_vgg=10.0)
+# 7b: --remat at crop 512 (640x512 images), batch 8, default norms
+REMAT_7B = dict(crop_size=512, aspect_ratio=0.8, batchSize=8)
+# K1 launches in one --remat iteration: the G step's forward (18), its
+# backward's recompute of every block (non-reentrant checkpointing stops
+# once the last saved tensor is back, conv_1's input, which follows the
+# block's last norm site, so all 18 sites rerun), and the D step's
+# regeneration of the fake under no_grad, where nothing is checkpointed
+# (18)
+REMAT_LAUNCHES = 3 * len(SITES)
+OPTIONS_TIMED_ITERS = 3
+
+
+def moved_statistics(model, before, nets=("E", "D")):
+    """-> (moved, total) running statistics of ``nets``."""
+    moved = total = 0
+    for name in nets:
+        for k, t in nets_of(model)[name].state_dict().items():
+            if "running_" in k:
+                total += 1
+                moved += not torch.equal(t.detach().cpu(), before[name][k])
+    return moved, total
+
+
+def options_batchnorm_vgg(nets_cpu, opt, batch):
+    """7a in each dtype: kernel route against plain route (lockstep), 36
+    launches per iteration, every E/D running statistic moved, timings."""
+    from seg2eye_tpu_torch.ops import spade_style as K
+
+    before = {n: {k: t.detach().clone() for k, t in net.state_dict().items()}
+              for n, net in nets_cpu.items() if n != "VGG"}
+    out = {}
+    for dname in ("float32", "bfloat16"):
+        dopt = opt.replace(compute_dtype=dname)
+        state = train_state(dopt, nets_cpu)
+        log(f"options {dname}: batch sub-norms in E and D, per-sample "
+            f"encoding, VGG loss; kernel route against plain route, "
+            f"{ROUTE_ITERS} iterations from identical states (losses "
+            "kernel/plain)")
+        lockstep(dname, state, batch, None if dname == "float32"
+                 else opt.replace(compute_dtype="float32"))
+        K.spade_style.launches = 0
+        timed_iteration(state, batch)
+        launches = K.spade_style.launches
+        if launches != TRAIN_LAUNCHES:
+            raise AssertionError(f"7a {dname}: {launches} kernel launches "
+                                 f"in one iteration, expected "
+                                 f"{TRAIN_LAUNCHES}")
+        check_trained(f"7a {dname}", state, before)
+        moved, total = moved_statistics(state.model, before)
+        if moved != total or total == 0:
+            raise AssertionError(f"7a {dname}: {moved} of {total} E/D "
+                                 "running statistics moved")
+        ms, peak = timed(state, batch, iters=OPTIONS_TIMED_ITERS)
+        plain = clone_state(state)
+        del state
+        torch.cuda.empty_cache()
+        p_ms, p_peak = timed(plain, batch, plain=True,
+                             iters=OPTIONS_TIMED_ITERS)
+        del plain
+        torch.cuda.empty_cache()
+        out[dname] = (ms, peak, p_ms, p_peak)
+        log(f"options {dname} bs{opt.batchSize}: {launches} kernel launches "
+            f"per iteration; all {total} running statistics of E and D "
+            f"moved; kernel route {ms:.2f} ms/iteration, "
+            f"{opt.batchSize / ms * 1e3:.2f} img/s, peak {peak:.2f} GiB; "
+            f"plain route {p_ms:.2f} ms/iteration, "
+            f"{opt.batchSize / p_ms * 1e3:.2f} img/s, peak {p_peak:.2f} GiB "
+            f"(median of {OPTIONS_TIMED_ITERS})")
+    return out
+
+
+def buffers_equal(where, a, b):
+    """-> failures: every spectral u/v and running statistic of the two
+    models bit for bit equal."""
+    bad = [f"{n}.{k}" for n, net in nets_of(a).items()
+           for k, t in net.state_dict().items()
+           if k.endswith(("weight_u", "weight_v", "running_mean",
+                          "running_var"))
+           and not torch.equal(t, nets_of(b)[n].state_dict()[k])]
+    log(f"    {where}: spectral u/v and running statistics "
+        + ("bit for bit equal" if not bad else f"differ at {bad[:4]}"))
+    return [f"{where}: buffers differ at {bad[:4]}"] if bad else []
+
+
+def options_remat(nets_cpu, opt, batch):
+    """7b in each dtype: the G step and then the D step of one iteration,
+    with and without --remat from identical states (losses and gradients
+    within F32_ROUTE, u/v and running statistics bit for bit); the
+    launches; ms/iteration and the peak memory of both."""
+    from seg2eye_tpu_torch.ops import spade_style as K
+    from seg2eye_tpu_torch.train import steps
+
+    out = {}
+    for dname in ("float32", "bfloat16"):
+        dopt = opt.replace(compute_dtype=dname)
+        ropt = dopt.replace(remat=True)
+        plain, remat = train_state(dopt, nets_cpu), train_state(ropt,
+                                                                nets_cpu)
+        log(f"remat {dname}: crop {opt.crop_size} ({opt.image_height}x"
+            f"{opt.image_width}), bs{opt.batchSize}, one iteration with and "
+            "without --remat from identical states (losses with/without)")
+        failures, launches = [], {}
+        for half in ("G step", "D step"):
+            if half == "D step":
+                remat = clone_state(plain, ropt)
+            losses = {}
+            for r, s_ in ((False, plain), (True, remat)):
+                K.spade_style.launches = 0
+                l_ = (steps.g_step(s_, batch)[0] if half == "G step"
+                      else steps.d_step(s_, batch))
+                torch.cuda.synchronize()
+                launches[(r, half)] = K.spade_style.launches
+                losses[r] = {k: float(v) for k, v in l_.items()}
+            where = f"remat {dname}, {half}"
+            failures += compare_losses(where, losses[True], losses[False],
+                                       None)
+            failures += compare_grads(
+                where, grads_of(remat.model), grads_of(plain.model), None,
+                "remat - plain", ("G", "E") if half == "G step" else ("D",))
+            failures += buffers_equal(where, remat.model, plain.model)
+        n_remat = launches[(True, "G step")] + launches[(True, "D step")]
+        n_plain = launches[(False, "G step")] + launches[(False, "D step")]
+        if (n_plain, n_remat) != (TRAIN_LAUNCHES, REMAT_LAUNCHES):
+            failures.append(f"remat {dname}: {n_plain} and {n_remat} kernel "
+                            f"launches per iteration, expected "
+                            f"{TRAIN_LAUNCHES} and {REMAT_LAUNCHES}")
+        if failures:
+            raise AssertionError("; ".join(failures))
+        del plain
+        torch.cuda.empty_cache()
+        ms_r, peak_r = timed(remat, batch, iters=OPTIONS_TIMED_ITERS)
+        plain = clone_state(remat, dopt)
+        del remat
+        torch.cuda.empty_cache()
+        ms_p, peak_p = timed(plain, batch, iters=OPTIONS_TIMED_ITERS)
+        del plain
+        torch.cuda.empty_cache()
+        log(f"remat {dname} crop {opt.crop_size} bs{opt.batchSize}: kernel "
+            f"launches per iteration {n_plain} without, {n_remat} with; "
+            f"without {ms_p:.2f} ms/iteration, peak {peak_p:.2f} GiB; with "
+            f"{ms_r:.2f} ms/iteration, peak {peak_r:.2f} GiB (median of "
+            f"{OPTIONS_TIMED_ITERS})")
+        if not peak_r < peak_p:
+            raise AssertionError(f"remat {dname}: peak {peak_r:.2f} GiB is "
+                                 f"not below {peak_p:.2f} GiB without it")
+        out[dname] = (n_remat, ms_p, peak_p, ms_r, peak_r)
+    return out
+
+
+def phase_options():
+    """7a-7d: batch sub-norms with per-sample encoding and the VGG loss,
+    --remat at crop 512, card against CPU with all of them, and the loop
+    with --remat and --profile_steps."""
+    from seg2eye_tpu_torch.options import Options
+    from seg2eye_tpu_torch.utils.weights import init_networks
+
+    t_phase = time.perf_counter()
+    opt = Options(batchSize=TRAIN_BATCH, **OPTIONS_7A).finalize()
+    if not opt.per_sample_encode_enabled:
+        raise AssertionError("per-sample encoding is not on for a "
+                             "batch-subnorm encoder")
+    nets_cpu = init_networks(opt, torch.Generator().manual_seed(0), "cpu")
+    vgg = sum(p.numel() for p in nets_cpu["VGG"].parameters())
+    log(f"options: default model with norm_E = norm_D = spectralbatch, "
+        f"per_sample_encode auto (on), VGG19 to relu5_1 ({vgg:,} seeded "
+        f"parameters, frozen), lambda_vgg {opt.lambda_vgg}")
+    timings = {"7a": options_batchnorm_vgg(
+        nets_cpu, opt, make_train_batch(opt, TRAIN_BATCH, seed=4))}
+    del nets_cpu
+    opt = Options(**REMAT_7B).finalize()
+    nets_cpu = init_networks(opt, torch.Generator().manual_seed(0), "cpu")
+    timings["7b"] = options_remat(nets_cpu, opt,
+                                  make_train_batch(opt, opt.batchSize, 5))
+    del nets_cpu
+    card_vs_cpu(", batch sub-norms, per-sample encoding, VGG, remat",
+                remat=True, **OPTIONS_7A)
+    timings["7d"] = train_entry_point(REMAT_LAUNCHES, remat=True,
+                                      profile_steps=1)
+    log(f"options: phase 7 in {time.perf_counter() - t_phase:.1f} s")
+    return timings
 
 
 # ---------------------------------------------------------------- phase 6
@@ -1484,6 +1709,7 @@ def main():
     summary = phase_kernel()
     launches = phase_slice()
     train_launches = phase_train()
+    options = phase_options()
     phase_refinenet()
     foreign = sorted(m for m in sys.modules if m.split(".")[0] in
                      ("jax", "jaxlib", "flax", "seg2eye_tpu"))
@@ -1494,7 +1720,8 @@ def main():
     log(card_line())              # again, beside the results at the end
     log("kernel summary, one entry per kernel: launches in one forward of "
         "the slice in that dtype, train_launches in one training iteration "
-        f"in that dtype; max_abs_err over the crop-256 and odd "
+        "in that dtype, remat_train_launches in one --remat iteration (crop "
+        f"512); max_abs_err over the crop-256 and odd "
         f"site checks; ms, plain_ms, library_ms and bound_ms summed over the "
         f"18 sites at N={SITE_N}")
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
@@ -1504,6 +1731,7 @@ def main():
          "source": K.SOURCE[DTYPES[d]],
          "replaces": K.REPLACES, "launches": launches[d],
          "train_launches": train_launches[d],
+         "remat_train_launches": options["7b"][d][0],
          **{k: summary[d][k] for k in keys}}
         for d in ("bfloat16", "float32")]}))
     print(json.dumps({"ok": True, "device": {

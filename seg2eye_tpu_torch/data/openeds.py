@@ -3,10 +3,11 @@
 
 What training and the evaluation CLI need: the split-dependent keys, the
 style-reference sampling (random, first, ref_first, ref_randomN) drawn
-from per-sample generators, the 'fixed' resize (bicubic with PIL's
-antialiasing for images, nearest for masks), the training-time horizontal
-flip (one coin per sample, shared by mask, references and target), and the
-uint8 transport.  ``DataLoader`` shuffles with a stateless (seed, epoch)
+from per-sample generators, every ``preprocess_mode`` with the
+training-time horizontal flip (one crop position and one coin per sample,
+shared by mask, references and target; ``data.transforms``), and the
+uint8 transport or, with ``--no_device_normalize``, float32 images in
+[-1, 1] and an int32 ``target_original``.  ``DataLoader`` shuffles with a stateless (seed, epoch)
 permutation, drops the last short batch when training, can skip the first
 batches of its next pass (mid-epoch resume) and reads batches ahead on a
 worker thread.  Given the same options and file, it yields the same
@@ -29,6 +30,8 @@ from typing import Dict, Iterable, Iterator, List, Optional, Sequence
 import numpy as np
 import torch
 
+from seg2eye_tpu_torch.data import transforms
+
 
 def split_keys(dataset_key: str) -> Dict[str, str]:
     """Split-dependent dataset names (reference openeds_dataset.py:44-48)."""
@@ -39,29 +42,12 @@ def split_keys(dataset_key: str) -> Dict[str, str]:
             "filenames": "images_ss_filenames"}
 
 
-def resize_fixed(img: np.ndarray, w: int, h: int, is_mask: bool) -> np.ndarray:
-    """The 'fixed' resize to (h, w): masks nearest (cv2), images bicubic
-    through PIL, which antialiases the 640x400 -> 320x256 downscale as the
-    reference's PIL path does."""
-    if img.shape[0] == h and img.shape[1] == w:
-        return img
-    if is_mask:
-        import cv2
-        return cv2.resize(img, (w, h), interpolation=cv2.INTER_NEAREST)
-    from PIL import Image
-    return np.asarray(Image.fromarray(img).resize((w, h), Image.BICUBIC))
-
-
 class OpenEDSDataset:
     """One split of an OpenEDS H5 file."""
 
     def __init__(self, opt, dataset_key: Optional[str] = None):
         import h5py
 
-        if opt.preprocess_mode != "fixed" or not opt.device_normalize:
-            raise NotImplementedError(
-                "the port's loader takes preprocess_mode 'fixed' with uint8 "
-                "transport (device_normalize) only")
         self.opt = opt
         self.dataset_key = dataset_key or opt.dataset_key
         self.keys = split_keys(self.dataset_key)
@@ -96,10 +82,6 @@ class OpenEDSDataset:
     def __len__(self) -> int:
         return self.N
 
-    def _resize(self, img, is_mask: bool) -> np.ndarray:
-        return resize_fixed(np.asarray(img), self.opt.image_width,
-                            self.opt.image_height, is_mask)
-
     def _style_indices(self, n_images: int, rng: np.random.Generator,
                        user: str, filename: str):
         """-> (indices, subsets or None) (reference openeds_dataset.py:
@@ -122,7 +104,7 @@ class OpenEDSDataset:
                 None if subsets is None else [subsets[i] for i in picks])
 
     def _style_images(self, user: str, rng: np.random.Generator,
-                      filename: str, flip: bool) -> np.ndarray:
+                      filename: str, params: Dict) -> np.ndarray:
         grp = self.h5[user]
         key_style = self.keys["style_images"]
         n_images = grp[key_style].shape[0]
@@ -133,9 +115,8 @@ class OpenEDSDataset:
             if subsets is not None and subsets[i] == b"s":
                 # sequence frames are ranked after the generative images
                 key, sel = "images_seq", sel - n_images
-            image = self._resize(grp[key][sel], is_mask=False)
-            images.append(image[:, ::-1] if flip else image)
-        return np.ascontiguousarray(np.stack(images))[..., None]
+            images.append(np.asarray(grp[key][sel]))
+        return transforms.transform_images(images, self.opt, params)
 
     def __getitem__(self, index: int,
                     rng: Optional[np.random.Generator] = None) -> Dict:
@@ -145,31 +126,26 @@ class OpenEDSDataset:
         user, within = self.user_ids[u], index - self.N_start[u]
         grp = self.h5[user]
         mask = grp[self.keys["labels"]][within]
-        # the JAX package's get_params draws a crop position even in 'fixed'
-        # mode, from the mask's (H, W) read as (w, h), then the flip coin
-        # when training with flips; those draws come first in the sample's
-        # generator
-        w, h = mask.shape[:2]
-        for extent in (w, h):
-            rng.integers(0, max(0, extent - self.opt.crop_size) + 1)
-        flip = (not self.opt.no_flip and self.opt.isTrain
-                and bool(rng.random() > 0.5))
-
-        def flipped(a):
-            return a[:, ::-1] if flip else a
-
+        # the JAX package passes the mask's (H, W) as get_params' (w, h)
+        # (its reference's quirk): the crop domain is the swapped one
+        params = transforms.get_params(self.opt, rng,
+                                       size=tuple(mask.shape[:2]))
         filename = re.sub(r"\.", "", grp[self.keys["filenames"]][within]
                           .decode("utf-8"))
-        item = {"label": np.ascontiguousarray(flipped(self._resize(mask,
-                                                                   True))),
+        item = {"label": transforms.transform_mask(mask, self.opt, params),
                 "filename": filename, "user": user,
-                "style_image": self._style_images(user, rng, filename, flip)}
+                "style_image": self._style_images(user, rng, filename,
+                                                  params)}
         if self.dataset_key != "test":
             target = np.asarray(grp["images_ss"][within])
-            item["target"] = np.ascontiguousarray(
-                flipped(self._resize(target, False)))[..., None]
-            item["target_original"] = np.ascontiguousarray(
-                flipped(target)).astype(np.uint8)[..., None]
+            u8 = self.opt.device_normalize
+            item["target"] = (
+                np.ascontiguousarray(transforms.spatial_image(
+                    target, self.opt, params))[..., None] if u8
+                else transforms.transform_image(target, self.opt, params))
+            orig = target[:, ::-1] if params["flip"] else target
+            item["target_original"] = np.ascontiguousarray(orig).astype(
+                np.uint8 if u8 else np.int32)[..., None]
         return item
 
     def get_validation_indices(self) -> List[int]:

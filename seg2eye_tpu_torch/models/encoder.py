@@ -2,8 +2,9 @@
 
   * Any input is first bilinearly resized to 256x256.
   * 6 stride-2 3x3 spectral convs (5 for crop < 256), each followed by the
-    sub-norm, with NO activation between layers: LeakyReLU(0.2) comes once,
-    at the end.
+    sub-norm (instance, none, or the affine batch norm of
+    ``norm_E='spectralbatch'``), with NO activation between layers:
+    LeakyReLU(0.2) comes once, at the end.
   * fc_mu / fc_var read the final map flattened in (C, H, W) order, which
     is torch's ``view(B, -1)``.
   * Returns (mu, logvar, [per-layer feature maps]).
@@ -16,8 +17,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from seg2eye_tpu_torch.models.layers import (SpectralConv, SubNorm,
-                                             at_least_f32, parse_nonspade_norm)
+from seg2eye_tpu_torch.models.layers import (SpectralConv, at_least_f32,
+                                             parse_nonspade_norm, sub_norm)
 from seg2eye_tpu_torch.ops.image import resize_bilinear
 
 ENC_SIZE = 256
@@ -37,23 +38,27 @@ class ConvEncoder(nn.Module):
             # the norm wrapper removes the conv bias unless there is no norm
             conv = SpectralConv(fin, fout, 3, stride=2, padding=1,
                                 bias=sub in ("", "none"), spectral=spectral)
-            self.add_module(f"layer{i}", nn.Sequential(conv, SubNorm(sub)))
+            self.add_module(f"layer{i}",
+                            nn.Sequential(conv, sub_norm(sub, fout)))
             fin = fout
         grid = ENC_SIZE // 2 ** self.n_layers
         self.fc_mu = nn.Linear(fin * grid * grid, w_dim)
         self.fc_var = nn.Linear(fin * grid * grid, w_dim)
 
-    def forward(self, x: torch.Tensor, update_stats: bool = False
+    def forward(self, x: torch.Tensor, update_stats: bool = False,
+                use_running_average: bool = False
                 ) -> Tuple[torch.Tensor, torch.Tensor, List[torch.Tensor]]:
         """x: (N,1,H,W) in [-1,1], channels_last.  ``update_stats``: a
-        training forward, which power-iterates every spectral conv."""
+        training forward, which power-iterates every spectral conv and
+        updates a batch sub-norm's running statistics;
+        ``use_running_average``: a batch sub-norm normalises with them."""
         if x.shape[2:] != (ENC_SIZE, ENC_SIZE):
             x = resize_bilinear(x.permute(0, 2, 3, 1), ENC_SIZE, ENC_SIZE)
             x = x.permute(0, 3, 1, 2)
         features = []
         for i in range(self.n_layers):
             conv, norm = getattr(self, f"layer{i}")
-            x = norm(conv(x, update_stats))
+            x = norm(conv(x, update_stats), use_running_average, update_stats)
             features.append(x)
         out = at_least_f32(F.leaky_relu(x, 0.2)).reshape(x.shape[0], -1)
         return self.fc_mu(out), self.fc_var(out), features

@@ -8,7 +8,10 @@
   * Final: conv_img(leaky_relu(x)), then tanh.
 
 One nearest-resized seg pyramid level per resolution is computed once per
-forward and shared by every norm at that resolution.
+forward and shared by every norm at that resolution.  A forward with
+``remat`` (``--remat``) checkpoints each SPADE+Style block, as the JAX
+package's ``nn.remat`` does: its activations are recomputed in the
+backward, which launches each of its norm sites' kernel a second time.
 """
 from __future__ import annotations
 
@@ -66,11 +69,12 @@ class SpadeStyleGenerator(nn.Module):
 
     def forward(self, seg: torch.Tensor, w: torch.Tensor,
                 use_running_average: bool = False,
-                update_stats: bool = False) -> torch.Tensor:
+                update_stats: bool = False,
+                remat: bool = False) -> torch.Tensor:
         """seg: (B,H,W,semantic_nc) one-hot, NHWC; w: (B,w_dim).
         -> (B,output_nc,H,W) in channels_last memory.  ``update_stats``:
         a training forward, which advances every spectral u/v and BN
-        running statistic."""
+        running statistic; ``remat``: checkpoint each block."""
         pyramid = {}
 
         def seg_at(h, w_):
@@ -80,7 +84,7 @@ class SpadeStyleGenerator(nn.Module):
 
         def run(blk, x):
             return blk(x, seg_at(x.shape[2], x.shape[3]), w,
-                       use_running_average, update_stats)
+                       use_running_average, update_stats, remat)
 
         x = self.fc(seg_at(*self.latent_size))
         x = run(self.head_0, x)

@@ -10,14 +10,16 @@
     used as it is.  ``torch.nn.utils.spectral_norm`` is not used because its
     hook power-iterates on every forward in train mode.
   * ``BatchNorm`` is the affine batch norm of the DeepLab stacks, with
-    the JAX package's ``TorchBatchNorm`` semantics (torch's).
+    the JAX package's ``TorchBatchNorm`` semantics (torch's);
+    ``BatchSubNorm`` is the same norm after an encoder or discriminator
+    conv (``norm_E``/``norm_D = 'spectralbatch'``).
   * ``instance_norm`` is torch ``InstanceNorm2d(affine=False)``: biased
     statistics over (H, W), eps 1e-5, computed in at least float32.
   * ``FCStyle`` is the StyleGAN FC layer: linear in float32, LeakyReLU(0.2).
-  * Initialisers follow the JAX package: xavier-normal with torch's fan
-    convention (the fan includes the receptive field), the He init for
-    ``FCStyle``, zero biases, and a random normalised spectral ``u`` with
-    ``v = normalize(W^T u)``.
+  * Initialisers follow the JAX package: the six ``weight_init`` schemes
+    with torch's fan convention (the fan includes the receptive field),
+    the He init for ``FCStyle``, zero biases, and a random normalised
+    spectral ``u`` with ``v = normalize(W^T u)``.
 
 Activations are NCHW tensors; the convolutions run in the compute dtype of
 their input, with float32 parameters cast at the call.
@@ -64,11 +66,30 @@ def he_fc_(w: torch.Tensor, gain: float,
 
 def weight_init(init_type: str, gain: float):
     """-> an in-place initialiser ``f(weight, generator)`` for conv and
-    linear weights.  Only the default 'xavier' scheme is ported."""
-    if init_type == "xavier":
-        return lambda w, generator: xavier_normal_(w, gain, generator)
-    raise NotImplementedError(
-        f"initialization method [{init_type}] is not ported yet")
+    linear weights (OIHW or (out, in)), one per scheme of the JAX
+    package's ``weight_init``: xavier (normal, ``gain``), normal (N(0,
+    gain)), xavier_uniform (gain 1), kaiming (normal, fan_in, ReLU gain),
+    orthogonal (``gain``; the rows of the (out, in * kh * kw) matrix, the
+    columns of JAX's (kh * kw * in, out) one, orthonormal) and none
+    (U(+-sqrt(3 / fan_in)), what the JAX package's 'none' draws; its
+    comment names torch's conv default, U(+-1/sqrt(fan_in)), which is
+    narrower)."""
+    init = torch.nn.init
+    schemes = {
+        "xavier": lambda w, g: xavier_normal_(w, gain, g),
+        "normal": lambda w, g: init.normal_(w, 0.0, gain, generator=g),
+        "xavier_uniform": lambda w, g: init.xavier_uniform_(w, 1.0,
+                                                           generator=g),
+        "kaiming": lambda w, g: init.kaiming_normal_(
+            w, 0.0, "fan_in", "relu", generator=g),
+        "orthogonal": lambda w, g: init.orthogonal_(w, gain, generator=g),
+        "none": lambda w, g: init.kaiming_uniform_(
+            w, 0.0, "fan_in", "linear", generator=g),
+    }
+    if init_type not in schemes:
+        raise NotImplementedError(
+            f"initialization method [{init_type}] is not implemented")
+    return torch.no_grad()(schemes[init_type])
 
 
 def _l2_normalize(v: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
@@ -92,21 +113,24 @@ def parse_nonspade_norm(norm_type: str) -> Tuple[bool, str]:
 
 
 class SubNorm(nn.Module):
-    """The norm after an encoder conv: param-free instance norm or none.
-    The affine 'batch' variant is not ported yet."""
+    """The param-free norm after an encoder or discriminator conv: instance
+    norm or none (``sub_norm`` gives the affine 'batch' one)."""
 
     def __init__(self, sub: str = "instance"):
         super().__init__()
-        if sub == "batch":
-            raise NotImplementedError(
-                "the 'batch' sub-norm (norm_E='spectralbatch') is not "
-                "ported yet")
         if sub not in ("", "none", "instance"):
             raise ValueError(sub)
         self.sub = sub
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, use_running_average: bool = False,
+                update_stats: bool = False) -> torch.Tensor:
         return instance_norm(x) if self.sub == "instance" else x
+
+
+def sub_norm(sub: str, num_features: int) -> nn.Module:
+    """The norm that ``norm_E``/``norm_D``'s sub-norm names."""
+    return (BatchSubNorm(num_features) if sub == "batch"
+            else SubNorm(sub))
 
 
 class BatchNorm(nn.BatchNorm2d):
@@ -128,6 +152,25 @@ class BatchNorm(nn.BatchNorm2d):
         return F.batch_norm(x, self.running_mean, self.running_var,
                             self.weight, self.bias, train, self.momentum,
                             self.eps)
+
+
+class BatchSubNorm(BatchNorm):
+    """The affine 'batch' sub-norm (JAX ``SubNorm('batch')``, a
+    ``TorchBatchNorm``): batch statistics, with the running ones updated
+    on a training forward (``update_stats``), or the running statistics
+    with ``use_running_average``.  The preceding conv has no bias; the
+    scale is initialised N(1, init_variance) (``utils.weights``)."""
+
+    def forward(self, x: torch.Tensor, use_running_average: bool = False,
+                update_stats: bool = False) -> torch.Tensor:
+        update = update_stats and not use_running_average
+        if update:
+            self.num_batches_tracked.add_(1)
+        stats = (self.running_mean, self.running_var) \
+            if update or use_running_average else (None, None)
+        y = F.batch_norm(at_least_f32(x), *stats, self.weight, self.bias,
+                         not use_running_average, self.momentum, self.eps)
+        return y.to(x.dtype)
 
 
 class SpectralConv(nn.Module):
@@ -174,11 +217,15 @@ class SpectralConv(nn.Module):
             self.weight_u.copy_(u)
             self.weight_v.copy_(_l2_normalize(w.reshape(w.shape[0], -1).T @ u))
 
-    def forward(self, x: torch.Tensor,
-                update_stats: bool = False) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, update_stats: bool = False,
+                kernel: torch.Tensor | None = None) -> torch.Tensor:
+        """``kernel``: the normalised weight, computed by the caller with
+        ``self.kernel`` (a recomputed forward reuses the first one's)."""
+        if kernel is None:
+            kernel = self.kernel(update_stats)
         bias = None if self.bias is None else self.bias.to(x.dtype)
-        return F.conv2d(x, self.kernel(update_stats).to(x.dtype), bias,
-                        self.stride, self.padding)
+        return F.conv2d(x, kernel.to(x.dtype), bias, self.stride,
+                        self.padding)
 
 
 class FCStyle(nn.Module):

@@ -19,6 +19,7 @@ from typing import Tuple
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from seg2eye_tpu_torch.models.layers import FCStyle, SpectralConv, at_least_f32
 from seg2eye_tpu_torch.ops.spade_style import (NHIDDEN, PackedWeights,
@@ -106,7 +107,16 @@ class SpadeStyleBlock(nn.Module):
 
 
 class SpadeStyleResnetBlock(nn.Module):
-    """ResNet block with SPADE+Style norms (reference architecture.py:13-62)."""
+    """ResNet block with SPADE+Style norms (reference architecture.py:13-62).
+
+    With ``remat`` (``--remat``) the block runs under non-reentrant
+    ``torch.utils.checkpoint``: its activations are dropped after the
+    forward and recomputed in the backward.  The recompute must see what
+    the forward saw and write nothing: the spectral kernels (whose power
+    iteration advances u/v) are computed once, outside the checkpointed
+    body, and passed in; the running statistics are updated by the first
+    run of the body only (the recompute's batch statistics are the same
+    numbers, from the same input)."""
 
     def __init__(self, fin: int, fout: int, semantic_nc: int, w_dim: int,
                  spectral: bool = True, param_free: str = "batch",
@@ -127,15 +137,33 @@ class SpadeStyleResnetBlock(nn.Module):
                                        spectral=spectral)
             self.norm_s = norm(fin)
 
-    def forward(self, x, seg, w, use_running_average: bool = False,
-                update_stats: bool = False):
+    def _convs(self):
+        return [self.conv_0, self.conv_1] + (
+            [self.conv_s] if self.learned_shortcut else [])
+
+    def _body(self, x, seg, w, kernels, use_running_average, update_stats):
+        k0, k1, *ks = kernels
+
         def norm(layer, t):
             return layer(t, seg, w, use_running_average, update_stats)
 
-        x_s = (self.conv_s(norm(self.norm_s, x), update_stats)
+        x_s = (self.conv_s(norm(self.norm_s, x), kernel=ks[0])
                if self.learned_shortcut else x)
-        dx = self.conv_0(F.leaky_relu(norm(self.norm_0, x), 0.2),
-                         update_stats)
-        dx = self.conv_1(F.leaky_relu(norm(self.norm_1, dx), 0.2),
-                         update_stats)
+        dx = self.conv_0(F.leaky_relu(norm(self.norm_0, x), 0.2), kernel=k0)
+        dx = self.conv_1(F.leaky_relu(norm(self.norm_1, dx), 0.2), kernel=k1)
         return x_s + dx
+
+    def forward(self, x, seg, w, use_running_average: bool = False,
+                update_stats: bool = False, remat: bool = False):
+        kernels = [c.kernel(update_stats) for c in self._convs()]
+        if not (remat and torch.is_grad_enabled()):
+            return self._body(x, seg, w, kernels, use_running_average,
+                              update_stats)
+        first = [True]
+
+        def body(x, seg, w, *kernels):
+            writes, first[0] = first[0], False
+            return self._body(x, seg, w, kernels, use_running_average,
+                              update_stats and writes)
+
+        return checkpoint(body, x, seg, w, *kernels, use_reentrant=False)

@@ -5,18 +5,27 @@ of ``seg2eye_tpu/models/pix2pix.py``).
     normalised on the device, (x / 255 - 0.5) / 0.5.
   * ``encode_w``: the (B, k) style references run as ONE fused (B*k)
     encoder batch; mu and every feature map are then aggregated over k
-    (mean or max).
+    (mean or max).  With per-sample encoding
+    (``opt.per_sample_encode_enabled``: ``--per_sample_encode on``, or
+    'auto' with a batch-subnorm encoder) and B > 1 the encoder runs once
+    per sample over its own k references, in order, as the reference's
+    loop does: in training each run advances u/v and the running
+    statistics, so sample b sees a u iterated b + 1 times; a batch sub-norm
+    normalises over that sample's k references.
   * ``generate``: the generator with batch statistics, as the reference's
     Tester runs it (train mode); running statistics only under
     ``opt.eval_use_running_stats``.  A training forward uses batch
-    statistics and updates the running ones.
+    statistics and updates the running ones; with ``opt.remat`` each block
+    is recomputed in the backward.
   * ``discriminate``: fake and real run through D as ONE 2B batch,
     [all fake | all real], and every output is split back in halves.
   * ``generator_loss``/``discriminator_loss``: the reference's loss dicts,
     weighted entries beside their ``/raw`` side channel; the total is the
     sum of the weighted entries.  The style-consistency terms
     (``lambda_style_w``/``lambda_style_feat``/``lambda_gram``) encode the
-    fake a second time.
+    fake a second time.  The VGG loss (``no_vgg_loss`` False) runs fake and
+    real through the frozen VGG19 as one interleaved 2B batch
+    [f0, r0, f1, r1, ...] in the compute dtype.
 
 Every training forward (``update_stats=True``) advances the spectral u/v
 and the BN running statistics of the nets it runs, as torch's train mode
@@ -42,6 +51,7 @@ from seg2eye_tpu_torch.models.discriminator import MultiscaleDiscriminator
 from seg2eye_tpu_torch.models.encoder import ConvEncoder
 from seg2eye_tpu_torch.models.generator import SpadeStyleGenerator
 from seg2eye_tpu_torch.models.layers import at_least_f32
+from seg2eye_tpu_torch.models.vgg import VGG19Features, to_rgb
 from seg2eye_tpu_torch.ops import losses as L
 from seg2eye_tpu_torch.ops import metrics
 from seg2eye_tpu_torch.ops.image import one_hot_label
@@ -51,9 +61,10 @@ _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
 
 def build_networks(opt) -> Dict[str, torch.nn.Module]:
-    """Generator and encoder for ``opt``, and the discriminator when
-    ``opt.isTrain``, on the CPU, with placeholder weights: load a
-    checkpoint or run ``utils.weights.init_networks``."""
+    """Generator and encoder for ``opt``, and the discriminator (and, with
+    the VGG loss on, the frozen VGG19) when ``opt.isTrain``, on the CPU,
+    with placeholder weights: load a checkpoint or run
+    ``utils.weights.init_networks``."""
     if opt.netG != "spadestyle" or opt.netE != "conv":
         raise ValueError(f"unknown netG/netE '{opt.netG}'/'{opt.netE}'")
     gen = SpadeStyleGenerator(
@@ -71,6 +82,8 @@ def build_networks(opt) -> Dict[str, torch.nn.Module]:
             opt.semantic_nc + opt.output_nc, ndf=opt.ndf,
             n_layers=opt.n_layers_D, num_d=opt.num_D, norm_d=opt.norm_D,
             get_intermediate_features=not opt.no_ganFeat_loss)
+        if not opt.no_vgg_loss:
+            nets["VGG"] = VGG19Features()
     return nets
 
 
@@ -88,6 +101,7 @@ class Pix2Pix:
         self.netG = nets["G"].to(self.device)
         self.netE = nets["E"].to(self.device)
         self.netD = nets["D"].to(self.device) if "D" in nets else None
+        self.netVGG = nets["VGG"].to(self.device) if "VGG" in nets else None
 
     def preprocess(self, batch: Dict
                    ) -> Tuple[torch.Tensor, torch.Tensor,
@@ -115,17 +129,24 @@ class Pix2Pix:
 
     def encode_w(self, style: torch.Tensor, update_stats: bool = False
                  ) -> Tuple[torch.Tensor, List[torch.Tensor]]:
-        """style (B,k,H,W,1) -> (w (B,w_dim), aggregated NCHW features)."""
+        """style (B,k,H,W,1) -> (w (B,w_dim), aggregated NCHW features).
+        Outside training a batch sub-norm uses batch statistics, or the
+        running ones under ``opt.eval_use_running_stats``, and updates
+        nothing."""
         b, k = style.shape[:2]
+        running = self.opt.eval_use_running_stats and not update_stats
         if self.opt.per_sample_encode_enabled and b > 1:
-            raise NotImplementedError(
-                "per-sample encoding (batch-subnorm encoders) is not ported")
-        flat = style.reshape(b * k, *style.shape[2:]).permute(0, 3, 1, 2)
-        mu, _, feats = self.netE(flat, update_stats)
-        w = self._aggregate(mu.reshape(b, k, -1), 1)
-        feats = [self._aggregate(f.reshape(b, k, *f.shape[1:]), 1)
-                 for f in feats]
-        return w, feats
+            outs = [self.netE(style[i].permute(0, 3, 1, 2), update_stats,
+                              running) for i in range(b)]
+            mu = torch.stack([out[0] for out in outs])
+            feats = [torch.stack(f) for f in zip(*(out[2] for out in outs))]
+        else:
+            flat = style.reshape(b * k, *style.shape[2:]).permute(0, 3, 1, 2)
+            mu, _, feats = self.netE(flat, update_stats, running)
+            mu = mu.reshape(b, k, -1)
+            feats = [f.reshape(b, k, *f.shape[1:]) for f in feats]
+        return (self._aggregate(mu, 1),
+                [self._aggregate(f, 1) for f in feats])
 
     def generate(self, seg: torch.Tensor, w: torch.Tensor,
                  update_stats: bool = False) -> torch.Tensor:
@@ -133,7 +154,7 @@ class Pix2Pix:
         forward (``update_stats``) always uses batch statistics."""
         running = self.opt.eval_use_running_stats and not update_stats
         fake = self.netG(seg, at_least_f32(w), use_running_average=running,
-                         update_stats=update_stats)
+                         update_stats=update_stats, remat=self.opt.remat)
         return fake.permute(0, 2, 3, 1)
 
     def discriminate(self, seg: torch.Tensor, fake: torch.Tensor,
@@ -197,9 +218,26 @@ class Pix2Pix:
             losses["GAN_Feat"] = L.feature_matching_loss(
                 pred_fake, pred_real, opt.lambda_feat)
         if not opt.no_vgg_loss:
-            raise NotImplementedError("the VGG loss is not ported")
+            vl = self.vgg_loss(fake, target)
+            losses["VGG/weighted"] = vl * opt.lambda_vgg
+            raw["VGG/raw"] = vl
         total = sum(torch.mean(v) for v in losses.values())
         return total, {**losses, **raw}, fake
+
+    def vgg_loss(self, fake: torch.Tensor, target: torch.Tensor
+                 ) -> torch.Tensor:
+        """The perceptual loss of fake against target (B,H,W,C): one
+        interleaved 2B VGG19 batch in the compute dtype."""
+        if self.netVGG is None:
+            raise ValueError("the VGG loss needs the VGG19 network: build "
+                             "the networks with opt.isTrain and the VGG "
+                             "loss on")
+        pair = torch.stack([to_rgb(fake), to_rgb(target)], 1)
+        x = pair.reshape(-1, *pair.shape[2:]).to(self.dtype)
+        feats = self.netVGG(x.permute(0, 3, 1, 2))
+        halves = [f.reshape(-1, 2, *f.shape[1:]) for f in feats]
+        return L.vgg_loss([f[:, 0] for f in halves],
+                          [f[:, 1] for f in halves])
 
     def discriminator_loss(self, batch: Dict, fake: torch.Tensor
                            ) -> Tuple[torch.Tensor, Dict]:

@@ -1,5 +1,5 @@
-"""GAN, reconstruction and style losses (counterpart of
-``seg2eye_tpu/ops/losses.py``, the VGG loss aside).
+"""GAN, reconstruction, style and perceptual losses (counterpart of
+``seg2eye_tpu/ops/losses.py``).
 
   * ``gan_loss``: modes original | ls | hinge | w.  A multiscale
     discriminator's output (a list per scale of lists per layer) is scored
@@ -11,6 +11,8 @@
   * ``multi_feature_mse``/``multi_gram_loss``: summed over encoder levels;
     both sides carry gradient, as in the reference (its ``.detach()`` there
     is not assigned).
+  * ``vgg_loss``: SPADE's perceptual loss, L1 over the five relu{1..5}_1
+    VGG19 slices weighted ``VGG_SLICE_WEIGHTS``.
 
 Every loss is computed in at least float32.  Layouts do not matter to any
 of them except ``gram_matrix``, which takes NCHW feature maps, as the
@@ -111,4 +113,17 @@ def multi_gram_loss(feats_fake: List[torch.Tensor],
     total = 0.0
     for ff, fr in zip(feats_fake, feats_real):
         total = total + style_gram_loss(ff, fr)
+    return total
+
+
+VGG_SLICE_WEIGHTS = (1.0 / 32, 1.0 / 16, 1.0 / 8, 1.0 / 4, 1.0)
+
+
+def vgg_loss(feats_fake: List[torch.Tensor],
+             feats_real: List[torch.Tensor]) -> torch.Tensor:
+    """Weighted L1 over the VGG19 slices; the real features come from data
+    and carry no generator gradient."""
+    total = 0.0
+    for wt, ff, fr in zip(VGG_SLICE_WEIGHTS, feats_fake, feats_real):
+        total = total + wt * l1_loss(ff, fr)
     return total

@@ -6,7 +6,8 @@ Same flags as the reference test.py, plus ``--device`` (default ``cuda``):
         --dataset_key validation|train|test [--produce_npy] [--device cuda]
 
 Loads ``{which_epoch}_net_{G,E}.pth`` from ``checkpoints_dir/name``
-strictly.  validation/train without --produce_npy -> full-dataset error;
+strictly.  validation/train without --produce_npy -> full-dataset error
+(with ``--write_error_log``, the error-log H5 under ``results``);
 otherwise per-image uint8 .npy files plus pred_npy_list.txt.  There is no
 automatic switch to the CPU: a missing card is an error.
 """
@@ -46,7 +47,8 @@ def main(argv=None) -> dict | str:
                     dataloader=make_dataloader(tester_opt, opt.dataset_key))
     limit = -1 if opt.how_many == float("inf") else int(opt.how_many)
     if opt.dataset_key in ("validation", "train") and not opt.produce_npy:
-        return tester.run(model, mode="full", limit=limit)
+        return tester.run(model, mode="full", limit=limit,
+                          write_error_log=opt.write_error_log)
     print("Running inference")
     return tester.run_test(model, limit=limit)
 

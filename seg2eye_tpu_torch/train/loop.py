@@ -17,13 +17,21 @@ Batches move to the device one step ahead (``data.openeds.
 device_prefetch``).  ``dataloader`` replaces the H5 loader with any
 iterable of batches with ``set_epoch``/``skip_next_batches`` and a length;
 the validation loaders are still built from ``opt.dataroot``, when a
-validation comes due.  ``--tf_log``, ``--write_error_log``,
-``--profile_steps``, ``--remat``, the VGG loss and the multi-device
-options are not ported, and raise.
+validation comes due.  The run starts with a ``src.zip`` snapshot of the
+checkout's ``.py`` files in ``expr_dir``.  ``--profile_steps N`` traces
+iterations 3 to N + 2 with ``torch.profiler`` into
+``expr_dir/profile/trace.json`` (a chrome trace).  ``--tf_log`` sends the
+losses, validation statistics and panels to TensorBoard, and
+``--write_error_log`` writes the full validation's error-log H5.  The VGG
+loss (``--no_vgg_loss False``) loads torchvision VGG19 weights from
+``--vgg_weights`` and refuses to train without them.  The multi-device
+options (``--spatial_shard``, ``--model_axis > 1``) are not ported, and
+raise.
 """
 from __future__ import annotations
 
 import contextlib
+import os
 import traceback
 from typing import Dict, Optional
 
@@ -35,6 +43,7 @@ from seg2eye_tpu_torch.models.pix2pix import Pix2Pix
 from seg2eye_tpu_torch.train import state as state_lib
 from seg2eye_tpu_torch.train import steps
 from seg2eye_tpu_torch.utils import checkpoint
+from seg2eye_tpu_torch.utils.files import copy_src, project_root
 from seg2eye_tpu_torch.utils.iter_counter import IterationCounter
 from seg2eye_tpu_torch.utils.signals import is_preemption, sigterm_raises
 from seg2eye_tpu_torch.utils.visualizer import Visualizer
@@ -44,25 +53,57 @@ from seg2eye_tpu_torch.utils.weights import init_networks
 def _check_ported(opt, device: torch.device) -> None:
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("training on 'cuda': no CUDA device is available")
-    missing = {"--write_error_log": opt.write_error_log,
-               "--profile_steps": opt.profile_steps,
-               "--remat": opt.remat,
-               "the VGG loss (--no_vgg_loss False)": not opt.no_vgg_loss,
-               "--spatial_shard": opt.spatial_shard,
+    missing = {"--spatial_shard": opt.spatial_shard,
                "--model_axis > 1": opt.model_axis > 1}
     for what, asked in missing.items():
         if asked:
             raise NotImplementedError(f"{what} is not ported")
 
 
-def _testers(opt):
+def _testers(opt, visualizer: Visualizer):
     """Train and validation Testers on the H5 file's splits."""
     out = []
     for key in ("train", "validation"):
         topt = opt.replace(serial_batches=True, no_flip=True, isTrain=False,
                            dataset_key=key)
-        out.append(Tester(opt, key, create_dataloader(topt, key)))
+        out.append(Tester(opt, key, create_dataloader(topt, key),
+                          visualizer=visualizer))
     return out
+
+
+class _ProfileWindow:
+    """``--profile_steps``: ``torch.profiler`` from the end of iteration 2
+    to the end of iteration 2 + N, as the JAX loop's trace window; the
+    chrome trace goes to ``expr_dir/profile/trace.json``."""
+
+    def __init__(self, opt, device: torch.device):
+        self.n = opt.profile_steps
+        self.path = os.path.join(opt.expr_dir, "profile", "trace.json")
+        self.device = device
+        self.prof = None
+
+    def after_iteration(self, n_iters: int) -> None:
+        if not self.n:
+            return
+        if n_iters == 2:
+            activities = [torch.profiler.ProfilerActivity.CPU]
+            if self.device.type == "cuda":
+                activities.append(torch.profiler.ProfilerActivity.CUDA)
+            self.prof = torch.profiler.profile(activities=activities)
+            self.prof.start()
+        elif self.prof is not None and n_iters >= 2 + self.n:
+            self.stop()
+
+    def stop(self) -> None:
+        if self.prof is None:
+            return
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        self.prof.stop()
+        os.makedirs(os.path.dirname(self.path), exist_ok=True)
+        self.prof.export_chrome_trace(self.path)
+        self.prof = None
+        print("profile written to", self.path)
 
 
 def _host_losses(losses: Dict) -> Dict[str, float]:
@@ -78,10 +119,13 @@ def train(opt, max_steps: Optional[int] = None, step_hook=None,
     1-based index and the loss dict (tensors on the device)."""
     device = torch.device(device)
     _check_ported(opt, device)
+    copy_src(project_root(), opt.expr_dir)
     visualizer = Visualizer(opt)
     if dataloader is None:
         dataloader = create_dataloader(opt)
     nets = init_networks(opt, torch.Generator().manual_seed(opt.seed), device)
+    if "VGG" in nets:
+        checkpoint.load_vgg(nets["VGG"], opt)
     state = state_lib.create_state(Pix2Pix(opt, nets, device))
     model = state.model
     iter_counter = IterationCounter(opt, len(dataloader) * opt.batchSize)
@@ -97,6 +141,7 @@ def train(opt, max_steps: Optional[int] = None, step_hook=None,
     g_losses: Dict = {}
     n_iters = 0
     stop = False
+    profile = _ProfileWindow(opt, device)
     exit_stack = contextlib.ExitStack()
     exit_stack.enter_context(sigterm_raises())
     try:
@@ -122,28 +167,35 @@ def train(opt, max_steps: Optional[int] = None, step_hook=None,
                 n_iters += 1
                 if step_hook is not None:
                     step_hook(n_iters, losses)
+                profile.after_iteration(n_iters)
 
                 if iter_counter.needs_printing():
+                    host_losses = _host_losses(losses)
                     visualizer.print_current_errors(
                         epoch, iter_counter.total_steps_so_far,
-                        _host_losses(losses), iter_counter.time_per_iter)
+                        host_losses, iter_counter.time_per_iter)
+                    visualizer.plot_current_errors(
+                        host_losses, iter_counter.total_steps_so_far)
                 if iter_counter.needs_displaying():
-                    testers = testers or _testers(opt)
+                    testers = testers or _testers(opt, visualizer)
                     for tester in testers:
                         tester.run_partial_modes(
                             model, epoch=epoch,
                             n_steps=iter_counter.total_steps_so_far,
-                            limit=min(opt.validation_limit, tester.N))
+                            limit=min(opt.validation_limit, tester.N),
+                            log=True, visualize_images=opt.tf_log)
                 if iter_counter.needs_saving():
                     print("saving the latest model (epoch %d, total_steps %d)"
                           % (epoch, iter_counter.total_steps_so_far))
                     checkpoint.save_state(state, opt, "latest")
                     iter_counter.record_current_iter()
                 if iter_counter.needs_full_validation():
-                    testers = testers or _testers(opt)
+                    testers = testers or _testers(opt, visualizer)
                     for tester in testers:
                         tester.run(model, mode="full", epoch=epoch,
-                                   n_steps=iter_counter.total_steps_so_far)
+                                   n_steps=iter_counter.total_steps_so_far,
+                                   write_error_log=opt.write_error_log,
+                                   log=True)
                 if max_steps and n_iters >= max_steps:
                     stop = True
                     break
@@ -167,6 +219,8 @@ def train(opt, max_steps: Optional[int] = None, step_hook=None,
         raise
     finally:
         exit_stack.close()
+        profile.stop()
+        visualizer.close()
         print("saving the model before quitting")
         checkpoint.save_state(state, opt, "latest")
         iter_counter.record_current_iter()

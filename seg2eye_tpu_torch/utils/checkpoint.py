@@ -6,7 +6,10 @@ what ``tools/export_torch_checkpoint.py`` writes from a JAX checkpoint.
 Training also saves ``{which_epoch}_optim.pth``: the step count and both
 Adam states (the reference saves none), so that a resumed run continues
 the unbroken one bit for bit.  Every file is written to a temporary name
-and renamed, so a reader never sees a partial checkpoint.
+and renamed, so a reader never sees a partial checkpoint.  ``load_vgg``
+reads the frozen VGG19 of the VGG loss from ``--vgg_weights``: a
+torchvision ``vgg19`` or ``vgg19.features`` state_dict, never part of a
+checkpoint.
 """
 from __future__ import annotations
 
@@ -79,3 +82,16 @@ def load_state(state, opt, which_epoch) -> None:
 
 def has_checkpoint(opt, which_epoch) -> bool:
     return os.path.exists(network_path(opt, which_epoch, "G"))
+
+
+def load_vgg(net: nn.Module, opt) -> nn.Module:
+    """Strict-load ``opt.vgg_weights`` into the VGG19 of the VGG loss;
+    without it, refuse: a random perceptual net silently corrupts the
+    loss."""
+    from seg2eye_tpu_torch.models.vgg import load_vgg19
+
+    if not opt.vgg_weights:
+        raise ValueError("--no_vgg_loss False needs --vgg_weights: a "
+                         "torchvision vgg19 (or vgg19.features) state_dict")
+    return load_vgg19(net, torch.load(opt.vgg_weights, map_location="cpu",
+                                      weights_only=True))

@@ -2,12 +2,13 @@
 
   * ``from_jax_variables``: the JAX package's variables (as numpy arrays)
     -> state_dicts that load into the port's modules with ``strict=True``.
-    The layout work is the port's own copy of the generator, encoder and
-    discriminator exports of ``seg2eye_tpu/utils/torch_export.py``: HWIO
-    kernels -> OIHW,
+    The layout work is the port's own copy of the generator, encoder,
+    discriminator and VGG19 exports of ``seg2eye_tpu/utils/torch_export.py``:
+    HWIO kernels -> OIHW,
     (in, out) linears -> (out, in), the encoder fc re-flattened from HWC
     to CHW, spectral ``weight_v`` in torch's (I, kh, kw) flatten order, BN
-    statistics -> running_{mean,var}.
+    statistics -> running_{mean,var}, a batch sub-norm's scale and bias ->
+    the affine BatchNorm2d's weight and bias.
   * ``init_networks``: seeded random weights with the JAX package's init
     schemes, for runs without a checkpoint.
   * ``export_deeplab`` (the port's copy of the JAX package's, for the
@@ -27,8 +28,10 @@ from torch import nn
 
 from seg2eye_tpu_torch.models.deeplab import (RESNET_LAYERS, DeepLab,
                                               kaiming_init_)
-from seg2eye_tpu_torch.models.layers import FCStyle, SpectralConv, weight_init
+from seg2eye_tpu_torch.models.layers import (BatchSubNorm, FCStyle,
+                                             SpectralConv, weight_init)
 from seg2eye_tpu_torch.models.pix2pix import build_networks
+from seg2eye_tpu_torch.models.vgg import init_vgg19_
 
 
 GEN_BLOCKS = ("head_0", "G_middle_0", "G_middle_1",
@@ -134,10 +137,12 @@ def export_encoder(variables: Dict) -> Dict[str, np.ndarray]:
         _spectral(sd, f"layer{i}.0", p[f"layer{i}"], sp.get(f"layer{i}"))
         if "bias" in p[f"layer{i}"]:
             sd[f"layer{i}.0.bias"] = _f32(p[f"layer{i}"]["bias"])
-        if "TorchBatchNorm_0" in p.get(f"norm{i}", {}):
-            raise NotImplementedError(
-                "batch-subnorm encoders (norm_E='spectralbatch') are not "
-                "ported")
+        norm = p.get(f"norm{i}", {})
+        if "TorchBatchNorm_0" in norm:
+            # batch sub-norm (norm_E='spectralbatch'): the affine
+            # BatchNorm2d at Sequential slot 1
+            _bn(sd, f"layer{i}.1", norm["TorchBatchNorm_0"],
+                variables["batch_stats"][f"norm{i}"]["TorchBatchNorm_0"])
     c = np.asarray(p[f"layer{n_layers - 1}"]["kernel"]).shape[-1]
     for fc in ("fc_mu", "fc_var"):
         w_dim = np.asarray(p[fc]["bias"]).shape[0]
@@ -178,20 +183,34 @@ def export_discriminator(variables: Dict, num_d: int = 2,
                 continue
             _spectral(sd, f"{dk}.model{n}.0.0", conv_p,
                       sp.get(dk, {}).get(f"model{n}_conv"))
-            if "TorchBatchNorm_0" in p[dk].get(f"norm{n}", {}):
-                raise NotImplementedError(
-                    "batch-subnorm discriminators (norm_D='spectralbatch') "
-                    "are not ported")
+            norm = p[dk].get(f"norm{n}", {})
+            if "TorchBatchNorm_0" in norm:
+                # batch sub-norm (norm_D='spectralbatch'): the affine
+                # BatchNorm2d at Sequential slot 1
+                _bn(sd, f"{dk}.model{n}.0.1", norm["TorchBatchNorm_0"],
+                    variables["batch_stats"][dk][f"norm{n}"]
+                    ["TorchBatchNorm_0"])
         last = f"model{n_layers}_conv"
         sd[f"{dk}.model{n_layers}.0.weight"] = _conv(p[dk][last]["kernel"])
         sd[f"{dk}.model{n_layers}.0.bias"] = _f32(p[dk][last]["bias"])
     return sd
 
 
+def export_vgg19(variables: Dict) -> Dict[str, np.ndarray]:
+    """VGG19Features variables -> torchvision's ``features.{idx}`` names,
+    as numpy arrays."""
+    sd: Dict[str, np.ndarray] = {}
+    for name, node in variables["params"].items():
+        idx = int(name.removeprefix("conv"))
+        sd[f"features.{idx}.weight"] = _conv(node["kernel"])
+        sd[f"features.{idx}.bias"] = _f32(node["bias"])
+    return sd
+
+
 def from_jax_variables(variables: Dict) -> Dict[str, Dict[str, torch.Tensor]]:
     """{"G": generator variables, "E": encoder variables[, "D":
-    discriminator variables]} (numpy arrays) -> state_dicts of CPU tensors
-    under the same keys."""
+    discriminator variables][, "VGG": VGG19 variables]} (numpy arrays) ->
+    state_dicts of CPU tensors under the same keys."""
     out = {"G": _to_torch(export_generator(variables["G"])),
            "E": _to_torch(export_encoder(variables["E"]))}
     if "D" in variables:
@@ -201,6 +220,8 @@ def from_jax_variables(variables: Dict) -> Dict[str, Dict[str, torch.Tensor]]:
                        if k.startswith("model")) - 1
         out["D"] = _to_torch(export_discriminator(variables["D"], num_d,
                                                  n_layers))
+    if "VGG" in variables:
+        out["VGG"] = _to_torch(export_vgg19(variables["VGG"]))
     return out
 
 
@@ -334,13 +355,17 @@ def init_deeplab(cfg, num_classes: int, generator: torch.Generator,
 
 
 @torch.no_grad()
-def _init_module(net: nn.Module, init, generator: torch.Generator) -> None:
+def _init_module(net: nn.Module, init, gain: float,
+                 generator: torch.Generator) -> None:
     fc_linears = {id(m.linear) for m in net.modules() if isinstance(m, FCStyle)}
     for m in net.modules():
         if isinstance(m, SpectralConv):
             m.reset_parameters(init, generator)
         elif isinstance(m, FCStyle):
             m.reset_parameters(generator)
+        elif isinstance(m, BatchSubNorm):
+            m.weight.normal_(1.0, gain, generator=generator)
+            m.bias.zero_()
         elif (isinstance(m, (nn.Conv2d, nn.Linear))
               and id(m) not in fc_linears):
             init(m.weight, generator)
@@ -350,14 +375,20 @@ def _init_module(net: nn.Module, init, generator: torch.Generator) -> None:
 def init_networks(opt, generator: torch.Generator,
                   device: str | torch.device = "cuda"
                   ) -> Dict[str, nn.Module]:
-    """Generator and encoder (and the discriminator when ``opt.isTrain``)
-    for ``opt`` with seeded random weights: xavier
-    (gain ``opt.init_variance``) for convs and linears, He for the style FC
-    layers, zero biases, random normalised spectral u with v = normalize(W^T u).
+    """Generator and encoder (and the discriminator and, with the VGG loss
+    on, VGG19 when ``opt.isTrain``) for ``opt`` with seeded random weights:
+    ``opt.init_type`` (gain ``opt.init_variance``) for convs and linears,
+    He for the style FC layers, N(1, init_variance) batch sub-norm scales,
+    zero biases, random normalised spectral u with v = normalize(W^T u);
+    VGG19 last, with torchvision's init (pretrained weights come from
+    ``--vgg_weights``).
     ``generator`` is a CPU generator: weights are drawn on the CPU, so one
     seed gives the same weights on every device, then moved to ``device``."""
     nets = build_networks(opt)
     init = weight_init(opt.init_type, opt.init_variance)
-    for net in nets.values():
-        _init_module(net, init, generator)
+    for name, net in nets.items():
+        if name == "VGG":
+            init_vgg19_(net, generator)
+        else:
+            _init_module(net, init, opt.init_variance, generator)
     return {k: v.to(device) for k, v in nets.items()}

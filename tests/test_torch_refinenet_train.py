@@ -41,6 +41,8 @@ NET_FLOOR = 1e-2
 # with the global pool's conv zeroed (measured 2e-6), and live (measured
 # 7.6e-4, SegNet's first step)
 QUIET_RTOL, POOL_RTOL = 1e-5, 2e-3
+# two bfloat16 ulps, relative to 1 + |scalar| (test_bf16_train_step_...)
+BF16_SCALAR_ATOL = 2.0 ** -7
 STEP_CFG = dict(batch_size=4, base_learning_rate=1e-5, weight_decay=1e-3)
 KINDS = {"refinenet": (model.RefineNetModel, jmodel.RefineNetModel,
                        "eds_loss", 0.99, 5.0),
@@ -143,17 +145,20 @@ def step_batches(kind, n, b=4, h=64, w=40, seed=0):
 
 
 class JaxSteps:
-    """JAX's Trainer(donate=False)._train_step with rng=None, float32 and
-    float64 (``jax.enable_x64``, the model's compute dtype float64), run
-    from a port state: its weights, running statistics and momentum."""
+    """JAX's Trainer(donate=False)._train_step with rng=None, float32,
+    float64 (``jax.enable_x64``, the model's compute dtype float64) and
+    bfloat16 compute ("bf16", float32 weights), run from a port state: its
+    weights, running statistics and momentum."""
 
     def __init__(self, kind, cfg):
         _, jm_cls, key, momentum, _ = KINDS[kind]
         self.fns = {}
-        for x64 in (False, True):
+        for x64 in (False, True, "bf16"):
             jm = jm_cls(jax_cfg(cfg))
-            if x64:
+            if x64 is True:
                 jm.dtype = jnp.float64
+            elif x64 == "bf16":
+                jm.dtype = jnp.bfloat16
             trainer = jtraining.Trainer(jm, jax_cfg(cfg), key,
                                         momentum=momentum, donate=False)
             self.fns[x64] = (trainer.tx, jax.jit(functools.partial(
@@ -169,8 +174,8 @@ class JaxSteps:
 
     def step(self, state, batch, lr, x64):
         """One JAX step from the port's ``state`` -> (scalars, variables,
-        momentum)."""
-        dtype = np.float64 if x64 else np.float32
+        momentum); ``x64``: True, False or "bf16"."""
+        dtype = np.float64 if x64 is True else np.float32
         sd = {k: v.detach().cpu().numpy().astype(dtype)
               for k, v in state.model.net.state_dict().items()}
         variables = self._variables(sd, dtype)
@@ -178,7 +183,7 @@ class JaxSteps:
         buffers = {n: state.optimizer.state[p]["momentum_buffer"]
                    for n, p in state.model.net.named_parameters()
                    if p in state.optimizer.state}
-        with jax.enable_x64(x64):
+        with jax.enable_x64(x64 is True):
             opt = tx.init(variables["params"])
             if buffers:
                 trace = self._variables(
@@ -322,6 +327,41 @@ def test_train_steps_match_jax(kind):
                                 STEP_ATOL if k == "params" else 0.0), \
                     (step, k, d, gap)
         assert state.step == n
+
+
+@pytest.mark.parametrize("kind", ["refinenet", "segnet"])
+def test_bf16_train_step_within_jax_bf16_gap(kind):
+    """A bfloat16 train step (bfloat16 compute, float32 weights, running
+    statistics and momentum) is no further from JAX's float32 step than
+    JAX's own bfloat16 step is, from the same state: scalars, parameters,
+    running statistics, momentum and the clipped gradients, each distance
+    within GAP_RATIO times JAX's (as the float32 step is held against
+    float64 in test_train_steps_match_jax).  A scalar is one number whose
+    bfloat16 rounding either side may hit or miss: it is held to
+    BF16_SCALAR_ATOL where JAX's own distance is smaller (measured over
+    four batches: the port's distance 0.09-8.4 times JAX's, at most
+    1.9e-3; the tensors' ratios 1.0-1.8)."""
+    m_cls, _, _, momentum, clip = KINDS[kind]
+    cfg = tiny_cfg(gradient_norm_clip=clip, **STEP_CFG)
+    init = m_cls(cfg, "cpu").init(torch.Generator().manual_seed(0))
+    net_state = {k: v.clone() for k, v in init.net.state_dict().items()}
+    batch = step_batches(kind, 1, seed=3)[0]
+    lr = training.learning_rate_schedule(cfg, 2, 0)
+    jx = JaxSteps(kind, cfg)
+    trainer, state = port_state(kind, cfg, net_state, False)
+    state.model.dtype = torch.bfloat16
+    before = snapshot(state)
+    want32 = jx.step(state, batch, lr, False)
+    want16 = jx.step(state, batch, lr, "bf16")
+    got = port_step(trainer, state, batch, lr)
+    d = distances(got, want32, before, cfg.weight_decay, momentum)
+    gap = distances(as_port(want16, before, cfg.weight_decay, momentum),
+                    want32, before, cfg.weight_decay, momentum)
+    assert gap["grads"] > 0 and all(np.isfinite(v) for v in d.values())
+    for k, v in d.items():
+        assert v <= max(GAP_RATIO * gap[k],
+                        BF16_SCALAR_ATOL if k == "scalars" else 0.0), \
+            (k, d, gap)
 
 
 def as_port(jax_out, before, wd, momentum):

@@ -273,10 +273,13 @@ def test_loop_in_memory_batches_and_step_hook(h5):
     assert "D/real" in hooked[0][1] and "L2/raw" not in hooked[0][1]
 
 
-@pytest.mark.parametrize("flag", ["tf_log", "write_error_log", "remat"])
+@pytest.mark.parametrize("flag", [{"spatial_shard": True},
+                                  {"model_axis": 2}],
+                         ids=["spatial_shard", "model_axis"])
 def test_loop_refuses_what_is_not_ported(h5, flag):
+    """Only the multi-device options still raise."""
     with pytest.raises(NotImplementedError):
-        train(loop_opt(h5, "refused", **{flag: True}), device="cpu")
+        train(loop_opt(h5, "refused", **flag), device="cpu")
 
 
 def test_no_fallback_without_a_card(h5, monkeypatch, tmp_path):
