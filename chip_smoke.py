@@ -76,7 +76,21 @@ Phases; any failure raises and the script exits non-zero:
      one small float32 iteration with all of them on, card against CPU;
      7d ``train.loop.train`` for 3 steps with ``--remat`` and
      ``--profile_steps 1`` (162 launches, the trace and ``src.zip``
-     written), its checkpoint scored through ``Tester``.
+     written), its checkpoint scored through ``Tester``;
+  8. serving (after phase 6): the default model at full width, its
+     running statistics calibrated on one seeded batch, exported with
+     ``serving.export_inference`` in bfloat16 and float32; a fresh process
+     whose imports of ``models``, ``refinenet``, ``options`` and JAX are
+     refused loads each artifact and serves batches of 1, 16 and 32 twice
+     (18 K1 launches per call, 18 weight packings on the first call only,
+     the second call bit for bit equal, the weights unchanged); its
+     outputs against ``Pix2Pix.inference`` on the same batches (``fake``
+     within SLICE_TOL, ``fake_255`` within one step); artifact and live
+     timed in turns.  Then SegNet and RefineNet at full width (bfloat16,
+     RefineNet also float32) exported with ``serving.export_refiner`` and
+     served at bs32 against ``eval_step`` (prediction_u8 within one step,
+     class ids equal, no K1 launch), timed in turns.  An artifact more
+     than SERVE_SLOWDOWN times its live model's time fails.
 Nothing of JAX or of the JAX package may have been imported.
 The port keeps float32 in full float32 by itself (its float32 forward and
 plain versions turn TF32 off around their own convolutions); the cuDNN
@@ -252,14 +266,14 @@ def check_close(name, got, want, rtol, atol):
     return float(err.max()), worst
 
 
-def time_turns(fns):
+def time_turns(fns, warmup=WARMUP, repeats=REPEATS):
     """Median ms of each no-argument function, timed in turns with CUDA
     events."""
-    for _ in range(WARMUP):
+    for _ in range(warmup):
         for fn in fns:
             fn()
     times = [[] for _ in fns]
-    for _ in range(REPEATS):
+    for _ in range(repeats):
         for fn, acc in zip(fns, times):
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
@@ -347,7 +361,6 @@ def phase_kernel():
             w_lib = torch.cat([wg, wb]).to(dtype).contiguous(
                 memory_format=torch.channels_last)
             b_lib = torch.cat([bg, bb]).to(dtype)
-            packed = K.PackedWeights()
             with tf32(False):     # the library conv in full float32
                 kms, pms, lms, sms, spms = time_turns([
                     lambda: K.spade_style_cuda(x, actv, style, mean, var,
@@ -355,7 +368,7 @@ def phase_kernel():
                     lambda: K.spade_style_from_actv(x, actv, style, mean,
                                                     var, wg, bg, wb, bb),
                     lambda: F.conv2d(actv_nchw, w_lib, b_lib, padding=1),
-                    lambda: K.spade_style(*args, packed=packed),
+                    lambda: K.spade_style(*args),
                     lambda: K.spade_style_reference(*args)])
             ops_ms, bytes_ms = site_bound(shape, dname)
             bms = max(ops_ms, bytes_ms)
@@ -379,7 +392,7 @@ def phase_kernel():
                                ("bound_ops_ms", ops_ms),
                                ("bound_bytes_ms", bytes_ms)):
                     tot[key] += v
-            del args, got, want, actv, wcat, actv_nchw, packed
+            del args, got, want, actv, wcat, actv_nchw
         tot["bound_by"] = ("operations" if tot.pop("bound_ops_ms")
                            >= tot.pop("bound_bytes_ms") else "bytes")
         log(f"  18 sites at N={SITE_N}, {dname} (sums of per-site medians): "
@@ -468,7 +481,7 @@ def plain_norm_sites():
 
     kernel = normalization.spade_style
     normalization.spade_style = (
-        lambda *args, packed=None: K.spade_style_reference(*args))
+        lambda *args: K.spade_style_reference(*args))
     try:
         yield
     finally:
@@ -847,7 +860,7 @@ def check_packed(dname, model):
         ws = (s.mlp_gamma.weight, s.mlp_gamma.bias, s.mlp_beta.weight,
               s.mlp_beta.bias)
         with torch.no_grad():
-            got = m.packed(*ws, model.dtype)
+            got = K.packed_weights(*ws, model.dtype)
             want = K.pack_weights(*ws, model.dtype)
         if not all(torch.equal(a, b) for a, b in zip(got, want)):
             raise AssertionError(f"{dname}: a norm site kept the packed "
@@ -1703,6 +1716,328 @@ def phase_refinenet():
     return times
 
 
+# ---------------------------------------------------------------- phase 8
+SERVE_BATCHES = (1, 16, 32)
+SERVE_DEVICE = "cuda"
+SERVE_WARMUP, SERVE_REPEATS = 2, 7
+# an artifact this much slower than its live model in the same turns has
+# lost something the live model does (PR 8's float32 RefineNet program,
+# whose dilated convs ran on channels_last input: 5.8 times)
+SERVE_SLOWDOWN = 1.5
+# the refiners: RefineNet and SegNet in bfloat16, RefineNet also in float32
+RN_SERVE_CASES = (("SegNet", "bfloat16"), ("RefineNet", "bfloat16"),
+                  ("RefineNet", "float32"))
+# the modules an artifact must load without
+SERVING_BLOCKED = ("seg2eye_tpu_torch.models", "seg2eye_tpu_torch.refinenet",
+                   "seg2eye_tpu_torch.options", "seg2eye_tpu", "jax", "jaxlib",
+                   "flax")
+# run in a fresh process: load each Seg2Eye artifact with the model modules
+# refused, serve each batch twice (K1 launches and weight packings counted
+# per call, the two calls compared bit for bit, the program's buffers
+# before and after), save the first call's outputs for the parent
+SERVING_CHILD = r"""
+import importlib.abc, json, sys, time
+BLOCKED = tuple(json.loads(sys.argv[1]))
+
+def blocked(name):
+    return any(name == b or name.startswith(b + ".") for b in BLOCKED)
+
+class Refuse(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path=None, target=None):
+        if blocked(name):
+            raise ImportError("refused in the serving process: " + name)
+        return None
+
+sys.meta_path.insert(0, Refuse())
+import numpy as np, torch
+from seg2eye_tpu_torch.ops import spade_style as K
+from seg2eye_tpu_torch.serving import load_serving
+
+batches, device, report = json.loads(sys.argv[2]), sys.argv[4], {}
+for dname, art, out in json.loads(sys.argv[3]):
+    t0 = time.perf_counter()
+    served = load_serving(art, device=device)
+    load_s = time.perf_counter() - t0
+    before = [w.clone() for w in served.weights]
+    outs, calls = {}, []
+    for bs, seed in batches:
+        rng = np.random.default_rng(seed)
+        h, w = served.meta["inputs"]["label"]["shape"][1:]
+        k = served.meta["inputs"]["style_image"]["shape"][1]
+        label = rng.integers(0, 4, (bs, h, w)).astype(np.uint8)
+        style = rng.integers(0, 256, (bs, k, h, w, 1)).astype(np.uint8)
+        results = []
+        for _ in range(2):
+            K.spade_style.launches = K.packed_weights.packings = 0
+            results.append(served(label, style))
+            calls.append([bs, K.spade_style.launches,
+                          K.packed_weights.packings])
+        same = all(torch.equal(a, b) for a, b in zip(*results))
+        calls[-1].append(same)
+        outs[bs] = [t.cpu() for t in results[0]]
+    unchanged = all(torch.equal(a, b) for a, b in zip(served.weights, before))
+    torch.save(outs, out)
+    report[dname] = dict(load_s=load_s, calls=calls, unchanged=unchanged,
+                         refused=sorted(filter(blocked, sys.modules)))
+    del served, before, outs, results
+    torch.cuda.empty_cache()
+print(json.dumps(report))
+"""
+
+
+def calibrate_running_stats(model, batch):
+    """The generator's running statistics set to the batch statistics of
+    one forward on ``batch`` (seeded weights leave them at 0 and 1, which
+    would not normalise the activations of a deep site)."""
+    from seg2eye_tpu_torch.models.normalization import SpadeStyleBlock
+
+    def take(m, args):
+        var, mean = torch.var_mean(args[0].float(), dim=(0, 2, 3),
+                                   correction=0)
+        m.spade.param_free_norm.running_mean.copy_(mean)
+        m.spade.param_free_norm.running_var.copy_(var)
+
+    hooks = [m.register_forward_pre_hook(take)
+             for m in model.netG.modules() if isinstance(m, SpadeStyleBlock)]
+    try:
+        model.opt = model.opt.replace(eval_use_running_stats=False)
+        model.inference(batch)
+    finally:
+        model.opt = model.opt.replace(eval_use_running_stats=True)
+        for h in hooks:
+            h.remove()
+
+
+def serving_batch(opt, bs, seed):
+    rng = np.random.default_rng(seed)
+    h, w = opt.image_height, opt.image_width
+    return (rng.integers(0, 4, (bs, h, w)).astype(np.uint8),
+            rng.integers(0, 256, (bs, opt.input_ns, h, w, 1)).astype(np.uint8))
+
+
+def serve_seg2eye(tmp):
+    """The default model at full width, exported in both dtypes on running
+    statistics, then served from a process that cannot import the model
+    code, and timed against the live model in this one."""
+    import os
+
+    from seg2eye_tpu_torch.models.pix2pix import Pix2Pix
+    from seg2eye_tpu_torch.ops import spade_style as K
+    from seg2eye_tpu_torch.ops.image import to_255resized
+    from seg2eye_tpu_torch.options import Options
+    from seg2eye_tpu_torch.serving import export_inference, load_serving
+    from seg2eye_tpu_torch.utils.weights import init_networks
+
+    opt = Options(isTrain=False, eval_use_running_stats=True).finalize()
+    nets = init_networks(opt, torch.Generator().manual_seed(0), SERVE_DEVICE)
+    calib = Pix2Pix(opt.replace(compute_dtype="float32"), nets, SERVE_DEVICE)
+    label, style = serving_batch(opt, BATCH, seed=40)
+    calibrate_running_stats(calib, {"label": label, "style_image": style})
+    batches = [(bs, 50 + bs) for bs in SERVE_BATCHES]
+    models, jobs, export_s = {}, [], {}
+    for dname in ("bfloat16", "float32"):
+        models[dname] = Pix2Pix(opt.replace(compute_dtype=dname), nets,
+                                SERVE_DEVICE)
+        art = os.path.join(tmp, f"seg2eye_{dname}")
+        t0 = time.perf_counter()
+        export_inference(models[dname], art)
+        export_s[dname] = time.perf_counter() - t0
+        jobs.append((dname, art, os.path.join(tmp, f"served_{dname}.pt")))
+    size = sum(os.path.getsize(os.path.join(jobs[0][1], f))
+               for f in os.listdir(jobs[0][1])) / 2 ** 20
+    log(f"serving: default model (ngf {opt.ngf}, crop {opt.crop_size}, "
+        f"k={opt.input_ns}) on running statistics calibrated on one seeded "
+        f"batch; exported in {export_s['bfloat16']:.1f} s (bfloat16) and "
+        f"{export_s['float32']:.1f} s (float32), {size:.1f} MiB each")
+    root = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-c", SERVING_CHILD, json.dumps(SERVING_BLOCKED),
+         json.dumps(batches), json.dumps(jobs), SERVE_DEVICE], cwd=root,
+        env={**os.environ, "PYTHONPATH": root}, capture_output=True,
+        text=True, timeout=600)
+    if proc.returncode != 0:
+        raise AssertionError(f"the serving process failed:\n"
+                             f"{proc.stderr[-4000:]}")
+    report = json.loads(proc.stdout.strip().splitlines()[-1])
+    log(f"  serving process (model modules refused): "
+        f"{time.perf_counter() - t0:.1f} s, start included")
+    launches = {}
+    for dname, art, out in jobs:
+        rep, model = report[dname], models[dname]
+        served = torch.load(out)
+        fake_tol = SLICE_TOL[dname][0]
+        worst = {}
+        for bs, seed in batches:
+            label, style = serving_batch(opt, bs, seed)
+            fake = model.inference({"label": label, "style_image": style})
+            f255 = to_255resized(fake)
+            got_fake, got_255 = served[bs]
+            worst[bs] = (float((got_fake - fake.cpu()).abs().max()),
+                         float((got_255 - f255.cpu()).abs().max()),
+                         float((fake.abs() < 0.99).float().mean()))
+            if not (got_fake.shape == fake.shape and got_255.shape ==
+                    (bs, 640, 400, 1) and worst[bs][0] <= fake_tol
+                    and worst[bs][1] <= 1):
+                raise AssertionError(
+                    f"serving {dname} bs{bs}: artifact vs live fake "
+                    f"{worst[bs][0]:.3e} (tolerance {fake_tol}), fake_255 "
+                    f"{worst[bs][1]} (tolerance 1)")
+        # every call launches K1 at every site; only the first packs
+        counts = [c[1:3] for c in rep["calls"]]
+        want = [[len(SITES), len(SITES)]] + [[len(SITES), 0]] * (
+            len(counts) - 1)
+        if (counts != want or not all(c[3] for c in rep["calls"][1::2])
+                or not rep["unchanged"] or rep["refused"]):
+            raise AssertionError(f"serving {dname}: per call [batch, K1 "
+                                 f"launches, packings(, bitwise repeat)] "
+                                 f"{rep['calls']}, buffers unchanged "
+                                 f"{rep['unchanged']}, model modules loaded "
+                                 f"{rep['refused']}")
+        log(f"  {dname}: loaded in {rep['load_s']:.2f} s; per call [batch, "
+            f"K1 launches, weight packings] {[c[:3] for c in rep['calls']]}; "
+            "second calls bit for bit equal, buffers unchanged; artifact vs "
+            "live (Pix2Pix.inference, to_255resized), max abs diff fake / "
+            "fake_255 (share of the live fake inside (-0.99, 0.99)): "
+            + ", ".join(f"bs{bs} {a:.3e} / {b:.0f} ({100 * c:.1f}%)"
+                        for bs, (a, b, c) in worst.items())
+            + f" (tolerance {fake_tol} / 1)")
+
+        # the artifact in this process, timed in turns with the live model
+        t0 = time.perf_counter()
+        art_model = load_serving(art, device=SERVE_DEVICE)
+        load_s = time.perf_counter() - t0
+        rows = []
+        for bs, seed in batches:
+            label, style = (torch.from_numpy(a).to(SERVE_DEVICE)
+                            for a in serving_batch(opt, bs, seed))
+            art_model(label, style)
+            K.spade_style.launches = 0
+            art_model(label, style)
+            torch.cuda.synchronize()
+            if bs == BATCH:
+                launches[dname] = K.spade_style.launches
+            a_ms, l_ms = time_turns(
+                [lambda: art_model(label, style),
+                 lambda: model.inference({"label": label,
+                                          "style_image": style})],
+                SERVE_WARMUP, SERVE_REPEATS)
+            if a_ms > SERVE_SLOWDOWN * l_ms:
+                raise AssertionError(f"serving {dname} bs{bs}: artifact "
+                                     f"{a_ms:.2f} ms, live {l_ms:.2f} ms")
+            rows.append(f"bs{bs} {a_ms:.2f} / {l_ms:.2f} ms/batch, "
+                        f"{bs / a_ms * 1e3:.1f} / {bs / l_ms * 1e3:.1f} img/s "
+                        f"({100 * (a_ms / l_ms - 1):+.1f}%)")
+        log(f"  {dname} artifact / live, in turns (CUDA events, median of "
+            f"{SERVE_REPEATS}; artifact loaded here in {load_s:.2f} s): "
+            + "; ".join(rows))
+        del art_model, served
+        torch.cuda.empty_cache()
+    if launches != {d: len(SITES) for d in DTYPES}:
+        raise AssertionError(f"K1 launches per artifact call {launches}")
+    return launches
+
+
+def unclamp_residual(model):
+    """Scale RefineNet's last conv so that its residual, at seeded weights,
+    has a standard deviation of 0.25 on a seeded batch: the prediction,
+    clamp(residual + reference, -1, 1), is then mostly inside (-1, 1), so
+    the artifact's prediction is compared where it is not clamped."""
+    x = rn_batch("RefineNet", model.cfg, 4, seed=2, device=SERVE_DEVICE)
+    with torch.no_grad():
+        scale = 0.25 / float(model.forward({"input": x["input"]})[
+            "residual"].std())
+        for p in model.net.decoder.last_conv[8].parameters():
+            p.mul_(scale)
+
+
+def serve_refiners(tmp):
+    """SegNet and RefineNet at full width (ResNet-101, os16, 640x400)
+    exported on running statistics, reloaded and served at bs32 against
+    eval_step: submission uint8 within 1, SegNet's class ids equal; no K1
+    launch."""
+    import os
+
+    from seg2eye_tpu_torch.ops import spade_style as K
+    from seg2eye_tpu_torch.serving import export_refiner, load_serving
+
+    states = {}
+    for name, dname in RN_SERVE_CASES:
+        if name not in states:
+            model = rn_model(name, rn_config(name), SERVE_DEVICE)
+            trainer = rn_trainer(name, model)
+            states[name] = (trainer, trainer.init_state(
+                torch.Generator().manual_seed(0)))
+            if name == "RefineNet":
+                unclamp_residual(model)
+        trainer, state = states[name]
+        state.model.dtype = DTYPES[dname]            # weights stay float32
+        art = os.path.join(tmp, f"{name}_{dname}")
+        t0 = time.perf_counter()
+        export_refiner(state.model, art)
+        export_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        served = load_serving(art, device=SERVE_DEVICE)
+        load_s = time.perf_counter() - t0
+        batch = rn_batch(name, state.model.cfg, RN_SERVE_BATCH, seed=1,
+                         device=SERVE_DEVICE)
+        x = batch["input"]
+        live = trainer.eval_step(state, {"input": x})["prediction"]
+        K.spade_style.launches = 0
+        got = served(x)
+        torch.cuda.synchronize()
+        if K.spade_style.launches:
+            raise AssertionError(f"{name} artifact launched K1")
+        if name == "SegNet":
+            diff = int((got != live.to(torch.uint8)).sum())
+            ok = got.dtype == torch.uint8 and diff == 0
+            what = f"class ids differing {diff}"
+        else:
+            pred, pred_u8 = got
+            live_u8 = torch.clamp((live + 1.0) * (255.0 / 2.0), 0, 255).to(
+                torch.uint8)[..., 0]
+            d_pred = float((pred - live).abs().max())
+            d_u8 = int((pred_u8.int() - live_u8.int()).abs().max())
+            inside = float((live.abs() < 1).float().mean())
+            ok = d_u8 <= 1 and d_pred <= SLICE_TOL[dname][0] and inside > 0.5
+            what = (f"prediction max abs diff {d_pred:.3e}, prediction_u8 "
+                    f"{d_u8} ({100 * inside:.1f}% of the live prediction "
+                    "inside (-1, 1))")
+        if not ok:
+            raise AssertionError(f"{name} {dname} artifact vs eval_step: "
+                                 f"{what}")
+        a_ms, l_ms = time_turns(
+            [lambda: served(x),
+             lambda: trainer.eval_step(state, {"input": x})],
+            SERVE_WARMUP, SERVE_REPEATS)
+        if a_ms > SERVE_SLOWDOWN * l_ms:
+            raise AssertionError(f"{name} {dname} artifact {a_ms:.2f} ms, "
+                                 f"live {l_ms:.2f} ms")
+        log(f"  {name} {dname} bs{RN_SERVE_BATCH}: export {export_s:.1f} s, "
+            f"load {load_s:.2f} s; artifact vs eval_step: {what}; artifact "
+            f"{a_ms:.2f} ms/batch ({RN_SERVE_BATCH / a_ms * 1e3:.1f} img/s), "
+            f"live {l_ms:.2f} ({RN_SERVE_BATCH / l_ms * 1e3:.1f} img/s), "
+            f"{100 * (a_ms / l_ms - 1):+.1f}% (CUDA events, median of "
+            f"{SERVE_REPEATS}, in turns)")
+        del served
+        torch.cuda.empty_cache()
+
+
+def phase_serving():
+    """8: the serving artifacts (``seg2eye_tpu_torch.serving``)."""
+    import tempfile
+
+    t_phase = time.perf_counter()
+    flags = tf32_flags()
+    with tempfile.TemporaryDirectory() as tmp:
+        launches = serve_seg2eye(tmp)
+        serve_refiners(tmp)
+    if tf32_flags() != flags:
+        raise AssertionError(f"phase 8 left the TF32 flags at {tf32_flags()}")
+    log(f"serving: phase 8 in {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
 def main():
     kind = phase_device()
     phase_build()
@@ -1711,6 +2046,7 @@ def main():
     train_launches = phase_train()
     options = phase_options()
     phase_refinenet()
+    serving_launches = phase_serving()
     foreign = sorted(m for m in sys.modules if m.split(".")[0] in
                      ("jax", "jaxlib", "flax", "seg2eye_tpu"))
     if foreign:
@@ -1721,7 +2057,8 @@ def main():
     log("kernel summary, one entry per kernel: launches in one forward of "
         "the slice in that dtype, train_launches in one training iteration "
         "in that dtype, remat_train_launches in one --remat iteration (crop "
-        f"512); max_abs_err over the crop-256 and odd "
+        f"512), serving_launches in one call of that dtype's serving "
+        f"artifact (bs{BATCH}); max_abs_err over the crop-256 and odd "
         f"site checks; ms, plain_ms, library_ms and bound_ms summed over the "
         f"18 sites at N={SITE_N}")
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
@@ -1732,6 +2069,7 @@ def main():
          "replaces": K.REPLACES, "launches": launches[d],
          "train_launches": train_launches[d],
          "remat_train_launches": options["7b"][d][0],
+         "serving_launches": serving_launches[d],
          **{k: summary[d][k] for k in keys}}
         for d in ("bfloat16", "float32")]}))
     print(json.dumps({"ok": True, "device": {

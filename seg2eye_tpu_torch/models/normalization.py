@@ -22,8 +22,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from seg2eye_tpu_torch.models.layers import FCStyle, SpectralConv, at_least_f32
-from seg2eye_tpu_torch.ops.spade_style import (NHIDDEN, PackedWeights,
-                                               spade_style)
+from seg2eye_tpu_torch.ops.spade_style import NHIDDEN, spade_style
 
 
 def parse_norm_g(norm_g: str) -> Tuple[bool, str, int]:
@@ -67,7 +66,6 @@ class SpadeStyleBlock(nn.Module):
         self.param_free = param_free
         self.spade = _SPADE(param_free, norm_nc, label_nc)
         self.adain = FCStyle(w_dim, 2 * norm_nc, gain=1.0)
-        self.packed = PackedWeights()      # the kernel's weight layout
 
     def forward(self, x: torch.Tensor, seg: torch.Tensor, w: torch.Tensor,
                 use_running_average: bool = False,
@@ -94,7 +92,7 @@ class SpadeStyleBlock(nn.Module):
             mean_nc, var_nc,
             s.mlp_shared[0].weight, s.mlp_shared[0].bias,
             s.mlp_gamma.weight, s.mlp_gamma.bias,
-            s.mlp_beta.weight, s.mlp_beta.bias, packed=self.packed)
+            s.mlp_beta.weight, s.mlp_beta.bias)
         return out.permute(0, 3, 1, 2)
 
     @torch.no_grad()

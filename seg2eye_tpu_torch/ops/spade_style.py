@@ -8,12 +8,17 @@ Per norm site (reference normalization.py:172-192):
     beta  = conv3x3(actv, wb) + bb               #       } never in HBM
     out   = (normalize(x) * (1 + gamma) + beta + x * (s0 + 1) + s1) / 2
 
-``spade_style`` is the entry point.  A CPU tensor takes the plain version,
-``spade_style_reference``; a CUDA tensor takes its dtype's tensor-core
-kernel (``csrc/spade_style_sm90.cu``: wgmma with TMA loads) or raises:
-bfloat16 in one pass, float32 in three TF32 passes (3xTF32: each operand
-split into a TF32 hi and lo, hi*hi + hi*lo + lo*hi summed in float32),
-which keeps float32's accuracy; one TF32 pass would not.
+``spade_style`` is the entry point.  It calls the ``seg2eye::spade_style``
+op (``torch.library``), which ``torch.export`` keeps as one node of an
+exported program, and whose registrations choose by device: a CPU tensor
+takes the plain version, ``spade_style_reference``; a CUDA tensor takes
+its dtype's tensor-core kernel (``csrc/spade_style_sm90.cu``: wgmma with
+TMA loads) or raises: bfloat16 in one pass, float32 in three TF32 passes
+(3xTF32: each operand split into a TF32 hi and lo, hi*hi + hi*lo + lo*hi
+summed in float32), which keeps float32's accuracy; one TF32 pass would
+not.  The CUDA registration packs the weights into the kernel's layout
+through one cache, ``packed_weights``, which sees the real tensors behind
+the op boundary and packs again only when a weight changes.
 ``spade_style_from_actv`` is the plain version of exactly what the kernels
 compute, from ``actv`` on.  Its float32 convolutions run in full float32
 whatever the process's TF32 flags (``full_float32``).  The backward of
@@ -26,6 +31,8 @@ holding [s0|s1], mean/var (N,C) float32.  Weights are torch's OIHW:
 ws (128,S,3,3), wg/wb (C,128,3,3), biases (128,) and (C,).
 """
 from __future__ import annotations
+
+import weakref
 
 import torch
 import torch.nn.functional as F
@@ -147,26 +154,42 @@ def packed_shape(c: int, dtype: torch.dtype) -> tuple:
 
 
 class PackedWeights:
-    """``pack_weights`` of one norm site, kept from one forward to the next
-    and made anew, per dtype, once a weight is replaced or changed in place
-    (its storage or ``_version`` moves).  The cache holds detached views of
-    the weights it packed, so their storage cannot be reused unseen.  An
-    in-place update that leaves ``_version`` alone (``torch.optim.Adam(
-    fused=True)`` does) is not seen, so the port's optimizers are never
-    fused (``train.state``)."""
+    """``pack_weights`` of each weight set the kernels ran on, kept from one
+    call to the next and made anew, per dtype, once a weight is replaced or
+    changed in place (its storage or ``_version`` moves).
+
+    The kernels run inside the ``seg2eye::spade_style`` op, which sees
+    tensors and not the norm site they belong to, so one cache,
+    ``packed_weights``, serves every site: an entry is found by the
+    identity of the four weight tensors and holds them weakly, and it goes
+    when any of them is freed.  An in-place update that leaves
+    ``_version`` alone (``torch.optim.Adam(fused=True)`` does) is not
+    seen, so the port's optimizers are never fused (``train.state``).
+    ``packings`` counts the packings made."""
 
     def __init__(self):
         self._cache = {}
+        self.packings = 0
 
     def __call__(self, wg, bg, wb, bb, dtype: torch.dtype):
         weights = (wg, bg, wb, bb)
-        key = tuple((t.data_ptr(), t._version) for t in weights)
-        hit = self._cache.get(dtype)
-        if hit is None or hit[0] != key:
-            hit = (key, [t.detach() for t in weights],
-                   pack_weights(*weights, dtype))
-            self._cache[dtype] = hit
-        return hit[2]
+        key = (tuple(map(id, weights)), dtype)
+        stamp = tuple((t.data_ptr(), t._version) for t in weights)
+        hit = self._cache.get(key)
+        if hit is not None and hit[0] == stamp and all(
+                ref() is t for ref, t in zip(hit[1], weights)):
+            return hit[2]
+        if hit is None:
+            for t in weights:
+                weakref.finalize(t, self._cache.pop, key, None)
+        packed = pack_weights(*weights, dtype)
+        self._cache[key] = (stamp, tuple(map(weakref.ref, weights)), packed)
+        self.packings += 1
+        return packed
+
+
+# the packings of every weight set the CUDA kernels ran on
+packed_weights = PackedWeights()
 
 
 def spade_style_cuda(x, actv, style, mean, var, wcat, bcat,
@@ -214,48 +237,68 @@ def spade_style_cuda(x, actv, style, mean, var, wcat, bcat,
     return out
 
 
-class _SpadeStyle(torch.autograd.Function):
-    """Kernel (CUDA) or plain version (CPU) forward; the backward is the
-    autograd of ``spade_style_reference``, recomputed (float32 in full
-    float32)."""
+SCHEMA = ("(Tensor x, Tensor seg, Tensor style, Tensor mean, Tensor var, "
+          "Tensor ws, Tensor bs, Tensor wg, Tensor bg, Tensor wb, Tensor bb, "
+          "float eps) -> Tensor")
 
-    @staticmethod
-    def forward(ctx, x, seg, style, mean, var, ws, bs, wg, bg, wb, bb, eps,
-                packed):
-        ctx.save_for_backward(x, seg, style, mean, var, ws, bs, wg, bg, wb, bb)
-        ctx.eps = eps
-        if x.device.type == "cpu":
-            return spade_style_reference(x, seg, style, mean, var,
-                                         ws, bs, wg, bg, wb, bb, eps)
-        actv = seg_mlp_shared(seg.to(x.dtype), ws, bs).contiguous()
-        wcat, bcat = (packed or pack_weights)(wg, bg, wb, bb, x.dtype)
-        return spade_style_cuda(x.contiguous(), actv, style, mean, var,
-                                wcat, bcat, eps)
 
-    @staticmethod
-    def backward(ctx, grad_out):
-        inputs = [t.detach().requires_grad_(need) for t, need in
-                  zip(ctx.saved_tensors, ctx.needs_input_grad)]
-        wanted = [t for t in inputs if t.requires_grad]
-        with torch.enable_grad(), full_float32(
-                grad_out.dtype == torch.float32), \
-                torch.profiler.record_function(BACKWARD_RANGE):
-            out = spade_style_reference(*inputs, eps=ctx.eps)
-            grads = iter(torch.autograd.grad(out, wanted, grad_out))
-        return tuple(next(grads) if t.requires_grad else None
-                     for t in inputs) + (None, None)
+def _plain(x, seg, style, mean, var, ws, bs, wg, bg, wb, bb, eps):
+    return spade_style_reference(x, seg, style, mean, var, ws, bs, wg, bg,
+                                 wb, bb, eps).contiguous()
+
+
+# the op: the plain version for CPU tensors, the kernels for CUDA ones
+spade_style_op = torch.library.custom_op(
+    "seg2eye::spade_style", _plain, mutates_args=(), device_types="cpu",
+    schema=SCHEMA)
+
+
+@spade_style_op.register_kernel("cuda")
+def _kernel(x, seg, style, mean, var, ws, bs, wg, bg, wb, bb, eps):
+    actv = seg_mlp_shared(seg.to(x.dtype), ws, bs).contiguous()
+    wcat, bcat = packed_weights(wg, bg, wb, bb, x.dtype)
+    return spade_style_cuda(x.contiguous(), actv, style, mean, var,
+                            wcat, bcat, eps)
+
+
+@spade_style_op.register_fake
+def _fake(x, seg, style, mean, var, ws, bs, wg, bg, wb, bb, eps):
+    return torch.empty_like(x, memory_format=torch.contiguous_format)
+
+
+def _setup_context(ctx, inputs, output):
+    ctx.save_for_backward(*inputs[:-1])
+    ctx.eps = inputs[-1]
+
+
+def _backward(ctx, grad_out):
+    """The autograd of ``spade_style_reference``, recomputed from the
+    inputs (float32 in full float32)."""
+    inputs = [t.detach().requires_grad_(need) for t, need in
+              zip(ctx.saved_tensors, ctx.needs_input_grad)]
+    wanted = [t for t in inputs if t.requires_grad]
+    with torch.enable_grad(), full_float32(
+            grad_out.dtype == torch.float32), \
+            torch.profiler.record_function(BACKWARD_RANGE):
+        out = spade_style_reference(*inputs, eps=ctx.eps)
+        grads = iter(torch.autograd.grad(out, wanted, grad_out))
+    return tuple(next(grads) if t.requires_grad else None
+                 for t in inputs) + (None,)
+
+
+spade_style_op.register_autograd(_backward, setup_context=_setup_context)
 
 
 def spade_style(x, seg, style, mean, var, ws, bs, wg, bg, wb, bb,
-                eps: float = EPS,
-                packed: PackedWeights | None = None) -> torch.Tensor:
-    """One SPADE+Style norm site.  CPU tensors take the plain version;
-    CUDA tensors take their dtype's kernel, and every launch of either
-    kernel counts in ``spade_style.launches``; any other device raises.
-    ``packed`` keeps the kernel's weight layout between calls (one per
-    site); without it the weights are packed on every call."""
-    return _SpadeStyle.apply(x, seg, style, mean, var,
-                             ws, bs, wg, bg, wb, bb, eps, packed)
+                eps: float = EPS) -> torch.Tensor:
+    """One SPADE+Style norm site, through the ``seg2eye::spade_style`` op,
+    which ``torch.export`` keeps as one node.  Its registrations choose by
+    device: CPU tensors take the plain version, CUDA tensors their dtype's
+    kernel (every launch counts in ``spade_style.launches``, every packing
+    of the weights in ``packed_weights.packings``); any other device
+    raises.  The backward recomputes through the plain version."""
+    return spade_style_op(x, seg, style, mean, var, ws, bs, wg, bg, wb, bb,
+                          eps)
 
 
 spade_style.launches = 0

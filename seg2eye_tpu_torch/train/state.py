@@ -14,7 +14,7 @@
   * Adam keeps PyTorch's default implementation (foreach on CUDA), never
     the fused one: a fused step changes the weights in place without
     moving their ``_version``, on which the kernel's packed copies of G's
-    norm-site weights are keyed (``ops.spade_style.PackedWeights``).
+    norm-site weights are keyed (``ops.spade_style.packed_weights``).
 """
 from __future__ import annotations
 

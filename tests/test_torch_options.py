@@ -237,17 +237,19 @@ def test_eval_per_sample_encode_matches_jax_and_keeps_state(norm_e):
 
 # ------------------------------------------------------------------ remat
 def count_kernel_forwards(monkeypatch):
-    """Counts the forwards of the norm sites' autograd Function (on the CPU
-    the plain version; on the card, where each forward launches the
+    """Counts the norm sites' calls of the ``seg2eye::spade_style`` op (on
+    the CPU the plain version; on the card, where each call launches the
     kernel, ``spade_style.launches`` counts the same)."""
+    from seg2eye_tpu_torch.models import normalization
+
     calls = [0]
-    forward = K._SpadeStyle.forward
+    forward = normalization.spade_style
 
-    def counting(ctx, *args):
+    def counting(*args, **kwargs):
         calls[0] += 1
-        return forward(ctx, *args)
+        return forward(*args, **kwargs)
 
-    monkeypatch.setattr(K._SpadeStyle, "forward", staticmethod(counting))
+    monkeypatch.setattr(normalization, "spade_style", counting)
     return calls
 
 

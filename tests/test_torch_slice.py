@@ -358,7 +358,8 @@ def test_port_source_never_imports_jax_package(tmp_path):
               os.path.join(REPO, "tools", "profile_torch_refinenet.py"),
               os.path.join(REPO, "tools", "tf32_flush_study.py"),
               os.path.join(REPO, "tools", "time_torch_slice.py"),
-              os.path.join(REPO, "tools", "time_torch_options.py")]
+              os.path.join(REPO, "tools", "time_torch_options.py"),
+              os.path.join(REPO, "tools", "bench_torch_serving.py")]
     assert len(files) >= 20
     bad = {os.path.relpath(f, REPO): imports_of_jax_package(f) for f in files}
     assert not {f: v for f, v in bad.items() if v}

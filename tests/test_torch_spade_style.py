@@ -267,6 +267,22 @@ def test_packed_weights_follow_the_weights():
                                bg, rtol=0, atol=0)
 
 
+def test_packed_weights_drop_freed_weights():
+    """An entry of the shared cache goes with its weights: once one of them
+    is freed, nothing of it is kept (the packing included)."""
+    import gc
+    import weakref
+
+    *_, wg, bg, wb, bb = to_torch(make_inputs(n=1, h=4, w=4, c=8))
+    packed = K.PackedWeights()
+    wcat = weakref.ref(packed(wg, bg, wb, bb, torch.float32)[0])
+    packed(wg, bg, wb, bb, torch.bfloat16)
+    assert len(packed._cache) == 2 and packed.packings == 2
+    del wb
+    gc.collect()
+    assert not packed._cache and wcat() is None
+
+
 def test_build_is_keyed_on_sources(tmp_path, monkeypatch):
     """An edited source gets a new build directory; the real sources and
     the Hopper target are what gets built."""

@@ -684,8 +684,9 @@ def test_fc_var_untouched_under_weight_decay():
 
 @pytest.mark.parametrize("impl", ["for-loop", "foreach", "fused"])
 def test_packed_weights_after_adam_step(impl):
-    """The kernel's packed-weight cache is keyed on each weight's storage
-    and ``_version``.  Adam's for-loop and foreach steps move the key, so
+    """The kernel's packed-weight cache (``ops.spade_style.packed_weights``,
+    behind the op boundary) is keyed on each weight's storage and
+    ``_version``.  Adam's for-loop and foreach steps move the key, so
     the next call packs the new weights; the fused step changes the weights
     in place WITHOUT moving ``_version``, so the cache would keep the old
     ones: the port's optimizers are never fused."""
@@ -694,22 +695,22 @@ def test_packed_weights_after_adam_step(impl):
     s = block.spade
     ws = (s.mlp_gamma.weight, s.mlp_gamma.bias, s.mlp_beta.weight,
           s.mlp_beta.bias)
-    first = block.packed(*ws, torch.float32)
-    assert block.packed(*ws, torch.float32)[0] is first[0]     # cached
+    first = K.packed_weights(*ws, torch.float32)
+    assert K.packed_weights(*ws, torch.float32)[0] is first[0]     # cached
     kw = {"for-loop": dict(foreach=False), "foreach": dict(foreach=True),
           "fused": dict(fused=True)}[impl]
     adam = torch.optim.Adam(ws, lr=1e-2, betas=(0.0, 0.9), **kw)
     for w in ws:
         w.grad = torch.ones_like(w)
     adam.step()
-    stale = block.packed(*ws, torch.float32)[0] is first[0]
+    stale = K.packed_weights(*ws, torch.float32)[0] is first[0]
     assert stale == (impl == "fused")
     if impl == "fused":
         state = state_lib.create_state(port_model(tiny_opt()))
         assert not any(o.defaults["fused"] for o in (state.opt_g,
                                                      state.opt_d))
         return
-    again = block.packed(*ws, torch.float32)
+    again = K.packed_weights(*ws, torch.float32)
     want = K.pack_weights(*ws, torch.float32)
     assert torch.equal(again[0], want[0]) and torch.equal(again[1], want[1])
     assert not torch.equal(again[0], first[0])
@@ -728,10 +729,10 @@ def test_training_step_drops_packed_weights():
         return (s.mlp_gamma.weight, s.mlp_gamma.bias, s.mlp_beta.weight,
                 s.mlp_beta.bias)
 
-    before = [b.packed(*weights(b), torch.float32) for b in blocks]
+    before = [K.packed_weights(*weights(b), torch.float32) for b in blocks]
     steps.g_step(state_lib.create_state(model), make_batch(model.opt))
     for b, old in zip(blocks, before):
-        new = b.packed(*weights(b), torch.float32)
+        new = K.packed_weights(*weights(b), torch.float32)
         want = K.pack_weights(*weights(b), torch.float32)
         assert new[0] is not old[0]
         assert torch.equal(new[0], want[0]) and torch.equal(new[1], want[1])
