@@ -47,18 +47,21 @@ Phases; any failure raises and the script exits non-zero:
      into a temporary checkpoints_dir (108 launches, ``src.zip``
      written), and its ``latest`` G and E strict-load and score a batch
      through ``Tester``;
-  6. refinenet: the RefineNet system at full width (ResNet-101
-     DeepLabV3+, os16, 640x400, seeded weights, seeded uint8 batches in
-     memory; the optimizer settings of refinenet/configs/*.json).  SegNet
-     and RefineNet must count 59,339,940 and 59,339,169 parameters; each
-     serves batches of 32 through ``Trainer.eval_step`` (masks in 0..3;
-     predictions in [-1, 1] and a finite score) and takes 3 train steps at
-     batch 8, in bfloat16 and float32 (finite losses, every parameter with
-     a nonzero gradient and every running statistic moved), each timed
-     beside its FLOP bound.  Card against CPU: single ops of the DeepLab
-     path on channels_last input, then one eval forward and one train step
-     of SegNet, RefineNet and a MobileNet RefineNet at ResNet-14 and
-     64x40, from identical states, in float32 and float64.  Last,
+  6. refinenet: the RefineNet system at full width (DeepLabV3+ with the
+     ResNet-101, Xception and DRN-D-54 backbones, os16 (DRN: 8), 640x400,
+     seeded weights, seeded uint8 batches in memory; the optimizer
+     settings of refinenet/configs/*.json).  SegNet and RefineNet must
+     count RN_PARAMS parameters; each serves batches of 32 through
+     ``Trainer.eval_step`` (masks in 0..3; predictions in [-1, 1] and a
+     finite score) and takes 3 train steps at batch 8, in bfloat16 and
+     (ResNet both models, SegNet-DRN and RefineNet-Xception) float32
+     (finite losses, every parameter with a nonzero gradient and every
+     running statistic moved), each timed beside its FLOP bound.  Card
+     against CPU: single ops of the DeepLab path on channels_last input,
+     then one eval forward and one train step of SegNet, RefineNet and a
+     MobileNet RefineNet at ResNet-14, SegNet-DRN and RefineNet-Xception
+     at full depth, all at 64x40, from identical states, in float32 and
+     float64.  Last,
      ``main_loop`` trains RefineNet 3 steps into a temporary directory and
      its last checkpoint reloads to bit-identical eval outputs.  No
      SPADE+Style kernel launches in this phase;
@@ -86,11 +89,13 @@ Phases; any failure raises and the script exits non-zero:
      the second call bit for bit equal, the weights unchanged); its
      outputs against ``Pix2Pix.inference`` on the same batches (``fake``
      within SLICE_TOL, ``fake_255`` within one step); artifact and live
-     timed in turns.  Then SegNet and RefineNet at full width (bfloat16,
-     RefineNet also float32) exported with ``serving.export_refiner`` and
-     served at bs32 against ``eval_step`` (prediction_u8 within one step,
-     class ids equal, no K1 launch), timed in turns.  An artifact more
-     than SERVE_SLOWDOWN times its live model's time fails.
+     timed in turns.  Then SegNet and RefineNet at full width (ResNet-101
+     in bfloat16, RefineNet also float32; RefineNet with the Xception and
+     DRN backbones in both dtypes) exported with ``serving.export_refiner``
+     and served at bs32 against ``eval_step`` (every output bitwise equal,
+     no K1 launch), timed in turns, then again from a process that cannot
+     import the model code (bitwise equal again).  An artifact more than
+     SERVE_SLOWDOWN times its live model's time fails.
 Nothing of JAX or of the JAX package may have been imported.
 The port keeps float32 in full float32 by itself (its float32 forward and
 plain versions turn TF32 off around their own convolutions); the cuDNN
@@ -100,6 +105,7 @@ result, each one JSON object.
 """
 import contextlib
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -1310,7 +1316,16 @@ RN_SERVE_BATCH, RN_TRAIN_STEPS, RN_SERVE_REPEATS = 32, 3, 5
 RN_DEVICE = "cuda"
 RN_CONFIGS = {"SegNet": "refinenet/configs/segnet.json",
               "RefineNet": "refinenet/configs/refinenet.json"}
-RN_PARAMS = {"SegNet": 59_339_940, "RefineNet": 59_339_169}
+# (model, backbone): parameters (tests/test_refinenet.py's counts; SegNet
+# has 771 more, its 4-class head); dtypes of the full-width rows
+RN_PARAMS = {("SegNet", "resnet"): 59_339_940,
+             ("RefineNet", "resnet"): 59_339_169,
+             ("SegNet", "xception"): 54_700_948,
+             ("RefineNet", "xception"): 54_700_177,
+             ("SegNet", "drn"): 40_732_692,
+             ("RefineNet", "drn"): 40_731_921}
+RN_ROW_DTYPES = {("SegNet", "xception"): ("bfloat16",),
+                 ("RefineNet", "drn"): ("bfloat16",)}
 # card against CPU, one eval forward and one train step of a tiny config
 # (ResNet-14, 64x40) from identical states, in float32 (the card's cuDNN in
 # full float32) and in float64.  Distances: outputs and losses relative to
@@ -1319,11 +1334,10 @@ RN_PARAMS = {"SegNet": 59_339_940, "RefineNet": 59_339_169}
 # BNs over few values amplify round-off into the gradients: float32 CPU
 # runs are 2e-5 to 5e-3 from a float64 run of the same step (measured), so
 # float32 gradients are held at 5e-2, which a wrong kernel (PR 4's
-# avg_pool2d backward: 105%) misses by far; float64 (where only the pool's
-# mean and the loss head stay float32, on both sides) holds them to 1e-4
-# (measured 4e-7 to 2e-6 on an H100).  Batch 4,
-# not 2: at batch 2 the ASPP global pool's BN normalises over two values
-# per channel.  The BN affine parameters start from a seeded perturbation
+# avg_pool2d backward: 105%) misses by far; float64 (where only the loss
+# head stays float32, on both sides) holds them to 1e-4 (measured 1.6e-13
+# to 2.0e-7 on an H100).  Batch 4, not 2: at batch 2 the ASPP global
+# pool's BN normalises over two values per channel.  The BN affine parameters start from a seeded perturbation
 # of the init: at the init itself a MobileNet block's fixed padding passes
 # through the expand conv and a BN whose input has zero mean (the previous
 # block's BN output), so the padded border comes out of that BN as 0 up to
@@ -1332,6 +1346,16 @@ RN_PARAMS = {"SegNet": 59_339_940, "RefineNet": 59_339_169}
 # layout, in float64, 14-38% apart in those BNs' bias gradients.
 RN_CARD_CPU = dict(resnet_depth=14, input_height=64, input_width=40,
                    batch_size=4, test_batch_size=4)
+# Xception and DRN run at full depth there: their float32 round-off,
+# through about 130 and 60 train-mode BNs over 48-160 values a channel,
+# reaches the gradients 10 times further than ResNet-14's (SegNet-DRN:
+# 1.2e-1 on the card and on the CPU), so their float32 distances are held
+# within RN_GAP_RATIO times the CPU's own float32-vs-float64 distance where
+# that is above RN_CARD_CPU_TOL (as the CPU tests hold the port against
+# JAX), and float64 to RN_CARD_CPU_TOL (measured 1.4e-8 to 3.8e-8 in the
+# gradients on an H100).
+RN_FULL_DEPTH = ("xception", "drn")
+RN_GAP_RATIO = 2.0
 RN_NET_FLOOR = 1e-2
 RN_CARD_CPU_TOL = {
     "float32": {"outputs": 1e-4, "losses": 1e-4, "statistics": 1e-4,
@@ -1374,10 +1398,25 @@ def rn_batch(name, cfg, b, seed=0, device=None):
     return {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
 
 
+def conv_backward_flops(grad_out_shape, x_shape, w_shape, _bias, _stride,
+                        _padding, _dilation, transposed, _output_padding,
+                        _groups, output_mask, out_shape=None, **kwargs):
+    """A (non-transposed) conv's backward: each of the input and weight
+    gradients costs its forward's 2 N C_out H_out W_out (C_in / groups)
+    kh kw.  torch.utils.flop_counter's own formula leaves out the groups,
+    which counts a depthwise conv's backward as a dense one (66 times its
+    forward at 64 channels)."""
+    if transposed:
+        raise NotImplementedError("transposed conv")
+    fwd = 2 * math.prod(grad_out_shape) * math.prod(w_shape[1:])
+    return fwd * (int(output_mask[0]) + int(output_mask[1]))
+
+
 def rn_flops(name, model):
     """(forward FLOPs of one image in eval, of one image's training step:
     forward and backward) at the model's input size, counted by
-    torch.utils.flop_counter (convolutions; the rest is noise)."""
+    torch.utils.flop_counter (convolutions, their backward as
+    ``conv_backward_flops``; the rest is noise)."""
     from torch.utils.flop_counter import FlopCounterMode
 
     cfg = model.cfg
@@ -1385,7 +1424,8 @@ def rn_flops(name, model):
         model.forward(rn_batch(name, cfg, 1), train=False)
     fwd = fc.get_total_flops()
     state = {k: v.clone() for k, v in model.net.state_dict().items()}
-    with FlopCounterMode(display=False) as fc:
+    mapping = {torch.ops.aten.convolution_backward: conv_backward_flops}
+    with FlopCounterMode(display=False, custom_mapping=mapping) as fc:
         out = model.forward(rn_batch(name, cfg, 2), train=True)
         out["ce_loss" if name == "SegNet" else "eds_loss"].backward()
     model.net.load_state_dict(state)
@@ -1413,14 +1453,16 @@ def rn_serve(name, trainer, state, dname, flops):
     if name == "SegNet":
         if pred.shape != (RN_SERVE_BATCH, cfg.input_height, cfg.input_width) \
                 or int(pred.min()) < 0 or int(pred.max()) > 3:
-            raise AssertionError(f"SegNet {dname}: predictions {pred.shape}, "
+            raise AssertionError(f"SegNet ({cfg.backbone}) {dname}: "
+                                 f"predictions {pred.shape}, "
                                  f"range {int(pred.min())}..{int(pred.max())}")
         extra = f"classes {torch.bincount(pred.flatten().long(), minlength=4).tolist()}"
     else:
         score = float(out["score"])
         if not (torch.isfinite(pred).all() and float(pred.abs().max()) <= 1.0
                 and np.isfinite(score)):
-            raise AssertionError(f"RefineNet {dname}: prediction or score "
+            raise AssertionError(f"RefineNet ({cfg.backbone}) {dname}: "
+                                 "prediction or score "
                                  "not finite and in [-1, 1]")
         extra = f"score {score:.2f}"
     torch.cuda.synchronize()
@@ -1433,7 +1475,8 @@ def rn_serve(name, trainer, state, dname, flops):
         times.append((time.perf_counter() - t0) * 1e3)
     ms = statistics.median(times)
     bound = rn_bound_ms(flops * RN_SERVE_BATCH, dname)
-    log(f"  serve {name} {dname} bs{RN_SERVE_BATCH}: {ms:.2f} ms/batch, "
+    log(f"  serve {name} ({cfg.backbone}) {dname} bs{RN_SERVE_BATCH}: "
+        f"{ms:.2f} ms/batch, "
         f"{RN_SERVE_BATCH / ms * 1e3:.2f} img/s, peak "
         f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB; bound "
         f"{bound:.2f} ms ({flops * RN_SERVE_BATCH / 1e12:.3f} TFLOP), "
@@ -1472,18 +1515,21 @@ def rn_train(name, trainer, state, dname, flops):
                     if p.grad is not None and bool(p.grad.any())}
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     if not all(np.isfinite(v) for d in losses for v in d.values()):
-        raise AssertionError(f"{name} {dname}: non-finite losses {losses}")
+        raise AssertionError(f"{name} ({cfg.backbone}) {dname}: non-finite "
+                             f"losses {losses}")
     after = net.state_dict()
     params = dict(net.named_parameters())
     stuck = [k for k in after if "num_batches" not in k
              and (k in nonzero or k not in params)
              and torch.equal(after[k], before[k])]
     if stuck:
-        raise AssertionError(f"{name} {dname}: did not move: {stuck[:5]}")
+        raise AssertionError(f"{name} ({cfg.backbone}) {dname}: did not "
+                             f"move: {stuck[:5]}")
     ms = statistics.median(times)
     bound = rn_bound_ms(flops * cfg.batch_size, dname)
     key = "ce_loss" if name == "SegNet" else "eds_loss"
-    log(f"  train {name} {dname} bs{cfg.batch_size} (momentum "
+    log(f"  train {name} ({cfg.backbone}) {dname} bs{cfg.batch_size} "
+        "(momentum "
         f"{trainer.momentum}, clip {cfg.gradient_norm_clip}, lr {lr:g}): "
         f"{ms:.2f} ms/step, {cfg.batch_size / ms * 1e3:.2f} img/s, peak "
         f"{peak:.2f} GiB; bound {bound:.2f} ms "
@@ -1596,27 +1642,39 @@ def rn_distances(run, ref):
 
 
 def rn_card_vs_cpu():
-    """One eval forward and one train step of SegNet, RefineNet and a
-    MobileNet RefineNet at the tiny config, from identical states on the
-    card and on the CPU, in float32 and again in float64: outputs, losses,
-    gradients, the parameter update, momentum and running statistics
-    within RN_CARD_CPU_TOL."""
+    """One eval forward and one train step of SegNet, RefineNet, a
+    MobileNet RefineNet (ResNet-14 otherwise), SegNet-DRN and
+    RefineNet-Xception (full depth) at the tiny config, from identical
+    states on the card and on the CPU, in float32 and again in float64:
+    outputs, losses, gradients, the parameter update, momentum and running
+    statistics within RN_CARD_CPU_TOL (RN_FULL_DEPTH: see there)."""
     rn_op_checks()
     cases = (("SegNet", "resnet"), ("RefineNet", "resnet"),
-             ("RefineNet", "mobilenet"))
+             ("RefineNet", "mobilenet"), ("SegNet", "drn"),
+             ("RefineNet", "xception"))
     for name, backbone in cases:
         cfg = rn_config(name, compute_dtype="float32", backbone=backbone,
                         **RN_CARD_CPU)
         batch = rn_batch(name, cfg, cfg.batch_size, seed=6, device="cpu")
         worst = 0.0
+        cpu = {x64: rn_run(name, cfg, "cpu", batch, x64)
+               for x64 in (False, True)}
         for dname, x64 in (("float32", False), ("float64", True)):
             d = rn_distances(rn_run(name, cfg, RN_DEVICE, batch, x64),
-                             rn_run(name, cfg, "cpu", batch, x64))
+                             cpu[x64])
             tol = RN_CARD_CPU_TOL[dname]
+            own = ""
+            if backbone in RN_FULL_DEPTH and not x64:
+                gap = rn_distances(cpu[False], cpu[True])
+                tol = {k: max(v, RN_GAP_RATIO * gap[k])
+                       for k, v in tol.items()}
+                own = "; the CPU's own float32 against its float64: " + \
+                    ", ".join(f"{k} {v:.2e}" for k, v in gap.items())
             worst = max(worst, *(v / tol[k] for k, v in d.items()))
             log(f"  card vs CPU, {name} ({backbone}), {dname}, batch "
                 f"{cfg.batch_size} at {cfg.input_height}x{cfg.input_width}: "
-                + ", ".join(f"{k} {v:.2e} ({tol[k]:g})" for k, v in d.items()))
+                + ", ".join(f"{k} {v:.2e} ({tol[k]:.3g})"
+                            for k, v in d.items()) + own)
         if worst > 1.0:
             raise AssertionError(f"card and CPU disagree: {name} "
                                  f"({backbone}), worst distance/tolerance "
@@ -1672,36 +1730,39 @@ def rn_entry_point():
 
 
 def phase_refinenet():
-    """The RefineNet system at full width: ResNet-101, os16, 640x400,
-    seeded weights, seeded uint8 batches in memory."""
+    """The RefineNet system at full width: ResNet-101 (os16), Xception
+    (os16) and DRN-D-54 (os8), 640x400, seeded weights, seeded uint8
+    batches in memory."""
     from seg2eye_tpu_torch.ops import spade_style as K
 
     K.spade_style.launches = 0
     t_phase = time.perf_counter()
     flags = tf32_flags()
     times = {}
-    for name in ("SegNet", "RefineNet"):
-        cfg = rn_config(name)
+    for name, backbone in RN_PARAMS:
+        cfg = rn_config(name, backbone=backbone)
         t0 = time.perf_counter()
         model = rn_model(name, cfg, RN_DEVICE)
         trainer = rn_trainer(name, model)
         state = trainer.init_state(torch.Generator().manual_seed(0))
         count = sum(p.numel() for p in model.net.parameters())
         fwd, train = rn_flops(name, model)
-        log(f"refinenet: {name} ({cfg.backbone}-{cfg.resnet_depth}, os"
-            f"{cfg.output_stride}, {cfg.input_height}x{cfg.input_width}): "
-            f"{count:,} parameters, seeded init "
-            f"{time.perf_counter() - t0:.1f} s; {fwd / 1e9:.1f} GFLOP per "
-            f"image forward, {train / 1e9:.1f} per image training step")
-        if count != RN_PARAMS[name]:
-            raise AssertionError(f"{name}: {count} parameters, expected "
-                                 f"{RN_PARAMS[name]}")
+        depth = f"-{cfg.resnet_depth}" if backbone == "resnet" else ""
+        log(f"refinenet: {name} ({backbone}{depth}, os"
+            f"{8 if backbone == 'drn' else cfg.output_stride}, "
+            f"{cfg.input_height}x{cfg.input_width}): {count:,} parameters, "
+            f"seeded init {time.perf_counter() - t0:.1f} s; "
+            f"{fwd / 1e9:.1f} GFLOP per image forward, {train / 1e9:.1f} "
+            "per image training step")
+        if count != RN_PARAMS[(name, backbone)]:
+            raise AssertionError(f"{name} ({backbone}): {count} parameters, "
+                                 f"expected {RN_PARAMS[(name, backbone)]}")
         for kind, fn, flops in (("serve", rn_serve, fwd),
                                 ("train", rn_train, train)):
-            for dname in ("bfloat16", "float32"):
+            for dname in RN_ROW_DTYPES.get((name, backbone), DTYPES):
                 model.dtype = DTYPES[dname]       # weights stay float32
-                times[(name, kind, dname)] = fn(name, trainer, state, dname,
-                                                flops)
+                times[(name, backbone, kind, dname)] = fn(
+                    name, trainer, state, dname, flops)
         del model, trainer, state
         torch.cuda.empty_cache()
     rn_card_vs_cpu()
@@ -1724,18 +1785,21 @@ SERVE_WARMUP, SERVE_REPEATS = 2, 7
 # lost something the live model does (PR 8's float32 RefineNet program,
 # whose dilated convs ran on channels_last input: 5.8 times)
 SERVE_SLOWDOWN = 1.5
-# the refiners: RefineNet and SegNet in bfloat16, RefineNet also in float32
-RN_SERVE_CASES = (("SegNet", "bfloat16"), ("RefineNet", "bfloat16"),
-                  ("RefineNet", "float32"))
+# the refiners (model, backbone, dtype): ResNet-101 RefineNet and SegNet in
+# bfloat16, RefineNet also in float32; RefineNet with Xception and DRN in both
+RN_SERVE_CASES = (("SegNet", "resnet", "bfloat16"),
+                  ("RefineNet", "resnet", "bfloat16"),
+                  ("RefineNet", "resnet", "float32"),
+                  ("RefineNet", "xception", "bfloat16"),
+                  ("RefineNet", "xception", "float32"),
+                  ("RefineNet", "drn", "bfloat16"),
+                  ("RefineNet", "drn", "float32"))
 # the modules an artifact must load without
 SERVING_BLOCKED = ("seg2eye_tpu_torch.models", "seg2eye_tpu_torch.refinenet",
                    "seg2eye_tpu_torch.options", "seg2eye_tpu", "jax", "jaxlib",
                    "flax")
-# run in a fresh process: load each Seg2Eye artifact with the model modules
-# refused, serve each batch twice (K1 launches and weight packings counted
-# per call, the two calls compared bit for bit, the program's buffers
-# before and after), save the first call's outputs for the parent
-SERVING_CHILD = r"""
+# the serving processes' start: imports of SERVING_BLOCKED (argv[1]) refused
+SERVING_REFUSE = r"""
 import importlib.abc, json, sys, time
 BLOCKED = tuple(json.loads(sys.argv[1]))
 
@@ -1749,6 +1813,12 @@ class Refuse(importlib.abc.MetaPathFinder):
         return None
 
 sys.meta_path.insert(0, Refuse())
+"""
+# run in a fresh process: load each Seg2Eye artifact with the model modules
+# refused, serve each batch twice (K1 launches and weight packings counted
+# per call, the two calls compared bit for bit, the program's buffers
+# before and after), save the first call's outputs for the parent
+SERVING_CHILD = SERVING_REFUSE + r"""
 import numpy as np, torch
 from seg2eye_tpu_torch.ops import spade_style as K
 from seg2eye_tpu_torch.serving import load_serving
@@ -1780,6 +1850,28 @@ for dname, art, out in json.loads(sys.argv[3]):
     report[dname] = dict(load_s=load_s, calls=calls, unchanged=unchanged,
                          refused=sorted(filter(blocked, sys.modules)))
     del served, before, outs, results
+    torch.cuda.empty_cache()
+print(json.dumps(report))
+"""
+# the refiners' artifacts in a fresh process, model modules refused: each
+# serves its saved bs32 input once (K1 launches counted), outputs saved
+SERVING_CHILD_REFINERS = SERVING_REFUSE + r"""
+import numpy as np, torch
+from seg2eye_tpu_torch.ops import spade_style as K
+from seg2eye_tpu_torch.serving import load_serving
+
+device, report = sys.argv[3], {}
+for key, art, x_path, out in json.loads(sys.argv[2]):
+    t0 = time.perf_counter()
+    served = load_serving(art, device=device)
+    load_s = time.perf_counter() - t0
+    K.spade_style.launches = 0
+    got = served(np.load(x_path))
+    got = got if isinstance(got, tuple) else (got,)
+    torch.save([t.cpu() for t in got], out)
+    report[key] = dict(load_s=load_s, launches=K.spade_style.launches,
+                       refused=sorted(filter(blocked, sys.modules)))
+    del served, got
     torch.cuda.empty_cache()
 print(json.dumps(report))
 """
@@ -1939,40 +2031,50 @@ def serve_seg2eye(tmp):
 
 
 def unclamp_residual(model):
-    """Scale RefineNet's last conv so that its residual, at seeded weights,
-    has a standard deviation of 0.25 on a seeded batch: the prediction,
-    clamp(residual + reference, -1, 1), is then mostly inside (-1, 1), so
-    the artifact's prediction is compared where it is not clamped."""
+    """Scale and shift RefineNet's last conv so that its residual, at
+    seeded weights, has mean 0 and a standard deviation of 0.25 on a seeded
+    batch: the prediction, clamp(residual + reference, -1, 1), is then
+    mostly inside (-1, 1), so the artifact's prediction is compared where
+    it is not clamped (the final align-corners resize keeps a constant, so
+    the bias shift moves the residual's mean by as much)."""
     x = rn_batch("RefineNet", model.cfg, 4, seed=2, device=SERVE_DEVICE)
     with torch.no_grad():
-        scale = 0.25 / float(model.forward({"input": x["input"]})[
-            "residual"].std())
-        for p in model.net.decoder.last_conv[8].parameters():
-            p.mul_(scale)
+        residual = model.forward({"input": x["input"]})["residual"]
+        scale = 0.25 / float(residual.std())
+        last = model.net.decoder.last_conv[8]
+        last.weight.mul_(scale)
+        last.bias.mul_(scale).sub_(scale * float(residual.mean()))
 
 
 def serve_refiners(tmp):
-    """SegNet and RefineNet at full width (ResNet-101, os16, 640x400)
-    exported on running statistics, reloaded and served at bs32 against
-    eval_step: submission uint8 within 1, SegNet's class ids equal; no K1
-    launch."""
+    """SegNet and RefineNet at full width (ResNet-101 and Xception at
+    os16, DRN at os8, 640x400) exported on running statistics, reloaded
+    and served at bs32 against eval_step: every output bitwise equal
+    (RefineNet's prediction and prediction_u8, SegNet's class ids); no K1
+    launch.  Then every artifact again from a process that cannot import
+    the model code, bitwise equal to this process's artifact outputs."""
     import os
+
+    import numpy as np
 
     from seg2eye_tpu_torch.ops import spade_style as K
     from seg2eye_tpu_torch.serving import export_refiner, load_serving
 
-    states = {}
-    for name, dname in RN_SERVE_CASES:
-        if name not in states:
-            model = rn_model(name, rn_config(name), SERVE_DEVICE)
+    states, jobs, expected = {}, [], {}
+    for name, backbone, dname in RN_SERVE_CASES:
+        if (name, backbone) not in states:
+            states.clear()                            # one model at a time
+            torch.cuda.empty_cache()
+            model = rn_model(name, rn_config(name, backbone=backbone),
+                             SERVE_DEVICE)
             trainer = rn_trainer(name, model)
-            states[name] = (trainer, trainer.init_state(
+            states[(name, backbone)] = (trainer, trainer.init_state(
                 torch.Generator().manual_seed(0)))
             if name == "RefineNet":
                 unclamp_residual(model)
-        trainer, state = states[name]
+        trainer, state = states[(name, backbone)]
         state.model.dtype = DTYPES[dname]            # weights stay float32
-        art = os.path.join(tmp, f"{name}_{dname}")
+        art = os.path.join(tmp, f"{name}_{backbone}_{dname}")
         t0 = time.perf_counter()
         export_refiner(state.model, art)
         export_s = time.perf_counter() - t0
@@ -1987,7 +2089,8 @@ def serve_refiners(tmp):
         got = served(x)
         torch.cuda.synchronize()
         if K.spade_style.launches:
-            raise AssertionError(f"{name} artifact launched K1")
+            raise AssertionError(f"{name} ({backbone}) artifact launched "
+                                 "K1")
         if name == "SegNet":
             diff = int((got != live.to(torch.uint8)).sum())
             ok = got.dtype == torch.uint8 and diff == 0
@@ -1999,21 +2102,28 @@ def serve_refiners(tmp):
             d_pred = float((pred - live).abs().max())
             d_u8 = int((pred_u8.int() - live_u8.int()).abs().max())
             inside = float((live.abs() < 1).float().mean())
-            ok = d_u8 <= 1 and d_pred <= SLICE_TOL[dname][0] and inside > 0.5
+            ok = d_u8 == 0 and d_pred == 0 and inside > 0.5
             what = (f"prediction max abs diff {d_pred:.3e}, prediction_u8 "
                     f"{d_u8} ({100 * inside:.1f}% of the live prediction "
                     "inside (-1, 1))")
         if not ok:
-            raise AssertionError(f"{name} {dname} artifact vs eval_step: "
-                                 f"{what}")
+            raise AssertionError(f"{name} ({backbone}) {dname} artifact vs "
+                                 f"eval_step: {what}")
+        key = f"{name}_{backbone}_{dname}"
+        np.save(os.path.join(tmp, f"{key}_x.npy"), x.cpu().numpy())
+        expected[key] = [t.cpu() for t in (got if isinstance(got, tuple)
+                                           else (got,))]
+        jobs.append((key, art, os.path.join(tmp, f"{key}_x.npy"),
+                     os.path.join(tmp, f"{key}_served.pt")))
         a_ms, l_ms = time_turns(
             [lambda: served(x),
              lambda: trainer.eval_step(state, {"input": x})],
             SERVE_WARMUP, SERVE_REPEATS)
         if a_ms > SERVE_SLOWDOWN * l_ms:
-            raise AssertionError(f"{name} {dname} artifact {a_ms:.2f} ms, "
-                                 f"live {l_ms:.2f} ms")
-        log(f"  {name} {dname} bs{RN_SERVE_BATCH}: export {export_s:.1f} s, "
+            raise AssertionError(f"{name} ({backbone}) {dname} artifact "
+                                 f"{a_ms:.2f} ms, live {l_ms:.2f} ms")
+        log(f"  {name} ({backbone}) {dname} bs{RN_SERVE_BATCH}: export "
+            f"{export_s:.1f} s, "
             f"load {load_s:.2f} s; artifact vs eval_step: {what}; artifact "
             f"{a_ms:.2f} ms/batch ({RN_SERVE_BATCH / a_ms * 1e3:.1f} img/s), "
             f"live {l_ms:.2f} ({RN_SERVE_BATCH / l_ms * 1e3:.1f} img/s), "
@@ -2021,6 +2131,34 @@ def serve_refiners(tmp):
             f"{SERVE_REPEATS}, in turns)")
         del served
         torch.cuda.empty_cache()
+    states.clear()
+    torch.cuda.empty_cache()
+    root = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-c", SERVING_CHILD_REFINERS,
+         json.dumps(SERVING_BLOCKED), json.dumps(jobs), SERVE_DEVICE],
+        cwd=root, env={**os.environ, "PYTHONPATH": root},
+        capture_output=True, text=True, timeout=600)
+    if proc.returncode != 0:
+        raise AssertionError(f"the refiners' serving process failed:\n"
+                             f"{proc.stderr[-4000:]}")
+    report = json.loads(proc.stdout.strip().splitlines()[-1])
+    rows = []
+    for key, _, _, out in jobs:
+        rep, served = report[key], torch.load(out)
+        diff = max(float((a.float() - b.float()).abs().max())
+                   for a, b in zip(served, expected[key]))
+        if rep["launches"] or rep["refused"] or diff:
+            raise AssertionError(f"{key} in the serving process: K1 launches "
+                                 f"{rep['launches']}, model modules loaded "
+                                 f"{rep['refused']}, outputs {diff:.3e} from "
+                                 "this process's artifact")
+        rows.append(f"{key} load {rep['load_s']:.2f} s, {diff:.1e}")
+    log(f"  refiners in a serving process (model modules refused, 0 K1 "
+        f"launches; {time.perf_counter() - t0:.1f} s, start included), "
+        "load time and max abs diff of the outputs from this process's "
+        "artifact: " + "; ".join(rows))
 
 
 def phase_serving():

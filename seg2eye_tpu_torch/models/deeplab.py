@@ -22,8 +22,10 @@ written out, as the JAX package's.
     ``low_level_features``/``high_level_features`` alias ``features[:4]``
     and ``features[4:]``, as the reference's do, so its state_dict carries
     those keys too (the parameters are shared, counted once).
-  * ASPP: rates 6/12/18 (os16) or 12/24/36 (os8), a global pool (a float32
-    mean, then a ConvBN, then a broadcast), a 1x1 projection, dropout 0.5.
+  * ASPP: rates 6/12/18 (os16) or 12/24/36 (os8), a global pool (a mean in
+    at least float32, then a ConvBN, then a broadcast), a 1x1 projection,
+    dropout 0.5.  The JAX package takes that mean in float32 also in a
+    float64 run.
   * Decoder: the low-level feature to 48 channels, the ASPP output
     upsampled to it (align_corners), 304 channels -> two 3x3 256 ConvBNs
     (dropout 0.5 and 0.1) -> a 1x1 classifier with bias; then an
@@ -33,7 +35,8 @@ Activations are NCHW (``channels_last`` memory at the entry); convolutions
 run in the input's dtype with float32 parameters cast at the call, batch
 norms as ``layers.BatchNorm``.  ``train`` selects batch statistics (and
 updates the running ones); dropout runs only when a ``generator`` is
-given, drawn from it.  Xception and DRN are not ported (ROADMAP Queue 1).
+given, drawn from it.  Xception and DRN-D-54 are in ``backbones_extra``
+(DRN forces output stride 8, for the ASPP rates too).
 """
 from __future__ import annotations
 
@@ -43,7 +46,10 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from seg2eye_tpu_torch.models.layers import BatchNorm
+from seg2eye_tpu_torch.models.backbones_extra import (DRNBackbone,
+                                                      XceptionBackbone)
+from seg2eye_tpu_torch.models.layers import (BatchNorm, Bottleneck, apply_conv,
+                                             at_least_f32, make_conv)
 from seg2eye_tpu_torch.ops.image import resize_bilinear_ac
 
 RESNET_LAYERS = {101: (3, 4, 23, 3), 50: (3, 4, 6, 3), 26: (2, 2, 2, 2),
@@ -51,34 +57,6 @@ RESNET_LAYERS = {101: (3, 4, 23, 3), 50: (3, 4, 6, 3), 26: (2, 2, 2, 2),
 # MobileNetV2's stages: expansion t, channels c, blocks n, stride s
 MOBILENET_CFG = ((1, 16, 1, 1), (6, 24, 2, 2), (6, 32, 3, 2), (6, 64, 4, 2),
                  (6, 96, 3, 1), (6, 160, 3, 2), (6, 320, 1, 1))
-
-
-def _conv(x: torch.Tensor, conv: nn.Conv2d) -> torch.Tensor:
-    """``conv`` applied in x's dtype.  A float32 dilated conv takes an
-    NCHW copy of x: on channels_last input cuDNN's float32 choice for the
-    ASPP's 2048-channel dilated convs at batch 32 is a grouped direct
-    kernel, 267-467 ms each on an H100, against 14 ms on NCHW input.
-    The copy is a ``clone``, made even when x is NCHW already: ``torch.
-    export`` records a ``contiguous()`` only where the traced x is not
-    contiguous, and its traced convolutions on CUDA come out NCHW where
-    the card's are channels_last, so a serving program would run these
-    convs on channels_last input (1273 ms a batch on an H100, not 219)."""
-    if x.dtype == torch.float32 and conv.dilation[0] > 1:
-        x = x.clone(memory_format=torch.contiguous_format)
-    bias = None if conv.bias is None else conv.bias.to(x.dtype)
-    return F.conv2d(x, conv.weight.to(x.dtype), bias, conv.stride,
-                    conv.padding, conv.dilation, conv.groups)
-
-
-def _conv2d(cin: int, cout: int, k: int, stride: int = 1, dilation: int = 1,
-            padding: Optional[int] = None, groups: int = 1,
-            bias: bool = False, init_mode: str = "fan_in") -> nn.Conv2d:
-    """A conv whose padding is ((k-1)//2)*dilation unless given; its
-    kaiming mode is kept for ``kaiming_init_``."""
-    pad = ((k - 1) // 2) * dilation if padding is None else padding
-    conv = nn.Conv2d(cin, cout, k, stride, pad, dilation, groups, bias)
-    conv.init_mode = init_mode
-    return conv
 
 
 def _cat(tensors) -> torch.Tensor:
@@ -101,31 +79,6 @@ def relu6(x: torch.Tensor) -> torch.Tensor:
     return torch.clamp(x, 0, 6)
 
 
-class Bottleneck(nn.Module):
-    def __init__(self, cin: int, planes: int, stride: int = 1,
-                 dilation: int = 1, downsample: bool = False):
-        super().__init__()
-        self.conv1 = _conv2d(cin, planes, 1, init_mode="fan_out")
-        self.bn1 = BatchNorm(planes)
-        self.conv2 = _conv2d(planes, planes, 3, stride, dilation,
-                             init_mode="fan_out")
-        self.bn2 = BatchNorm(planes)
-        self.conv3 = _conv2d(planes, planes * 4, 1, init_mode="fan_out")
-        self.bn3 = BatchNorm(planes * 4)
-        self.downsample = nn.Sequential(
-            _conv2d(cin, planes * 4, 1, stride, init_mode="fan_out"),
-            BatchNorm(planes * 4)) if downsample else None
-
-    def forward(self, x: torch.Tensor, train: bool) -> torch.Tensor:
-        out = torch.relu(self.bn1(_conv(x, self.conv1), train))
-        out = torch.relu(self.bn2(_conv(out, self.conv2), train))
-        out = self.bn3(_conv(out, self.conv3), train)
-        residual = x
-        if self.downsample is not None:
-            residual = self.downsample[1](_conv(x, self.downsample[0]), train)
-        return torch.relu(out + residual)
-
-
 class ResNetBackbone(nn.Module):
     def __init__(self, layers: Sequence[int] = RESNET_LAYERS[101],
                  output_stride: int = 16):
@@ -136,7 +89,7 @@ class ResNetBackbone(nn.Module):
             strides, dilations = [1, 2, 1, 1], [1, 1, 2, 4]
         else:
             raise NotImplementedError(output_stride)
-        self.conv1 = _conv2d(3, 64, 7, 2, init_mode="fan_out")
+        self.conv1 = make_conv(3, 64, 7, 2, init_mode="fan_out")
         self.bn1 = BatchNorm(64)
         cin = 64
         stages = []
@@ -154,7 +107,7 @@ class ResNetBackbone(nn.Module):
 
     def forward(self, x: torch.Tensor, train: bool
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
-        x = torch.relu(self.bn1(_conv(x, self.conv1), train))
+        x = torch.relu(self.bn1(apply_conv(x, self.conv1), train))
         x = F.max_pool2d(x, 3, 2, padding=1)      # pads with -inf
         low_level = None
         for i, stage in enumerate((self.layer1, self.layer2, self.layer3,
@@ -178,11 +131,12 @@ class InvertedResidual(nn.Module):
         self.use_res = stride == 1 and cin == cout
         slots = []
         if expand != 1:
-            slots += [_conv2d(cin, hidden, 1), BatchNorm(hidden), nn.Identity()]
-        slots += [_conv2d(hidden, hidden, 3, stride, dilation, padding=0,
-                          groups=hidden, init_mode="fan_out"),
+            slots += [make_conv(cin, hidden, 1), BatchNorm(hidden),
+                      nn.Identity()]
+        slots += [make_conv(hidden, hidden, 3, stride, dilation, padding=0,
+                            groups=hidden, init_mode="fan_out"),
                   BatchNorm(hidden), nn.Identity(),
-                  _conv2d(hidden, cout, 1), BatchNorm(cout)]
+                  make_conv(hidden, cout, 1), BatchNorm(cout)]
         self.conv = nn.Sequential(*slots)
 
     def forward(self, x: torch.Tensor, train: bool) -> torch.Tensor:
@@ -190,17 +144,17 @@ class InvertedResidual(nn.Module):
         out = F.pad(x, (d, d, d, d))                 # fixed_padding
         slots = list(self.conv)
         if len(slots) == 8:
-            out = relu6(slots[1](_conv(out, slots[0]), train))
+            out = relu6(slots[1](apply_conv(out, slots[0]), train))
             slots = slots[3:]
-        out = relu6(slots[1](_conv(out, slots[0]), train))
-        out = slots[4](_conv(out, slots[3]), train)
+        out = relu6(slots[1](apply_conv(out, slots[0]), train))
+        out = slots[4](apply_conv(out, slots[3]), train)
         return x + out if self.use_res else out
 
 
 class MobileNetBackbone(nn.Module):
     def __init__(self, output_stride: int = 16):
         super().__init__()
-        features = [nn.Sequential(_conv2d(3, 32, 3, 2), BatchNorm(32))]
+        features = [nn.Sequential(make_conv(3, 32, 3, 2), BatchNorm(32))]
         current_stride, rate, cin = 2, 1, 32
         for t, c, n, s in MOBILENET_CFG:
             if current_stride == output_stride:
@@ -221,7 +175,7 @@ class MobileNetBackbone(nn.Module):
     def forward(self, x: torch.Tensor, train: bool
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
         stem = self.features[0]
-        x = relu6(stem[1](_conv(x, stem[0]), train))
+        x = relu6(stem[1](apply_conv(x, stem[0]), train))
         low_level = None
         for i, block in enumerate(list(self.features)[1:], start=1):
             x = block(x, train)
@@ -233,11 +187,11 @@ class MobileNetBackbone(nn.Module):
 class _ASPPBranch(nn.Module):
     def __init__(self, cin: int, k: int, dilation: int):
         super().__init__()
-        self.atrous_conv = _conv2d(cin, 256, k, dilation=dilation)
+        self.atrous_conv = make_conv(cin, 256, k, dilation=dilation)
         self.bn = BatchNorm(256)
 
     def forward(self, x: torch.Tensor, train: bool) -> torch.Tensor:
-        return torch.relu(self.bn(_conv(x, self.atrous_conv), train))
+        return torch.relu(self.bn(apply_conv(x, self.atrous_conv), train))
 
 
 class ASPP(nn.Module):
@@ -249,43 +203,48 @@ class ASPP(nn.Module):
         self.aspp3 = _ASPPBranch(cin, 3, d[2])
         self.aspp4 = _ASPPBranch(cin, 3, d[3])
         self.global_avg_pool = nn.Sequential(
-            nn.Identity(), _conv2d(cin, 256, 1), BatchNorm(256))
-        self.conv1 = _conv2d(1280, 256, 1)
+            nn.Identity(), make_conv(cin, 256, 1), BatchNorm(256))
+        self.conv1 = make_conv(1280, 256, 1)
         self.bn1 = BatchNorm(256)
 
     def forward(self, x: torch.Tensor, train: bool,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
         branches = [b(x, train) for b in (self.aspp1, self.aspp2, self.aspp3,
                                           self.aspp4)]
-        # the pool in float32, back to the compute dtype; 1x1 -> a broadcast
-        gp = torch.mean(x.float(), dim=(2, 3), keepdim=True).to(x.dtype)
+        # the pool in at least float32, back to the compute dtype; 1x1 -> a
+        # broadcast
+        gp = torch.mean(at_least_f32(x), dim=(2, 3), keepdim=True).to(x.dtype)
         gp = torch.relu(self.global_avg_pool[2](
-            _conv(gp, self.global_avg_pool[1]), train))
+            apply_conv(gp, self.global_avg_pool[1]), train))
         branches.append(gp.expand_as(branches[-1]))
         out = _cat(branches)
-        out = torch.relu(self.bn1(_conv(out, self.conv1), train))
+        out = torch.relu(self.bn1(apply_conv(out, self.conv1), train))
         return dropout(out, 0.5, generator)
 
 
 class Decoder(nn.Module):
     def __init__(self, num_classes: int, low_level_ch: int):
         super().__init__()
-        self.conv1 = _conv2d(low_level_ch, 48, 1)
+        self.conv1 = make_conv(low_level_ch, 48, 1)
         self.bn1 = BatchNorm(48)
         self.last_conv = nn.Sequential(
-            _conv2d(304, 256, 3), BatchNorm(256), nn.Identity(), nn.Identity(),
-            _conv2d(256, 256, 3), BatchNorm(256), nn.Identity(), nn.Identity(),
-            _conv2d(256, num_classes, 1, bias=True))
+            make_conv(304, 256, 3), BatchNorm(256), nn.Identity(),
+            nn.Identity(),
+            make_conv(256, 256, 3), BatchNorm(256), nn.Identity(),
+            nn.Identity(),
+            make_conv(256, num_classes, 1, bias=True))
 
     def forward(self, x: torch.Tensor, low_level: torch.Tensor, train: bool,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
         lc = self.last_conv
-        ll = torch.relu(self.bn1(_conv(low_level, self.conv1), train))
+        ll = torch.relu(self.bn1(apply_conv(low_level, self.conv1), train))
         x = resize_bilinear_ac(x, ll.shape[2], ll.shape[3])
         x = _cat([x, ll])
-        x = dropout(torch.relu(lc[1](_conv(x, lc[0]), train)), 0.5, generator)
-        x = dropout(torch.relu(lc[5](_conv(x, lc[4]), train)), 0.1, generator)
-        return _conv(x, lc[8])
+        x = dropout(torch.relu(lc[1](apply_conv(x, lc[0]), train)), 0.5,
+                    generator)
+        x = dropout(torch.relu(lc[5](apply_conv(x, lc[4]), train)), 0.1,
+                    generator)
+        return apply_conv(x, lc[8])
 
 
 class DeepLab(nn.Module):
@@ -295,16 +254,20 @@ class DeepLab(nn.Module):
                  num_classes: int = 21,
                  resnet_layers: Sequence[int] = RESNET_LAYERS[101]):
         super().__init__()
+        if backbone == "drn":               # DRN-D is always output stride 8
+            output_stride = 8
         if backbone == "resnet":
             self.backbone = ResNetBackbone(tuple(resnet_layers), output_stride)
             high, low = 2048, 256
         elif backbone == "mobilenet":
             self.backbone = MobileNetBackbone(output_stride)
             high, low = 320, 24
-        elif backbone in ("xception", "drn"):
-            raise NotImplementedError(
-                f"the '{backbone}' backbone is not ported yet (ROADMAP "
-                "Queue 1 item 14: models/backbones_extra.py)")
+        elif backbone == "xception":
+            self.backbone = XceptionBackbone(output_stride)
+            high, low = 2048, 128
+        elif backbone == "drn":
+            self.backbone = DRNBackbone()
+            high, low = 512, 256
         else:
             raise NotImplementedError(f"backbone '{backbone}'")
         self.aspp = ASPP(high, output_stride)

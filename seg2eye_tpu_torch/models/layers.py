@@ -9,6 +9,10 @@
     earlier forward keeps the pair it used.  Otherwise the stored pair is
     used as it is.  ``torch.nn.utils.spectral_norm`` is not used because its
     hook power-iterates on every forward in train mode.
+  * ``make_conv``/``apply_conv`` are the DeepLab stacks' convolutions
+    (padding from the kernel and dilation, the kaiming fan mode kept on
+    the module; the layout rule ``nchw_copy``), and ``Bottleneck`` the
+    ResNet block that the DeepLab ResNet and DRN-D share.
   * ``BatchNorm`` is the affine batch norm of the DeepLab stacks, with
     the JAX package's ``TorchBatchNorm`` semantics (torch's);
     ``BatchSubNorm`` is the same norm after an encoder or discriminator
@@ -26,7 +30,7 @@ their input, with float32 parameters cast at the call.
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -38,6 +42,47 @@ EPS = 1e-5
 def at_least_f32(x: torch.Tensor) -> torch.Tensor:
     """Widen bf16 to f32; keep f32 and f64."""
     return x.to(torch.promote_types(x.dtype, torch.float32))
+
+
+def nchw_copy(x: torch.Tensor, conv: nn.Conv2d) -> bool:
+    """Whether ``conv`` reads an NCHW copy of its channels_last input:
+    every float32 dilated conv and every dilated depthwise conv, from
+    their times on an H100 (``tools/time_torch_convs.py``).  cuDNN's
+    float32 choice for the ASPP's 2048-channel dilated convs at batch 32
+    on channels_last input is a grouped direct kernel, 470 ms a conv
+    against 14 ms on NCHW input; dilated depthwise convs run 1.9-3.6
+    times faster on an NCHW copy in both dtypes, the copy included.
+    Undilated depthwise convs and bfloat16 dense convs are faster on
+    channels_last."""
+    return conv.dilation[0] > 1 and (x.dtype == torch.float32
+                                     or conv.groups > 1)
+
+
+def apply_conv(x: torch.Tensor, conv: nn.Conv2d) -> torch.Tensor:
+    """``conv`` applied in x's dtype, on an NCHW copy of x where
+    ``nchw_copy`` says so.  The copy is a ``clone``, made even when x is
+    NCHW already: ``torch.export`` records a ``contiguous()`` only where
+    the traced x is not contiguous, and its traced convolutions on CUDA
+    come out NCHW where the card's are channels_last, so a serving
+    program would run these convs on channels_last input (1273 ms a
+    batch on an H100, not 219)."""
+    if nchw_copy(x, conv):
+        x = x.clone(memory_format=torch.contiguous_format)
+    bias = None if conv.bias is None else conv.bias.to(x.dtype)
+    return F.conv2d(x, conv.weight.to(x.dtype), bias, conv.stride,
+                    conv.padding, conv.dilation, conv.groups)
+
+
+def make_conv(cin: int, cout: int, k: int, stride: int = 1,
+              dilation: int = 1, padding: Optional[int] = None,
+              groups: int = 1, bias: bool = False,
+              init_mode: str = "fan_in") -> nn.Conv2d:
+    """A conv whose padding is ((k-1)//2)*dilation unless given; its
+    kaiming mode is kept for ``models.deeplab.kaiming_init_``."""
+    pad = ((k - 1) // 2) * dilation if padding is None else padding
+    conv = nn.Conv2d(cin, cout, k, stride, pad, dilation, groups, bias)
+    conv.init_mode = init_mode
+    return conv
 
 
 def _torch_fans(shape) -> Tuple[int, int]:
@@ -152,6 +197,36 @@ class BatchNorm(nn.BatchNorm2d):
         return F.batch_norm(x, self.running_mean, self.running_var,
                             self.weight, self.bias, train, self.momentum,
                             self.eps)
+
+
+class Bottleneck(nn.Module):
+    """The ResNet bottleneck (1x1, 3x3 at ``stride`` and ``dilation``, 1x1
+    to 4 x planes, each with a BN; a 1x1/BN projection of the residual
+    where ``downsample``), of the DeepLab ResNet and of DRN-D."""
+
+    def __init__(self, cin: int, planes: int, stride: int = 1,
+                 dilation: int = 1, downsample: bool = False):
+        super().__init__()
+        self.conv1 = make_conv(cin, planes, 1, init_mode="fan_out")
+        self.bn1 = BatchNorm(planes)
+        self.conv2 = make_conv(planes, planes, 3, stride, dilation,
+                               init_mode="fan_out")
+        self.bn2 = BatchNorm(planes)
+        self.conv3 = make_conv(planes, planes * 4, 1, init_mode="fan_out")
+        self.bn3 = BatchNorm(planes * 4)
+        self.downsample = nn.Sequential(
+            make_conv(cin, planes * 4, 1, stride, init_mode="fan_out"),
+            BatchNorm(planes * 4)) if downsample else None
+
+    def forward(self, x: torch.Tensor, train: bool) -> torch.Tensor:
+        out = torch.relu(self.bn1(apply_conv(x, self.conv1), train))
+        out = torch.relu(self.bn2(apply_conv(out, self.conv2), train))
+        out = self.bn3(apply_conv(out, self.conv3), train)
+        residual = x
+        if self.downsample is not None:
+            residual = self.downsample[1](
+                apply_conv(x, self.downsample[0]), train)
+        return torch.relu(out + residual)
 
 
 class BatchSubNorm(BatchNorm):

@@ -54,9 +54,9 @@ class RefineNetConfig:
     backbone: str = "resnet"
     output_stride: int = 16
     resnet_depth: int = 101                     # 101 (reference) | 50 | 26 | 14
-    # a torch .pth state_dict of a ResNet under the reference's names (the
-    # torchvision ResNet-101 the reference downloads, resnet.py:138-146);
-    # "" = from scratch
+    # a torch .pth state_dict of the backbone under the reference's names
+    # (for ResNet the torchvision ResNet-101 the reference downloads,
+    # resnet.py:138-146); "" = from scratch
     pretrained_backbone: str = ""
 
     # data paths (reference passes these via argparse in the scripts)

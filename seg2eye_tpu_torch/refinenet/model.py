@@ -34,10 +34,13 @@ _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
 
 def load_pretrained_backbone(net: DeepLab, path: str) -> DeepLab:
-    """Load a torch ``.pth`` ResNet state_dict under the reference's names
-    (``conv1.weight``, ``bn1.*``, ``layer1.0.conv1.weight``, ...: the keys
-    of the torchvision ResNet the reference bootstraps from) into
-    ``net.backbone``.  Any missing or unexpected key raises."""
+    """Load a torch ``.pth`` state_dict of ``net``'s backbone under the
+    reference's names into ``net.backbone``: for ResNet the keys of the
+    torchvision ResNet the reference bootstraps from (``conv1.weight``,
+    ``bn1.*``, ``layer1.0.conv1.weight``, ...), for Xception, DRN and
+    MobileNet those of the reference's backbone modules (what
+    ``utils.weights.export_{xception,drn}_backbone`` write).  Any missing
+    or unexpected key raises."""
     state = torch.load(path, map_location="cpu", weights_only=True)
     net.backbone.load_state_dict(state, strict=True)
     return net

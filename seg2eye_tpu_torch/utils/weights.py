@@ -12,9 +12,12 @@
   * ``init_networks``: seeded random weights with the JAX package's init
     schemes, for runs without a checkpoint.
   * ``export_deeplab`` (the port's copy of the JAX package's, for the
-    ResNet and MobileNet backbones) and ``deeplab_from_jax_variables``:
-    DeepLab variables -> the reference's DeepLab state_dict, MobileNet's
-    ``low_level_features``/``high_level_features`` aliases included;
+    ResNet, Xception, DRN and MobileNet backbones) and
+    ``deeplab_from_jax_variables``: DeepLab variables -> the reference's
+    DeepLab state_dict, MobileNet's ``low_level_features``/
+    ``high_level_features`` aliases included;
+    ``export_{xception,drn}_backbone``: a backbone's variables -> the
+    reference's backbone state_dict (what ``pretrained_backbone`` loads);
     ``init_deeplab``: a seeded DeepLab for a RefineNet configuration.
 """
 from __future__ import annotations
@@ -250,6 +253,66 @@ def _export_resnet_into(sd, p, bs, prefix: str = ""):
                     bs[fblk]["downsample"]["bn"])
 
 
+def _export_sepconv(sd, fp, fbs, torch_base: str):
+    sd[f"{torch_base}.conv1.weight"] = _conv(fp["depthwise"]["kernel"])
+    _bn(sd, f"{torch_base}.bn", fp["bn"], fbs["bn"])
+    sd[f"{torch_base}.pointwise.weight"] = _conv(fp["pointwise"]["kernel"])
+
+
+def _export_xception_into(sd, p, bs, prefix: str = ""):
+    def k(name):
+        return prefix + name
+
+    sd[k("conv1.weight")] = _conv(p["conv1"]["kernel"])
+    _bn(sd, k("bn1"), p["bn1"], bs["bn1"])
+    sd[k("conv2.weight")] = _conv(p["conv2"]["kernel"])
+    _bn(sd, k("bn2"), p["bn2"], bs["bn2"])
+    for b in range(1, 21):
+        fb = f"block{b}"
+        off = 0 if b not in (1, 2) else -1
+        for u in range(3):
+            si = 3 * u + 1 + off
+            _export_sepconv(sd, p[fb][f"sep{u}"], bs[fb][f"sep{u}"],
+                            k(f"{fb}.rep.{si}"))
+            _bn(sd, k(f"{fb}.rep.{si + 1}"), p[fb][f"sepbn{u}"],
+                bs[fb][f"sepbn{u}"])
+        if "skip" in p[fb]:
+            sd[k(f"{fb}.skip.weight")] = _conv(p[fb]["skip"]["kernel"])
+            _bn(sd, k(f"{fb}.skipbn"), p[fb]["skipbn"], bs[fb]["skipbn"])
+    for i in (3, 4, 5):
+        _export_sepconv(sd, p[f"conv{i}"], bs[f"conv{i}"], k(f"conv{i}"))
+        _bn(sd, k(f"bn{i}"), p[f"bn{i}"], bs[f"bn{i}"])
+
+
+def _export_drn_into(sd, p, bs, prefix: str = ""):
+    def k(name):
+        return prefix + name
+
+    sd[k("layer0.0.weight")] = _conv(p["layer0_conv"]["kernel"])
+    _bn(sd, k("layer0.1"), p["layer0_bn"], bs["layer0_bn"])
+    for lname in ("layer1", "layer2", "layer7", "layer8"):
+        i = 0
+        while f"{lname}_conv{i}" in p:
+            sd[k(f"{lname}.{3 * i}.weight")] = _conv(
+                p[f"{lname}_conv{i}"]["kernel"])
+            _bn(sd, k(f"{lname}.{3 * i + 1}"), p[f"{lname}_bn{i}"],
+                bs[f"{lname}_bn{i}"])
+            i += 1
+    for lname, blocks in (("layer3", 3), ("layer4", 4), ("layer5", 6),
+                          ("layer6", 3)):
+        for i in range(blocks):
+            fb, tb = f"{lname}_{i}", k(f"{lname}.{i}")
+            if fb not in p:
+                continue
+            for j in (1, 2, 3):
+                sd[f"{tb}.conv{j}.weight"] = _conv(p[fb][f"conv{j}"]["kernel"])
+                _bn(sd, f"{tb}.bn{j}", p[fb][f"bn{j}"], bs[fb][f"bn{j}"])
+            if "down" in p[fb]:
+                sd[f"{tb}.downsample.0.weight"] = _conv(p[fb]["down"]["kernel"])
+                _bn(sd, f"{tb}.downsample.1", p[fb]["down_bn"],
+                    bs[fb]["down_bn"])
+
+
 def _export_mobilenet_into(sd, p, bs, prefix: str = ""):
     def k(name):
         return prefix + name
@@ -291,18 +354,28 @@ def _export_mobilenet_into(sd, p, bs, prefix: str = ""):
 
 _BACKBONE_EXPORTERS = {
     "resnet": _export_resnet_into,
+    "xception": _export_xception_into,
+    "drn": _export_drn_into,
     "mobilenet": _export_mobilenet_into,
 }
+
+
+def export_xception_backbone(variables: Dict) -> Dict[str, np.ndarray]:
+    sd: Dict[str, np.ndarray] = {}
+    _export_xception_into(sd, variables["params"], variables["batch_stats"])
+    return sd
+
+
+def export_drn_backbone(variables: Dict) -> Dict[str, np.ndarray]:
+    sd: Dict[str, np.ndarray] = {}
+    _export_drn_into(sd, variables["params"], variables["batch_stats"])
+    return sd
 
 
 def export_deeplab(variables: Dict,
                    backbone: str = "resnet") -> Dict[str, np.ndarray]:
     """DeepLab variables -> the reference's DeepLab state_dict, as numpy
-    arrays.  Xception and DRN are not ported."""
-    if backbone not in _BACKBONE_EXPORTERS:
-        raise NotImplementedError(
-            f"the '{backbone}' backbone is not ported yet (ROADMAP Queue 1 "
-            "item 14)")
+    arrays."""
     p, bs = variables["params"], variables["batch_stats"]
     sd: Dict[str, np.ndarray] = {}
     _BACKBONE_EXPORTERS[backbone](sd, p["backbone"], bs["backbone"],

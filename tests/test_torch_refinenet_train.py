@@ -6,9 +6,8 @@ SIGTERM, bitwise resume), the checkpoint manager and the four CLIs.
 The train steps run at batch 4 and a learning rate of 4e-5.  At batch 2
 the ASPP global pool's BN normalises over two values per channel; where
 those are close, its gradient is large and carries the float32 rounding
-of the pool's mean (which both packages take in float32, summed in
-different orders) into every gradient upstream: 1e-3 apart in float64,
-measured.  At the configurations' learning rates a few steps of this tiny
+of the pool's mean (which JAX takes in float32 also in float64) into
+every gradient upstream: 1e-3 apart in float64, measured.  At the configurations' learning rates a few steps of this tiny
 net are chaotic: float64 runs whose only difference is that rounding are
 17% apart in momentum by the third step.  At batch 4 and lr 4e-5 float64
 runs agree to 1e-5 over three steps, so the step is held there to 1e-4;
@@ -33,7 +32,7 @@ from seg2eye_tpu_torch.refinenet import model, training
 from seg2eye_tpu_torch.refinenet.checkpoint_manager import CheckpointManager
 from seg2eye_tpu_torch.refinenet.dataset import RefineNetDataset
 from test_torch_refinenet import (GAP_RATIO, f64, fixtures,  # noqa: F401
-                                  jax_cfg, tiny_cfg, to_jax)
+                                  free_disk, jax_cfg, tiny_cfg, to_jax)
 
 STEP_ATOL = 1e-4
 NET_FLOOR = 1e-2
@@ -144,14 +143,29 @@ def step_batches(kind, n, b=4, h=64, w=40, seed=0):
     return out
 
 
+def jax_variables(sd, shapes, backbone, dtype):
+    """``sd`` (numpy arrays under the reference's keys) as the JAX
+    variables of ``backbone``'s DeepLab, shaped as ``shapes``, in
+    ``dtype`` (the JAX package's Xception and DRN converters write float32
+    kernels: in float64 a kernel's gradient, and g + wd * p in the trace,
+    would round to float32)."""
+    template = jax.tree_util.tree_map(lambda s: np.zeros(s.shape, dtype),
+                                      shapes)
+    return jax.tree_util.tree_map(
+        lambda a: np.asarray(a, dtype),
+        torch_convert.convert_deeplab(sd, template, backbone))
+
+
 class JaxSteps:
     """JAX's Trainer(donate=False)._train_step with rng=None, float32,
     float64 (``jax.enable_x64``, the model's compute dtype float64) and
     bfloat16 compute ("bf16", float32 weights), run from a port state: its
-    weights, running statistics and momentum."""
+    weights, running statistics and momentum; ``cfg.backbone``'s
+    DeepLab."""
 
     def __init__(self, kind, cfg):
         _, jm_cls, key, momentum, _ = KINDS[kind]
+        self.backbone = cfg.backbone
         self.fns = {}
         for x64 in (False, True, "bf16"):
             jm = jm_cls(jax_cfg(cfg))
@@ -163,14 +177,8 @@ class JaxSteps:
                                         momentum=momentum, donate=False)
             self.fns[x64] = (trainer.tx, jax.jit(functools.partial(
                 trainer._train_step, rng=None)))
-        shapes = jax.eval_shape(jm.net.init, jax.random.PRNGKey(0),
-                                jnp.zeros((1, 64, 40, 3)))
-        self.shapes = shapes
-
-    def _variables(self, sd, dtype):
-        template = jax.tree_util.tree_map(lambda s: np.zeros(s.shape, dtype),
-                                          self.shapes)
-        return torch_convert.convert_deeplab(sd, template, "resnet")
+        self.shapes = jax.eval_shape(jm.net.init, jax.random.PRNGKey(0),
+                                     jnp.zeros((1, 64, 40, 3)))
 
     def step(self, state, batch, lr, x64):
         """One JAX step from the port's ``state`` -> (scalars, variables,
@@ -178,7 +186,7 @@ class JaxSteps:
         dtype = np.float64 if x64 is True else np.float32
         sd = {k: v.detach().cpu().numpy().astype(dtype)
               for k, v in state.model.net.state_dict().items()}
-        variables = self._variables(sd, dtype)
+        variables = jax_variables(sd, self.shapes, self.backbone, dtype)
         tx, fn = self.fns[x64]
         buffers = {n: state.optimizer.state[p]["momentum_buffer"]
                    for n, p in state.model.net.named_parameters()
@@ -186,9 +194,10 @@ class JaxSteps:
         with jax.enable_x64(x64 is True):
             opt = tx.init(variables["params"])
             if buffers:
-                trace = self._variables(
+                trace = jax_variables(
                     {**sd, **{n: b.cpu().numpy().astype(dtype)
-                              for n, b in buffers.items()}}, dtype)["params"]
+                              for n, b in buffers.items()}},
+                    self.shapes, self.backbone, dtype)["params"]
                 opt = opt._replace(inner_state=tuple(
                     s._replace(trace=trace) if hasattr(s, "trace") else s
                     for s in opt.inner_state))
@@ -240,7 +249,7 @@ def port_step(trainer, state, batch, lr):
     return {k: float(v) for k, v in scalars.items()}, sd, mom, grads
 
 
-def distances(port_out, jax_out, before, wd, momentum):
+def distances(port_out, jax_out, before, wd, momentum, backbone="resnet"):
     """Distances of a port step's results from a JAX step's, both from the
     state ``before`` (parameters, momentum): scalars (relative to
     1 + |value|), parameters and running statistics (max abs), momentum
@@ -251,9 +260,9 @@ def distances(port_out, jax_out, before, wd, momentum):
     relative error is that of its terms times the cancellation."""
     scalars, sd, mom, grads = port_out
     jscal, jvars, jtrace = jax_out
-    want = torch_export.export_deeplab(jvars, "resnet")
+    want = torch_export.export_deeplab(jvars, backbone)
     trace = torch_export.export_deeplab(
-        {"params": jtrace, "batch_stats": jvars["batch_stats"]}, "resnet")
+        {"params": jtrace, "batch_stats": jvars["batch_stats"]}, backbone)
     params0, mom0 = before
 
     def rel(got, ref):
@@ -327,6 +336,44 @@ def test_train_steps_match_jax(kind):
                                 STEP_ATOL if k == "params" else 0.0), \
                     (step, k, d, gap)
         assert state.step == n
+
+
+def normalised(kind, batch):
+    """``batch`` with its uint8 images in [-1, 1] (x * (2/255) - 1 in
+    float32, what both packages' models do with uint8): RefineNet's input
+    and target, SegNet's input."""
+    images = ("input", "target") if kind == "refinenet" else ("input",)
+    return {k: (v.astype(np.float32) * np.float32(2.0 / 255.0)
+                - np.float32(1.0)) if k in images else v
+            for k, v in batch.items()}
+
+
+@pytest.mark.parametrize("kind,backbone", [("segnet", "drn"),
+                                           ("refinenet", "xception")])
+def test_train_step_extra_backbones_match_jax(kind, backbone):
+    """One SGD step of SegNet-DRN and of RefineNet-Xception (full depth,
+    64x40, batch 4) against the JAX Trainer's from the same state, in
+    float64: losses, parameters and running statistics to STEP_ATOL, the
+    clipped gradients and momentum to QUIET_RTOL (measured 7.8e-7 and
+    4.7e-7).  The images are given in [-1, 1] (``normalised``): on a
+    uint8 batch that is a runtime argument, XLA's CPU backend fuses JAX's
+    x * (2/255) - 1 into one rounding, one float32 ulp from the formula
+    rounded twice (the port's), and SegNet-DRN's train-mode BNs amplify
+    that to 2.1e-3 in its early gradients (measured)."""
+    m_cls, _, _, momentum, clip = KINDS[kind]
+    cfg = tiny_cfg(backbone=backbone, gradient_norm_clip=clip, **STEP_CFG)
+    init = m_cls(cfg, "cpu").init(torch.Generator().manual_seed(0))
+    net_state = {k: v.clone() for k, v in init.net.state_dict().items()}
+    batch = normalised(kind, step_batches(kind, 1, seed=5)[0])
+    lr = training.learning_rate_schedule(cfg, 2, 0)
+    trainer, state = port_state(kind, cfg, net_state, True)
+    before = snapshot(state)
+    want = JaxSteps(kind, cfg).step(state, batch, lr, True)
+    d = distances(port_step(trainer, state, batch, lr), want, before,
+                  cfg.weight_decay, momentum, backbone)
+    for k, v in d.items():
+        assert v <= (QUIET_RTOL if k in ("grads", "momentum")
+                     else STEP_ATOL), d
 
 
 @pytest.mark.parametrize("kind", ["refinenet", "segnet"])
@@ -572,3 +619,28 @@ def test_cli_chain_on_the_cpu(fixtures, tmp_path):
                     evaluate_refinenet):
             with pytest.raises(SystemExit, match="no CUDA device"):
                 cli.main([*paths, *tiny, "--resume_from", ref["output_dir"]])
+
+
+def test_cli_drn_backbone_on_the_cpu(fixtures, tmp_path):
+    """train_segnet and evaluate_segnet with ``--backbone drn`` and
+    --device cpu: one step, a checkpoint, masks in 0..3 for every split."""
+    import h5py
+
+    from seg2eye_tpu_torch.refinenet import evaluate_segnet, train_segnet
+
+    _, cfg = fixtures
+    args = ["--device", "cpu", "--dataroot", cfg.dataroot,
+            "--segmentations_train", cfg.segmentations_train,
+            "--backbone", "drn", "--input_width", "40", "--input_height",
+            "64", "--batch_size", "2", "--test_batch_size", "3",
+            "--compute_dtype", "float32", "--prefetch", "0"]
+    seg = train_segnet.main([*args, "--max_steps", "1",
+                             "--num_warmup_epochs", "0",
+                             "--output_dir_base", str(tmp_path)])
+    assert seg["steps"] == 1
+    masks = str(tmp_path / "masks.h5")
+    evaluate_segnet.main([*args, "--resume_from", seg["output_dir"],
+                          "--output", masks])
+    with h5py.File(masks, "r") as f:
+        assert sorted(f) == ["test", "train", "validation"]
+        assert f["train"]["U001"][()].max() <= 3

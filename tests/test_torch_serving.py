@@ -39,6 +39,7 @@ from seg2eye_tpu_torch.serving import (FORMAT_VERSION, export_inference,
                                        export_refiner, load_serving)
 from seg2eye_tpu_torch.utils.weights import (deeplab_from_jax_variables,
                                              from_jax_variables)
+from test_torch_refinenet import free_disk  # noqa: F401
 from test_torch_slice import BF16_ATOL, bf16_exact
 
 pytestmark = pytest.mark.filterwarnings("ignore:encoder final grid")
@@ -282,27 +283,34 @@ def tiny_rn_cfg(cls, **kw):
                          input_width=40, input_height=64), **kw})
 
 
-def refiner_pair(kind, tmp_path, seed):
-    """JAX and port artifacts of one seeded task model (ResNet-14, 64x40),
-    its running statistics drawn away from (0, 1); and the port's live
-    model."""
+def refiner_pair(kind, tmp_path, seed, classifier_scale=1.0, **cfg):
+    """JAX and port artifacts of one seeded task model (ResNet-14, 64x40,
+    unless ``cfg`` says otherwise), its running statistics drawn away from
+    (0, 1) and its classifier scaled by ``classifier_scale``; and the
+    port's live model."""
     from seg2eye_tpu.refinenet import config as jconfig
     from seg2eye_tpu.refinenet import model as jmodel
     from seg2eye_tpu_torch.refinenet import config, model
 
     name = {"refinenet": "RefineNetModel", "segnet": "SegNetModel"}[kind]
-    jm = getattr(jmodel, name)(tiny_rn_cfg(jconfig.RefineNetConfig))
+    jm = getattr(jmodel, name)(tiny_rn_cfg(jconfig.RefineNetConfig, **cfg))
     variables = jax.device_get(jm.init(jax.random.PRNGKey(seed)))
     rng = np.random.default_rng(seed)
     stats = jax.tree_util.tree_map(
         lambda a: (rng.uniform(0.5, 1.5, a.shape) if a.min() == 1.0
                    else rng.normal(0, 0.1, a.shape)).astype(np.float32),
         variables["batch_stats"])
-    variables = {**variables, "batch_stats": stats}
+    params = jax.tree_util.tree_map(np.asarray, variables["params"])
+    for k in ("kernel", "bias"):
+        params["decoder"]["classifier"][k] = (
+            params["decoder"]["classifier"][k] * classifier_scale)
+    variables = {"params": params, "batch_stats": stats}
     jexport_refiner(jm, variables, str(tmp_path / "jax"), platforms=("cpu",))
-    m = getattr(model, name)(tiny_rn_cfg(config.RefineNetConfig), "cpu")
+    m = getattr(model, name)(tiny_rn_cfg(config.RefineNetConfig, **cfg),
+                             "cpu")
     m.init(torch.Generator().manual_seed(0))
-    m.net.load_state_dict(deeplab_from_jax_variables(variables), strict=True)
+    m.net.load_state_dict(
+        deeplab_from_jax_variables(variables, m.cfg.backbone), strict=True)
     export_refiner(m, str(tmp_path / "port"))
     return (jload_serving(str(tmp_path / "jax")),
             load_serving(str(tmp_path / "port")), m)
@@ -331,9 +339,36 @@ def test_refinenet_export_roundtrip(tmp_path):
         torch.testing.assert_close(pred_u8, want_u8, rtol=0, atol=0)
 
 
+@pytest.mark.parametrize("backbone", ["xception", "drn"])
+def test_refinenet_export_extra_backbones(backbone, tmp_path):
+    """A RefineNet artifact with the Xception or DRN backbone (full depth,
+    64x40) against the JAX package's artifact of the same weights, float32
+    within 1e-5, and against the live eval forward exactly; the baked
+    configuration records the backbone and the configured output stride
+    (DRN's model forces 8 by itself).  DRN's classifier is scaled by 2^-7,
+    so that its residual leaves most of the prediction unclamped (at the
+    JAX init on these running statistics 2% of it is inside (-1, 1))."""
+    jserved, served, m = refiner_pair(
+        "refinenet", tmp_path, 2, 2.0 ** -7 if backbone == "drn" else 1.0,
+        backbone=backbone)
+    baked = served.meta["baked_config"]
+    assert baked["backbone"] == backbone and baked["output_stride"] == 16
+    assert baked == {**jserved.meta["baked_config"],
+                     "compute_dtype": "float32"}
+    x = np.random.default_rng(2).integers(0, 256, (2, 64, 40, 3)).astype(
+        np.uint8)
+    pred, _ = served(x)
+    want = m.forward({"input": torch.from_numpy(x)})["prediction"]
+    torch.testing.assert_close(pred, want, rtol=0, atol=0)
+    inside = float((pred.abs() < 1).float().mean())
+    assert inside > 0.5, inside
+    np.testing.assert_allclose(pred.numpy(), jserved(x)[0], atol=ATOL,
+                               rtol=0)
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_refinenet_program_keeps_float32_dilated_convs_nchw(dtype, tmp_path):
-    """The float32 dilated-conv rule of ``models/deeplab._conv`` (an NCHW
+    """The float32 dilated-conv rule of ``models/layers.apply_conv`` (an NCHW
     copy of the channels_last input, which cuDNN runs far faster on the
     card) is in the exported program: each float32 dilated conv reads an
     NCHW clone, whatever layout the trace gave its input (on CUDA the
@@ -356,6 +391,29 @@ def test_refinenet_program_keeps_float32_dilated_convs_nchw(dtype, tmp_path):
     assert copied == [dtype == "float32"] * 6
     meta = json.load(open(tmp_path / "art" / "meta.json"))
     assert meta["baked_config"]["compute_dtype"] == dtype
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_program_copies_dilated_depthwise_convs_nchw(dtype, tmp_path):
+    """``models/layers.nchw_copy``'s depthwise part in the exported
+    program: the dilated depthwise conv (MobileNet's last stage, dilation 2
+    at os16) reads an NCHW clone in both dtypes, the 16 undilated ones
+    read their input as it is."""
+    from seg2eye_tpu_torch.refinenet import config, model
+
+    cfg = tiny_rn_cfg(config.RefineNetConfig, compute_dtype=dtype,
+                      backbone="mobilenet")
+    m = model.RefineNetModel(cfg, "cpu").init(torch.Generator().manual_seed(0))
+    program = export_refiner(m, str(tmp_path / "art"))
+    depthwise = [n for n in program.graph.nodes
+                 if n.target is torch.ops.aten.conv2d.default
+                 and len(n.args) > 6 and n.args[6] > 1]
+    dilated = [len(n.args) > 5 and tuple(n.args[5]) != (1, 1)
+               for n in depthwise]
+    copied = [n.args[0].target is torch.ops.aten.clone.default
+              for n in depthwise]
+    assert sum(dilated) == 1 and len(depthwise) == 17
+    assert copied == dilated
 
 
 def test_segnet_export_roundtrip(tmp_path):

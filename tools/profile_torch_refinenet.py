@@ -3,10 +3,12 @@
 card.
 
     python3 tools/profile_torch_refinenet.py [--models RefineNet SegNet]
-        [--modes serve train] [--dtypes bfloat16 float32] [--steps 3]
+        [--backbone resnet|xception|drn|mobilenet] [--modes serve train]
+        [--dtypes bfloat16 float32] [--steps 3]
 
 The full-width configurations of ``refinenet/configs/{segnet,refinenet}.json``
-(ResNet-101 DeepLabV3+, os16, 640x400), seeded weights and seeded uint8
+(DeepLabV3+, ResNet-101 unless ``--backbone`` says otherwise, os16 (DRN:
+8), 640x400), seeded weights and seeded uint8
 batches on the card, as ``chip_smoke.py`` phase 6 runs them: ``serve`` is
 ``Trainer.eval_step`` at batch 32 (SegNet without a target), ``train`` is
 ``Trainer.train_step`` at the config's batch (8), dropout on.  After two
@@ -37,11 +39,13 @@ from seg2eye_tpu_torch.refinenet.training import \
 
 # (group, substrings of the kernel name), first match wins
 GROUPS = [
-    ("cuDNN convs, GEMMs and layout transposes",
+    ("depthwise convs", ("depthwise", "c1_k1")),
+    ("batch norm (statistics, transform, backward)", ("batch_norm", "bn_")),
+    ("convs, GEMMs and layout transposes",
      ("cudnn", "xmma", "cutlass", "fft", "DSE::", "nchwToNhwc", "nhwcToNchw",
       "implicit_gemm", "implicit_convolve", "conv", "gemm", "dgrad",
-      "wgrad")),
-    ("batch norm (statistics, transform, backward)", ("batch_norm", "bn_")),
+      "wgrad", "nvjet")),
+    ("ReLU (clamp, threshold backward)", ("clamp_scalar", "threshold")),
     ("gathers and scatters (the align_corners resize)",
      ("index", "gather", "scatter")),
     ("SGD (multi-tensor apply)", ("multi_tensor_apply",)),
@@ -85,6 +89,8 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--models", nargs="+", default=["RefineNet", "SegNet"],
                     choices=["RefineNet", "SegNet"])
+    ap.add_argument("--backbone", default="resnet",
+                    choices=["resnet", "xception", "drn", "mobilenet"])
     ap.add_argument("--modes", nargs="+", default=["serve", "train"],
                     choices=["serve", "train"])
     ap.add_argument("--dtypes", nargs="+", default=["bfloat16", "float32"])
@@ -95,7 +101,7 @@ def main(argv=None):
         raise SystemExit("profile_torch_refinenet: no CUDA device")
 
     for name in args.models:
-        cfg = rn_config(name)
+        cfg = rn_config(name, backbone=args.backbone)
         model = rn_model(name, cfg, "cuda")
         trainer = rn_trainer(name, model)
         state = trainer.init_state(torch.Generator().manual_seed(0))
@@ -113,7 +119,8 @@ def main(argv=None):
             for dtype in args.dtypes:
                 model.dtype = DTYPES[dtype]
                 wall, busy, per_kernel = profile(call, args.steps)
-                print(f"== {name} {mode} {dtype}, batch {batch}: wall "
+                print(f"== {name} ({args.backbone}) {mode} {dtype}, batch "
+                      f"{batch}: wall "
                       f"{wall / 1e3:.3f} ms/call, device busy "
                       f"{busy / 1e3:.3f} ms/call, idle share "
                       f"{1 - busy / wall:.4f}")
