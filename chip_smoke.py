@@ -95,7 +95,26 @@ Phases; any failure raises and the script exits non-zero:
      and served at bs32 against ``eval_step`` (every output bitwise equal,
      no K1 launch), timed in turns, then again from a process that cannot
      import the model code (bitwise equal again).  An artifact more than
-     SERVE_SLOWDOWN times its live model's time fails.
+     SERVE_SLOWDOWN times its live model's time fails;
+  9. segtrain (after phase 8): the generic DeepLabV3+ trainer
+     (``segtrain.SegTrainer``) at the CLI's pascal defaults (ResNet-101
+     os16, 21 classes, crop 513, batch 4, lr 0.007 poly, SGD momentum 0.9
+     and weight decay 5e-4, the head at 10x; seeded weights, seeded
+     normalised batches in memory through ``loaders=``, in a temporary
+     working directory), in float32 and bfloat16: 3 steps of
+     ``training(0)`` (finite losses, both groups' lr equal to
+     LRScheduler's at each step, every parameter with a nonzero gradient
+     and every running statistic moved), ms/step, img/s, peak memory and
+     the share of the FLOP bound; ``validation(0)`` over 10 images in
+     batches of 4, 4 and 2 (the device's confusion matrix equal to a numpy
+     recount of the same logits, mIoU in [0, 1], model_best.ckpt written)
+     and the eval step timed.  bfloat16 only: a step with focal loss and
+     class-balanced weights over labels in [21, 255) (no device assert), a
+     --freeze-bn step (BN buffers bit for bit), resume from
+     checkpoint.ckpt (eval logits bit for bit, epoch and best_pred) and
+     --ft (no momentum).  Card against CPU: ResNet-14 at crop 33, batch 2,
+     one eval and one train step from identical states in float32 and
+     float64 within phase 6's limits.  No SPADE+Style launch.
 Nothing of JAX or of the JAX package may have been imported.
 The port keeps float32 in full float32 by itself (its float32 forward and
 plain versions turn TF32 off around their own convolutions); the cuDNN
@@ -2176,6 +2195,404 @@ def phase_serving():
     return launches
 
 
+# ---------------------------------------------------------------- phase 9
+SEG_DEVICE = "cuda"
+# the CLI's pascal defaults on one card (ResNet-101 os16, 21 classes, crop
+# 513, batch 4, lr 0.007 poly, SGD momentum 0.9, weight decay 5e-4, the
+# head at 10x): 12 training images (3 steps of training(0)) and 10
+# validation images (batches of 4, 4 and 2)
+SEG_ARGV = ("--dataset", "pascal", "--workers", "0")
+SEG_TRAIN_IMAGES, SEG_VAL_IMAGES = 12, 10
+SEG_TIMED, SEG_EVAL_REPEATS = 3, 5
+# a CPU rehearsal shrinks the phase here (resnet_layers, crop_size)
+SEG_OVERRIDES = {}
+# card against CPU: ResNet-14 at crop 33, batch 2, from identical states;
+# held to phase 6's ResNet-14 limits (RN_CARD_CPU_TOL).  The loss is
+# float64 in a float64 run, so nothing there rounds to float32.
+SEG_CARD_CPU = dict(resnet_layers=(1, 1, 1, 1), crop_size=33, batch_size=2)
+# DeepLab ResNet-101 with 21 classes: RN_PARAMS's RefineNet (1 class) and
+# 257 parameters (the classifier's weights and bias) per further class
+SEG_PARAMS = 59_339_169 + 20 * 257
+
+
+class SegData:
+    """Seeded, already normalised NHWC images and float32 labels in 0..20
+    with an ignored (255) band, in memory: a dataset of the port's
+    ``DataLoader``."""
+
+    def __init__(self, n, crop, seed):
+        rng = np.random.default_rng(seed)
+        self.images = rng.standard_normal((n, crop, crop, 3),
+                                          dtype=np.float32)
+        labels = rng.integers(0, 21, (n, crop, crop))
+        labels[:, :max(1, crop // 8)] = 255
+        self.labels = labels.astype(np.float32)
+
+    def __len__(self):
+        return len(self.images)
+
+    def __getitem__(self, index, rng=None):
+        return {"image": self.images[index], "label": self.labels[index]}
+
+
+def seg_args(tmp, *argv, **kw):
+    """The CLI's arguments (``argv`` added to SEG_ARGV) with the data root
+    ``tmp``, then SEG_OVERRIDES and ``kw`` set."""
+    from seg2eye_tpu_torch.segtrain.trainer import (build_argparser,
+                                                    finalize_args)
+
+    args = finalize_args(build_argparser().parse_args(
+        [*SEG_ARGV, "--data-root", tmp, *argv]))
+    args.no_cuda = SEG_DEVICE == "cpu"
+    for k, v in {**SEG_OVERRIDES, **kw}.items():
+        setattr(args, k, v)
+    return args
+
+
+def seg_trainer(args, train, val):
+    """``SegTrainer(args)`` over the in-memory datasets: the training loader
+    shuffled with its last short batch dropped, the validation loader in
+    order, as ``make_data_loader`` makes them."""
+    from seg2eye_tpu_torch.data.openeds import DataLoader
+    from seg2eye_tpu_torch.segtrain.trainer import SegTrainer
+
+    return SegTrainer(args, loaders=(
+        DataLoader(train, args.batch_size, shuffle=True, drop_last=True,
+                   seed=args.seed),
+        DataLoader(val, args.batch_size), None, 21))
+
+
+def seg_batch(data, index, n, device):
+    return (torch.from_numpy(data.images[index:index + n]).to(device),
+            torch.from_numpy(data.labels[index:index + n]).to(device))
+
+
+def seg_flops(t):
+    """(forward FLOPs of one image in eval, of one image's training step)
+    at the crop size, counted as ``rn_flops`` counts them."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    crop = t.args.crop_size
+    x = torch.zeros(2, crop, crop, 3, device=t.device)
+    y = torch.zeros(2, crop, crop, device=t.device)
+    with FlopCounterMode(display=False) as fc, torch.no_grad():
+        t.net(t._input(x[:1]), False)
+    fwd = fc.get_total_flops()
+    state = {k: v.clone() for k, v in t.net.state_dict().items()}
+    mapping = {torch.ops.aten.convolution_backward: conv_backward_flops}
+    with FlopCounterMode(display=False, custom_mapping=mapping) as fc:
+        t.criterion(t.net(t._input(x), True), y).backward()
+    t.net.load_state_dict(state)
+    t.net.zero_grad(set_to_none=True)
+    return fwd, fc.get_total_flops() / 2
+
+
+def seg_moved(where, net, before, nonzero):
+    """Every parameter with a nonzero gradient and every running statistic
+    moved since ``before``."""
+    params = dict(net.named_parameters())
+    stuck = [k for k, v in net.state_dict().items()
+             if "num_batches" not in k and (k in nonzero or k not in params)
+             and torch.equal(v, before[k])]
+    if stuck:
+        raise AssertionError(f"{where}: did not move: {stuck[:5]}")
+
+
+def seg_train(t, dname, flops):
+    """``training(0)``, 3 steps: finite losses, the LR of both groups equal
+    to LRScheduler's (the head's 10x) at each step, every parameter with a
+    nonzero gradient and every running statistic moved; the host-clock
+    time of each loop iteration (data, step, image dump).  Then
+    SEG_TIMED synchronised train steps (dropout on): median ms/step, peak
+    memory and the share of the FLOP bound."""
+    from seg2eye_tpu_torch.refinenet.training import dropout_generator
+
+    net, bs = t.net, t.args.batch_size
+    before = {k: v.detach().clone() for k, v in net.state_dict().items()}
+    loop_ms, losses, lrs, nonzero = [], [], [], set()
+    mark = [time.perf_counter()]
+
+    def hook(i, loss):           # the loss was read: the step has finished
+        loop_ms.append((time.perf_counter() - mark[0]) * 1e3)
+        losses.append(loss)
+        lrs.append([g["lr"] for g in t.optimizer.param_groups])
+        nonzero.update(n for n, p in net.named_parameters()
+                       if p.grad is not None and bool(p.grad.any()))
+        mark[0] = time.perf_counter()
+
+    epoch_loss = t.training(0, step_hook=hook)
+    want = [[t.scheduler(i, 0), 10 * t.scheduler(i, 0)]
+            for i in range(len(losses))]
+    if len(losses) != SEG_TRAIN_IMAGES // bs or lrs != want:
+        raise AssertionError(f"segtrain {dname}: {len(losses)} steps, "
+                             f"group lrs {lrs}, LRScheduler's {want}")
+    if not all(np.isfinite(v) for v in losses + [epoch_loss]):
+        raise AssertionError(f"segtrain {dname}: losses {losses}")
+    seg_moved(f"segtrain {dname}", net, before, nonzero)
+
+    x, y = seg_batch(t.val_loader.dataset, 0, bs, t.device)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for step in range(SEG_TIMED):
+        t0 = time.perf_counter()
+        t.train_step(x, y, t.scheduler(0, 1),
+                     dropout_generator(t.args, 100 + step, t.device))
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    ms = statistics.median(times)
+    bound = rn_bound_ms(flops * bs, dname)
+    log(f"  train {dname} bs{bs} at {t.args.crop_size}x{t.args.crop_size} "
+        f"(lr {t.args.lr:g} poly, head 10x, momentum {t.args.momentum}, "
+        f"weight decay {t.args.weight_decay}): {ms:.2f} ms/step, "
+        f"{bs / ms * 1e3:.2f} img/s, peak "
+        f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB; bound "
+        f"{bound:.2f} ms ({flops * bs / 1e12:.3f} TFLOP), "
+        f"{100 * bound / ms:.1f}% of it (median of {SEG_TIMED} synchronised "
+        f"steps, host clock); training(0): losses "
+        + ", ".join(f"{v:.4f}" for v in losses) + ", loop iterations "
+        + ", ".join(f"{v:.1f}" for v in loop_ms) + " ms (data, step, "
+        f"image dump); {len(nonzero)} parameters with a nonzero gradient "
+        "and every running statistic moved; group lrs = LRScheduler's")
+    return ms
+
+
+def seg_validate(t, dname, flops):
+    """``validation(0)``: the confusion matrix summed from the device
+    equals a numpy recount of the same logits (caught by a forward hook),
+    mIoU in [0, 1], model_best.ckpt written; then the eval step timed, with
+    its peak memory."""
+    import os
+
+    captured = []
+    hook = t.net.register_forward_hook(
+        lambda m, i, o: captured.append(o.detach()))
+    try:
+        miou = t.validation(0)
+    finally:
+        hook.remove()
+    nc, val = t.nclass, t.val_loader.dataset
+    recount = np.zeros((nc, nc), np.int64)
+    start = 0
+    for logits in captured:
+        pred = logits.float().cpu().numpy().argmax(1)
+        gt = val.labels[start:start + len(pred)].astype(np.int64)
+        start += len(pred)
+        keep = (gt >= 0) & (gt < nc)
+        recount += np.bincount(nc * gt[keep] + pred[keep],
+                               minlength=nc * nc).reshape(nc, nc)
+    sizes = [len(v) for v in captured]
+    best = os.path.join(t.saver.directory, "model_best.ckpt")
+    if (sizes != [4, 4, 2] or start != SEG_VAL_IMAGES
+            or not np.array_equal(t.evaluator.confusion, recount)
+            or not 0.0 <= miou <= 1.0 or not os.path.isfile(best)):
+        raise AssertionError(
+            f"segtrain {dname} validation: batches {sizes}, mIoU {miou}, "
+            f"matrix equal to the recount: "
+            f"{np.array_equal(t.evaluator.confusion, recount)}, "
+            f"model_best.ckpt {os.path.isfile(best)}")
+
+    bs = t.args.batch_size
+    x, y = seg_batch(val, 0, bs, t.device)
+    t.eval_step(x, y)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for _ in range(SEG_EVAL_REPEATS):
+        t0 = time.perf_counter()
+        t.eval_step(x, y)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    ms = statistics.median(times)
+    bound = rn_bound_ms(flops * bs, dname)
+    log(f"  eval {dname} bs{bs}: {ms:.2f} ms/batch, {bs / ms * 1e3:.2f} "
+        f"img/s, peak {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB; "
+        f"bound {bound:.2f} ms ({flops * bs / 1e12:.3f} TFLOP), "
+        f"{100 * bound / ms:.1f}% of it (median of {SEG_EVAL_REPEATS}, host "
+        f"clock, synchronised); validation(0) over {start} images in "
+        f"batches {sizes}: mIoU {miou:.4f}, the device's confusion matrix "
+        f"({int(recount.sum())} pixels) equal to the numpy recount, "
+        "model_best.ckpt written")
+    return ms
+
+
+def seg_options(tmp, trained, train, val):
+    """bfloat16: one step with focal loss and class-balanced weights (the
+    batch holds labels in [21, 255): dropped, no device assert); one with
+    --freeze-bn (running statistics bit for bit, parameters moved);
+    resume from checkpoint.ckpt (eval logits bit for bit, start_epoch and
+    best_pred restored) and --ft (no momentum buffer)."""
+    import os
+
+    bf16 = ("--precision", "bfloat16")
+    lr = trained.scheduler(0, 0)
+    x, y = seg_batch(train, 0, trained.args.batch_size, trained.device)
+    y = y.clone()
+    y[:, -1, :6] = torch.tensor([21.0, 30.0, 100.0, 200.0, 254.0, -1.0])
+
+    t = seg_trainer(seg_args(tmp, *bf16, "--loss-type", "focal",
+                             "--use-balanced-weights",
+                             checkname="focal"), train, val)
+    loss, _ = t.train_step(x, y, lr)
+    torch.cuda.synchronize()
+    weight = t.criterion.__self__.weight
+    if not (np.isfinite(float(loss)) and weight is not None
+            and bool(torch.isfinite(weight).all())):
+        raise AssertionError(f"focal + balanced weights: loss {float(loss)}")
+    focal = float(loss)
+    del t
+
+    t = seg_trainer(seg_args(tmp, *bf16, "--freeze-bn", "1",
+                             checkname="freeze"), train, val)
+    before = {k: v.clone() for k, v in t.net.state_dict().items()}
+    t.train_step(x, y, lr)
+    after = t.net.state_dict()
+    params = dict(t.net.named_parameters())
+    frozen = [k for k in after if k not in params]
+    if not (frozen and all(torch.equal(after[k], before[k]) for k in frozen)
+            and not any(torch.equal(after[k], before[k]) for k in params)):
+        raise AssertionError("--freeze-bn: running statistics changed or "
+                             "parameters did not move")
+    del t
+
+    path = os.path.join(trained.saver.experiment_dir, "checkpoint.ckpt")
+    r = seg_trainer(seg_args(tmp, *bf16, resume=path, checkname="resume"),
+                    train, val)
+    vx, _ = seg_batch(val, 0, trained.args.batch_size, trained.device)
+    with torch.no_grad():
+        same = torch.equal(trained.net(trained._input(vx), False),
+                           r.net(r._input(vx), False))
+    restored = (r.args.start_epoch, r.best_pred, len(r.optimizer.state))
+    del r
+    f = seg_trainer(seg_args(tmp, *bf16, resume=path, ft=True,
+                             checkname="ft"), train, val)
+    if not (same and restored == (1, trained.best_pred,
+                                  len(trained.optimizer.state))
+            and f.args.start_epoch == 0 and not f.optimizer.state):
+        raise AssertionError(f"resume: eval logits equal {same}, (epoch, "
+                             f"best_pred, momentum buffers) {restored}; --ft "
+                             f"epoch {f.args.start_epoch}, "
+                             f"{len(f.optimizer.state)} momentum buffers")
+    log(f"  bfloat16 options: focal + balanced weights (labels 21-254 and -1 "
+        f"in the batch) loss {focal:.5f}; --freeze-bn: {len(frozen)} BN "
+        "buffers bit for bit, every parameter moved; resumed from "
+        f"checkpoint.ckpt: eval logits bit for bit, start_epoch 1, best_pred "
+        f"{trained.best_pred:.4f}, {restored[2]} momentum buffers; --ft: "
+        "epoch 0, no momentum buffer")
+
+
+def seg_run(tmp, device, x64):
+    """One eval step and one train step (no dropout) of SEG_CARD_CPU's
+    seeded trainer (BN affine parameters perturbed as rn_run does) on
+    ``device``, in float64 when ``x64``: rn_run's tuple."""
+    from seg2eye_tpu_torch.segtrain.trainer import SegTrainer
+
+    args = seg_args(tmp, **SEG_CARD_CPU, no_cuda=device == "cpu",
+                    checkname="card-cpu")
+    t = SegTrainer(args, loaders=([None] * 2, [None], None, 21))
+    gen = torch.Generator().manual_seed(8)
+    with torch.no_grad():
+        for p in t.net.parameters():
+            if p.dim() == 1:
+                p.add_(0.1 * torch.randn(p.shape, generator=gen).to(device))
+    if x64:
+        t.net.double()
+        t.dtype = torch.float64
+    data = SegData(2, args.crop_size, seed=6)
+    x, y = seg_batch(data, 0, 2, device)
+    logits = []
+    hook = t.net.register_forward_hook(lambda m, i, o: logits.append(o))
+    loss, _ = t.eval_step(x, y)
+    hook.remove()
+    net = t.net
+    before = {n: p.detach().clone() for n, p in net.named_parameters()}
+    train_loss, _ = t.train_step(x, y, args.lr)
+    return ({"logits": logits[0], "loss": loss},
+            {"loss": float(train_loss)},
+            {n: p.grad for n, p in net.named_parameters()},
+            {n: p.detach() - before[n] for n, p in net.named_parameters()},
+            {n: t.optimizer.state[p]["momentum_buffer"]
+             for n, p in net.named_parameters()},
+            {k: v for k, v in net.state_dict().items() if "running" in k})
+
+
+def seg_card_vs_cpu(tmp):
+    for dname, x64 in (("float32", False), ("float64", True)):
+        d = rn_distances(seg_run(tmp, SEG_DEVICE, x64),
+                         seg_run(tmp, "cpu", x64))
+        tol = RN_CARD_CPU_TOL[dname]
+        log(f"  card vs CPU, SegTrainer (ResNet-14, crop "
+            f"{SEG_CARD_CPU['crop_size']}, batch {SEG_CARD_CPU['batch_size']}"
+            f"), {dname}: " + ", ".join(f"{k} {v:.2e} ({tol[k]:.3g})"
+                                       for k, v in d.items()))
+        bad = {k: v for k, v in d.items() if not v <= tol[k]}
+        if bad:
+            raise AssertionError(f"segtrain card and CPU disagree in {dname}: "
+                                 f"{bad}")
+
+
+def phase_segtrain():
+    """9: the generic DeepLabV3+ trainer (``seg2eye_tpu_torch.segtrain``) at
+    the CLI's pascal defaults, seeded weights, seeded normalised batches
+    in memory, in a temporary working directory."""
+    import os
+    import tempfile
+
+    from seg2eye_tpu_torch.ops import spade_style as K
+
+    K.spade_style.launches = 0
+    t_phase = time.perf_counter()
+    flags = tf32_flags()
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as tmp:
+        os.chdir(tmp)
+        try:
+            crop = seg_args(tmp).crop_size
+            train = SegData(SEG_TRAIN_IMAGES, crop, seed=0)
+            val = SegData(SEG_VAL_IMAGES, crop, seed=1)
+            flops = None
+            for dname in ("float32", "bfloat16"):
+                t0 = time.perf_counter()
+                argv = () if dname == "float32" else ("--precision", dname)
+                t = seg_trainer(seg_args(tmp, *argv, checkname=dname),
+                                train, val)
+                if flops is None:
+                    flops = seg_flops(t)
+                    a, count = t.args, sum(p.numel()
+                                           for p in t.net.parameters())
+                    layers = getattr(a, "resnet_layers", (3, 4, 23, 3))
+                    log(f"segtrain: DeepLab ({a.backbone} {layers}, os"
+                        f"{a.out_stride}, {t.nclass} classes, crop {crop}, "
+                        f"batch {a.batch_size}, {a.epochs} epochs): "
+                        f"{count:,} parameters, seeded init "
+                        f"{time.perf_counter() - t0:.1f} s; "
+                        f"{flops[0] / 1e9:.1f} GFLOP per image forward, "
+                        f"{flops[1] / 1e9:.1f} per image training step")
+                    if not SEG_OVERRIDES and count != SEG_PARAMS:
+                        raise AssertionError(f"segtrain: {count} parameters, "
+                                             f"expected {SEG_PARAMS}")
+                seg_train(t, dname, flops[1])
+                seg_validate(t, dname, flops[0])
+                if dname == "bfloat16":
+                    seg_options(tmp, t, train, val)
+                del t
+                torch.cuda.empty_cache()
+            seg_card_vs_cpu(tmp)
+        finally:
+            os.chdir(cwd)
+    if K.spade_style.launches:
+        raise AssertionError(f"phase 9 launched the SPADE+Style kernel "
+                             f"{K.spade_style.launches} times")
+    if tf32_flags() != flags:
+        raise AssertionError(f"phase 9 left the TF32 flags at {tf32_flags()}")
+    foreign = sorted(m for m in sys.modules if m.split(".")[0] in
+                     ("jax", "jaxlib", "flax", "seg2eye_tpu"))
+    if foreign:
+        raise AssertionError(f"phase 9 imported {foreign[:5]}")
+    log(f"segtrain: phase 9 in {time.perf_counter() - t_phase:.1f} s, no "
+        "SPADE+Style launch")
+
+
 def main():
     kind = phase_device()
     phase_build()
@@ -2185,6 +2602,7 @@ def main():
     options = phase_options()
     phase_refinenet()
     serving_launches = phase_serving()
+    phase_segtrain()
     foreign = sorted(m for m in sys.modules if m.split(".")[0] in
                      ("jax", "jaxlib", "flax", "seg2eye_tpu"))
     if foreign:

@@ -257,28 +257,33 @@ def distances(port_out, jax_out, before, wd, momentum, backbone="resnet"):
     per tensor relative to its norm plus NET_FLOOR times the net's.  The
     floor: a BN bias's gradient is a sum over the batch that nearly
     cancels (the next train-mode BN projects the mean out of it), so its
-    relative error is that of its terms times the cancellation."""
+    relative error is that of its terms times the cancellation.  Computed
+    in float64 torch ops (twice numpy's speed on these nets' 3e7 values)."""
+    def tensors(arrays):      # float64, copied where read-only or float32
+        return {k: torch.from_numpy(np.require(v, np.float64, "W"))
+                for k, v in arrays.items()}
+
     scalars, sd, mom, grads = port_out
     jscal, jvars, jtrace = jax_out
-    want = torch_export.export_deeplab(jvars, backbone)
-    trace = torch_export.export_deeplab(
-        {"params": jtrace, "batch_stats": jvars["batch_stats"]}, backbone)
-    params0, mom0 = before
+    want = tensors(torch_export.export_deeplab(jvars, backbone))
+    trace = tensors(torch_export.export_deeplab(
+        {"params": jtrace, "batch_stats": jvars["batch_stats"]}, backbone))
+    params0, mom0 = tensors(before[0]), tensors(before[1])
 
     def rel(got, ref):
-        net = np.sqrt(sum(np.sum(r ** 2) for r in ref.values()))
-        return max(float(np.linalg.norm(got[k].double().numpy() - r)
-                         / (np.linalg.norm(r) + NET_FLOOR * net))
+        net = float(torch.sqrt(sum(torch.sum(r * r) for r in ref.values())))
+        return max(float(torch.linalg.vector_norm(got[k].double() - r)
+                         / (torch.linalg.vector_norm(r) + NET_FLOOR * net))
                    for k, r in ref.items())
+
+    def max_abs(k):
+        return float((sd[k].double() - want[k]).abs().max())
 
     assert sorted(scalars) == sorted(jscal)
     return {"scalars": max(abs(scalars[k] - float(jscal[k])) /
                            (1 + abs(float(jscal[k]))) for k in jscal),
-            "params": max(float(np.abs(sd[k].double().numpy()
-                                       - want[k]).max()) for k in mom),
-            "stats": max(float(np.abs(sd[k].double().numpy()
-                                      - want[k]).max())
-                         for k in want if "running" in k),
+            "params": max(max_abs(k) for k in mom),
+            "stats": max(max_abs(k) for k in want if "running" in k),
             "momentum": rel(mom, {k: trace[k] for k in mom}),
             "grads": rel(grads, {k: trace[k] - momentum * mom0.get(k, 0.0)
                                  - wd * params0[k] for k in mom})}

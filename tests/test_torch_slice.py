@@ -312,9 +312,12 @@ def test_parse_options_matches_jax(argv, is_train, capsys):
 
 def test_port_imports_no_jax():
     """Every module of the port imports without jax, flax or anything of
-    the JAX package."""
+    the JAX package, and with PIL, h5py and cv2 blocked, as on the card's
+    machine, which has none of them."""
     code = (
         "import importlib, pkgutil, sys\n"
+        "for m in ('PIL', 'h5py', 'cv2'):\n"
+        "    sys.modules[m] = None\n"
         "import seg2eye_tpu_torch as p\n"
         "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
         "    importlib.import_module(m.name)\n"
@@ -359,7 +362,9 @@ def test_port_source_never_imports_jax_package(tmp_path):
               os.path.join(REPO, "tools", "tf32_flush_study.py"),
               os.path.join(REPO, "tools", "time_torch_slice.py"),
               os.path.join(REPO, "tools", "time_torch_options.py"),
-              os.path.join(REPO, "tools", "bench_torch_serving.py")]
+              os.path.join(REPO, "tools", "bench_torch_serving.py"),
+              os.path.join(REPO, "tools", "time_torch_convs.py"),
+              os.path.join(REPO, "tools", "profile_torch_segtrain.py")]
     assert len(files) >= 20
     bad = {os.path.relpath(f, REPO): imports_of_jax_package(f) for f in files}
     assert not {f: v for f, v in bad.items() if v}

@@ -4,8 +4,8 @@ timed on one CUDA card in both layouts, to set the layout rule of
 ``models/layers.apply_conv`` (``nchw_copy``); then whole models under each
 rule.
 
-    python3 tools/time_torch_convs.py [--parts convs models] [--repeats 10]
-        [--out FILE.json]
+    python3 tools/time_torch_convs.py [--parts convs models dilated]
+        [--repeats 10] [--out FILE.json]
 
 Each conv runs at its shape on the 640x400 RefineNet/SegNet path (NCHW
 shapes of the activation it reads): depthwise 3x3 at stride 1 and 2 and
@@ -25,6 +25,14 @@ os16: the backbones with dilated depthwise convs), ``eval_step`` at batch
 32 and ``train_step`` at batch 8 in both dtypes, under each rule of
 RULES, timed in turns (CUDA events, median of ``--repeats``), the
 outputs of each rule's eval held against the first's.
+
+``dilated`` (not run by default): the bfloat16 dilated convs of DeepLab
+ResNet-101 os16 (the ASPP's d6/d12/d18, layer4's d2/d4/d8) forward, at the
+segmentation trainer's crop 513 (33x33 features, batch 4), at crop 512
+(32x32) and at RefineNet's 640x400 (40x25, batch 8): on channels_last
+input (the port's), on an NCHW copy, and on the channels_last input
+padded by the dilation beforehand (the conv's own padding 0), each
+output held against the first's.
 
 Prints one line per cell and, last, one JSON object with every cell.
 """
@@ -69,6 +77,14 @@ RULES = {
 }
 MODELS = (("xception", 16), ("xception", 8), ("mobilenet", 16))
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+# name, C_in, C_out, dilation; (batch, H, W) of the input
+DILATED = (("aspp 2048->256 d6", 2048, 256, 6),
+           ("aspp 2048->256 d12", 2048, 256, 12),
+           ("aspp 2048->256 d18", 2048, 256, 18),
+           ("layer4 512->512 d2", 512, 512, 2),
+           ("layer4 512->512 d4", 512, 512, 4),
+           ("layer4 512->512 d8", 512, 512, 8))
+DILATED_SHAPES = ((4, 33, 33), (4, 32, 32), (8, 40, 25))
 
 
 def make_call(x, w, stride, dilation, groups, layout, train):
@@ -134,7 +150,7 @@ def time_models(repeats):
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--parts", nargs="+", default=["convs", "models"],
-                    choices=["convs", "models"])
+                    choices=["convs", "models", "dilated"])
     ap.add_argument("--repeats", type=int, default=10)
     ap.add_argument("--out", default="")
     args = ap.parse_args()
@@ -149,6 +165,8 @@ def main():
         result["rows"] = time_convs(args.repeats)
     if "models" in args.parts:
         result["models"] = time_models(args.repeats)
+    if "dilated" in args.parts:
+        result["dilated"] = time_dilated(args.repeats)
     if args.out:
         with open(args.out, "w") as f:
             json.dump(result, f, indent=1)
@@ -192,6 +210,40 @@ def time_convs(repeats):
                       f"{diff:.1e} apart", flush=True)
                 del x, wt, calls, outs
                 torch.cuda.empty_cache()
+    return rows
+
+
+def time_dilated(repeats):
+    """Each DILATED conv at each DILATED_SHAPES input, bfloat16 forward,
+    in three input forms."""
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    forms = ("channels_last", "NCHW copy", "pre-padded")
+    rows = []
+    for b, h, w in DILATED_SHAPES:
+        for name, cin, cout, d in DILATED:
+            x = torch.randn(b, cin, h, w, device="cuda", generator=gen,
+                            dtype=torch.bfloat16).contiguous(
+                memory_format=torch.channels_last)
+            wt = torch.randn(cout, cin, 3, 3, device="cuda", generator=gen,
+                             dtype=torch.bfloat16) * 0.05
+            calls = [
+                lambda: F.conv2d(x, wt, None, 1, d, d),
+                lambda: F.conv2d(
+                    x.clone(memory_format=torch.contiguous_format), wt, None,
+                    1, d, d),
+                lambda: F.conv2d(F.pad(x, (d, d, d, d)), wt, None, 1, 0, d)]
+            with torch.no_grad():
+                outs = [c().float() for c in calls]
+                diff = max(float((o - outs[0]).abs().max()
+                                 / outs[0].abs().max()) for o in outs)
+                ms = time_turns(calls, 2, repeats)
+            rows.append(dict(conv=name, batch=b, h=h, w=w,
+                             ms=dict(zip(forms, ms)), rel_diff=diff))
+            print(f"{name:20s} bs{b} {h}x{w} bfloat16 forward: " + ", ".join(
+                f"{f} {t:.3f} ms" for f, t in zip(forms, ms))
+                + f"; outputs {diff:.1e} apart", flush=True)
+            del x, wt, outs
+            torch.cuda.empty_cache()
     return rows
 
 
