@@ -115,7 +115,23 @@ Phases; any failure raises and the script exits non-zero:
      --ft (no momentum).  Card against CPU: ResNet-14 at crop 33, batch 2,
      one eval and one train step from identical states in float32 and
      float64 within phase 6's limits.  No SPADE+Style launch.
-Nothing of JAX or of the JAX package may have been imported.
+  10. interop (after phase 9): the JAX package's checkpoint files,
+     written by the port and read back, in a temporary directory.  The
+     default model at bs16 in float32 and bfloat16: 2 iterations, then
+     ``utils.checkpoint.save_state_jax`` ({epoch}_net_{G,D,E}.ckpt and
+     _optim.ckpt, flax msgpack) and ``load_state`` into a fresh state:
+     every parameter, buffer and Adam tensor bit for bit (BN
+     num_batches_tracked aside: the JAX format has no place for it), a
+     scored bs16 batch bitwise equal to the live model's (18 K1 launches),
+     and the next iteration (36 launches), taken by both states under
+     deterministic algorithms, bit for bit the live run's.  RefineNet (ResNet-101 os16,
+     640x400, bs8) through ``CheckpointManager(fmt="flax")`` and segtrain
+     (pascal defaults, crop 513, bs4) through ``--resume`` of a JAX
+     checkpoint.ckpt: weights, statistics and momentum bit for bit, eval
+     outputs bitwise, epoch and best_pred, no K1 launch.  File sizes and
+     write/load seconds are printed;
+Nothing of JAX, flax, optax, msgpack or the JAX package may have been
+imported.
 The port keeps float32 in full float32 by itself (its float32 forward and
 plain versions turn TF32 off around their own convolutions); the cuDNN
 calls this script makes directly set the flags around themselves.  The
@@ -2593,6 +2609,289 @@ def phase_segtrain():
         "SPADE+Style launch")
 
 
+# --------------------------------------------------------------- phase 10
+# The JAX package's checkpoint files written by the port and read back on
+# the card: the default Seg2Eye model at bs16 (both dtypes), RefineNet
+# (ResNet-101 os16, 640x400, bs8) and segtrain (pascal defaults, crop
+# 513, bs4).  A loaded state must equal the live one bit for bit, and so
+# must the next training iteration from it: both states take that
+# iteration under deterministic algorithms (``deterministic``), since the
+# card's f32 backward otherwise sums in another order from run to run
+# (atomics in cuDNN and in index_select's backward).
+INTEROP_TRAIN_ITERS = 2
+# a CPU rehearsal shrinks the Seg2Eye model here (ngf, crop_size, ...)
+INTEROP_OVERRIDES = {}
+
+
+def tensors_equal(where, a, b):
+    """Two {name: tensor} maps bit for bit; BN ``num_batches_tracked``,
+    which the JAX format has no place for, skipped."""
+    bad = [k for k, v in a.items() if not k.endswith("num_batches_tracked")
+           and not (v.dtype == b[k].dtype and torch.equal(v, b[k]))]
+    if bad or set(a) != set(b):
+        raise AssertionError(f"{where}: not bit for bit: {bad[:5]}")
+    return len(a)
+
+
+def optimizer_tensors(optimizer, net_params):
+    """{param name/state key: tensor} of an optimizer's state."""
+    return {f"{n}/{k}": v for n, p in net_params
+            for k, v in optimizer.state.get(p, {}).items()}
+
+
+def seg2eye_named_params(model):
+    return [(f"{name}.{n}", p) for name, net in nets_of(model).items()
+            for n, p in net.named_parameters()]
+
+
+@contextlib.contextmanager
+def deterministic():
+    """PyTorch's deterministic algorithms (index_add's sorted sums, cuDNN's
+    deterministic convolutions), restored after.  In that mode PyTorch
+    refuses cuBLAS calls unless CUBLAS_WORKSPACE_CONFIG fixes cuBLAS's
+    workspace; PyTorch read the variable for its workspace size at its
+    first cuBLAS call, long before, and on Hopper already uses the size
+    named here (8 x 4096 KiB), so setting it changes no cuBLAS call."""
+    import os
+
+    saved = (torch.are_deterministic_algorithms_enabled(),
+             torch.backends.cudnn.deterministic,
+             torch.backends.cudnn.benchmark,
+             os.environ.get("CUBLAS_WORKSPACE_CONFIG"))
+    os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
+    torch.use_deterministic_algorithms(True)
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(saved[0])
+        torch.backends.cudnn.deterministic = saved[1]
+        torch.backends.cudnn.benchmark = saved[2]
+        if saved[3] is None:
+            del os.environ["CUBLAS_WORKSPACE_CONFIG"]
+        else:
+            os.environ["CUBLAS_WORKSPACE_CONFIG"] = saved[3]
+
+
+def interop_seg2eye(tmp, nets_cpu, opt, dname):
+    from seg2eye_tpu_torch.eval.tester import Tester
+    from seg2eye_tpu_torch.ops import spade_style as K
+    from seg2eye_tpu_torch.train import steps
+    from seg2eye_tpu_torch.utils import checkpoint
+
+    dopt = opt.replace(compute_dtype=dname, checkpoints_dir=tmp,
+                       name=f"interop-{dname}")
+    live = train_state(dopt, nets_cpu)
+    batches = [make_train_batch(dopt, TRAIN_BATCH, seed=40 + i)
+               for i in range(INTEROP_TRAIN_ITERS + 1)]
+    for batch in batches[:-1]:
+        steps.train_step(live, batch)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sizes = checkpoint.save_state_jax(live, dopt, "latest")
+    write_s = time.perf_counter() - t0
+    loaded = train_state(dopt, nets_cpu)
+    t0 = time.perf_counter()
+    checkpoint.load_state(loaded, dopt, "latest")
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    n = 0
+    for name, net in nets_of(live.model).items():
+        n += tensors_equal(f"{dname} net{name}", net.state_dict(),
+                           nets_of(loaded.model)[name].state_dict())
+    for which in ("opt_g", "opt_d"):
+        n += tensors_equal(
+            f"{dname} {which}",
+            optimizer_tensors(getattr(live, which),
+                              seg2eye_named_params(live.model)),
+            optimizer_tensors(getattr(loaded, which),
+                              seg2eye_named_params(loaded.model)))
+    if not loaded.step == live.step == INTEROP_TRAIN_ITERS:
+        raise AssertionError(f"{dname}: step {loaded.step}")
+
+    score = make_batch(dopt, BATCH, seed=50)
+    want, want_fake = Tester(dopt).score_batch(live.model, score)
+    K.spade_style.launches = 0
+    got, got_fake = Tester(dopt).score_batch(loaded.model, score)
+    score_launches = K.spade_style.launches
+    if not (np.array_equal(got, want) and np.array_equal(got_fake, want_fake)
+            and score_launches == len(SITES)):
+        raise AssertionError(f"{dname}: the loaded model's scores equal: "
+                             f"{np.array_equal(got, want)}, fakes equal: "
+                             f"{np.array_equal(got_fake, want_fake)}, "
+                             f"{score_launches} K1 launches")
+
+    with deterministic():
+        lw, _ = steps.train_step(live, batches[-1])
+        K.spade_style.launches = 0
+        lg, _ = steps.train_step(loaded, batches[-1])
+        torch.cuda.synchronize()
+    step_launches = K.spade_style.launches
+    losses = [k for k in lw if not torch.equal(lg[k], lw[k])]
+    if step_launches != TRAIN_LAUNCHES or losses:
+        raise AssertionError(f"{dname}: the resumed iteration's losses "
+                             f"{losses} differ from the live run's; "
+                             f"{step_launches} K1 launches")
+    m = 0
+    for name, net in nets_of(live.model).items():
+        m += tensors_equal(f"{dname} resumed net{name}", net.state_dict(),
+                           nets_of(loaded.model)[name].state_dict())
+    for which in ("opt_g", "opt_d"):
+        m += tensors_equal(
+            f"{dname} resumed {which}",
+            optimizer_tensors(getattr(live, which),
+                              seg2eye_named_params(live.model)),
+            optimizer_tensors(getattr(loaded, which),
+                              seg2eye_named_params(loaded.model)))
+    del live, loaded
+    torch.cuda.empty_cache()
+    total = sum(sizes.values())
+    log(f"  Seg2Eye {dname} bs{TRAIN_BATCH}: after {INTEROP_TRAIN_ITERS} "
+        f"iterations save_state_jax wrote {', '.join(f'{k} {v / 1e6:.1f} MB' for k, v in sizes.items())} "
+        f"({total / 1e6:.1f} MB) in {write_s:.2f} s; load_state read them "
+        f"into a fresh state in {load_s:.2f} s: {n} tensors bit for bit "
+        f"(weights, buffers, both Adam states); the scored bs{BATCH} batch "
+        f"bitwise equal ({score_launches} K1 launches); the next iteration "
+        f"under deterministic algorithms ({step_launches} K1 launches) "
+        f"bitwise equal to the live run's: losses and {m} tensors")
+    return {"score": score_launches, "train": step_launches}
+
+
+def interop_refinenet(tmp):
+    import os
+
+    from seg2eye_tpu_torch.ops import spade_style as K
+    from seg2eye_tpu_torch.refinenet.checkpoint_manager import \
+        CheckpointManager
+
+    cfg = rn_config("RefineNet")
+    trainer = rn_trainer("RefineNet", rn_model("RefineNet", cfg, RN_DEVICE))
+    state = trainer.init_state(torch.Generator().manual_seed(0))
+    for i in range(INTEROP_TRAIN_ITERS):
+        trainer.train_step(state, rn_batch("RefineNet", cfg, cfg.batch_size,
+                                           seed=60 + i), 1e-4)
+    torch.cuda.synchronize()
+    manager = CheckpointManager(tmp)
+    t0 = time.perf_counter()
+    path = manager.save_at_step(INTEROP_TRAIN_ITERS, state, fmt="flax")
+    write_s = time.perf_counter() - t0
+    fresh_trainer = rn_trainer("RefineNet",
+                               rn_model("RefineNet", cfg, RN_DEVICE))
+    fresh = fresh_trainer.init_state(torch.Generator().manual_seed(7))
+    t0 = time.perf_counter()
+    step, fresh = CheckpointManager(tmp).load_last_checkpoint(fresh)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    net, other = state.model.net, fresh.model.net
+    n = tensors_equal("RefineNet", net.state_dict(), other.state_dict())
+    n += tensors_equal(
+        "RefineNet momentum",
+        optimizer_tensors(state.optimizer, net.named_parameters()),
+        optimizer_tensors(fresh.optimizer, other.named_parameters()))
+    batch = rn_batch("RefineNet", cfg, cfg.batch_size, seed=70)
+    K.spade_style.launches = 0
+    a = trainer.eval_step(state, batch)
+    b = fresh_trainer.eval_step(fresh, batch)
+    same = all(torch.equal(a[k], b[k]) for k in a)
+    if step != INTEROP_TRAIN_ITERS or fresh.step != step or not same \
+            or K.spade_style.launches:
+        raise AssertionError(f"RefineNet: step {step}/{fresh.step}, eval "
+                             f"outputs equal {same}, "
+                             f"{K.spade_style.launches} K1 launches")
+    size = os.path.getsize(path)
+    log(f"  RefineNet (resnet-{cfg.resnet_depth}, os{cfg.output_stride}, "
+        f"{cfg.input_height}x{cfg.input_width}) after {INTEROP_TRAIN_ITERS} "
+        f"steps at bs{cfg.batch_size}: {os.path.basename(path)} "
+        f"{size / 1e6:.1f} MB written in {write_s:.2f} s, read in "
+        f"{load_s:.2f} s; {n} tensors bit for bit (weights, running "
+        "statistics, momentum), eval outputs bitwise equal, 0 K1 launches")
+
+
+def interop_segtrain(tmp):
+    import os
+
+    from seg2eye_tpu_torch.ops import spade_style as K
+
+    crop = seg_args(tmp).crop_size
+    train = SegData(SEG_TRAIN_IMAGES, crop, seed=0)
+    val = SegData(SEG_VAL_IMAGES, crop, seed=1)
+    t = seg_trainer(seg_args(tmp, checkname="interop"), train, val)
+    x, y = seg_batch(train, 0, t.args.batch_size, t.device)
+    last = len(t.train_loader) - 1
+    for i in (last - 1, last):
+        t.train_step(x, y, t.scheduler(i, 0))
+    t.best_pred = 0.4375
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    path = t.saver.save_checkpoint(t.checkpoint_state(0, "flax"), False,
+                                   fmt="flax")
+    write_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    r = seg_trainer(seg_args(tmp, resume=path, checkname="interop-resumed"),
+                    train, val)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    n = tensors_equal("segtrain", t.net.state_dict(), r.net.state_dict())
+    n += tensors_equal(
+        "segtrain momentum",
+        optimizer_tensors(t.optimizer, t.net.named_parameters()),
+        optimizer_tensors(r.optimizer, r.net.named_parameters()))
+    vx, _ = seg_batch(val, 0, t.args.batch_size, t.device)
+    K.spade_style.launches = 0
+    with torch.no_grad():
+        same = torch.equal(t.net(t._input(vx), False),
+                           r.net(r._input(vx), False))
+    if not (same and r.args.start_epoch == 1 and r.best_pred == t.best_pred) \
+            or K.spade_style.launches:
+        raise AssertionError(f"segtrain: logits equal {same}, epoch "
+                             f"{r.args.start_epoch}, best_pred {r.best_pred}")
+    layers = getattr(t.args, "resnet_layers", (3, 4, 23, 3))
+    log(f"  segtrain ({t.args.backbone} {tuple(layers)}, os"
+        f"{t.args.out_stride}, crop {crop}, "
+        f"bs{t.args.batch_size}): checkpoint.ckpt "
+        f"{os.path.getsize(path) / 1e6:.1f} MB written in {write_s:.2f} s; "
+        f"--resume read it in {load_s:.2f} s (trainer set-up included): "
+        f"{n} tensors bit for bit, epoch 1, best_pred {r.best_pred}, eval "
+        "logits bitwise equal, 0 K1 launches")
+
+
+def phase_interop():
+    """10: the JAX package's checkpoint files (flax msgpack) written by the
+    port and read back on the card, in a temporary directory."""
+    import os
+    import tempfile
+
+    from seg2eye_tpu_torch.options import Options
+    from seg2eye_tpu_torch.utils.weights import init_networks
+
+    t_phase = time.perf_counter()
+    cwd = os.getcwd()
+    launches = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        opt = Options(batchSize=TRAIN_BATCH, **INTEROP_OVERRIDES).finalize()
+        nets_cpu = init_networks(opt, torch.Generator().manual_seed(0), "cpu")
+        for dname in ("float32", "bfloat16"):
+            launches[dname] = interop_seg2eye(tmp, nets_cpu, opt, dname)
+        del nets_cpu
+        interop_refinenet(tmp)
+        torch.cuda.empty_cache()
+        os.chdir(tmp)
+        try:
+            interop_segtrain(tmp)
+        finally:
+            os.chdir(cwd)
+        torch.cuda.empty_cache()
+    foreign = sorted(m for m in sys.modules if m.split(".")[0] in
+                     ("jax", "jaxlib", "flax", "seg2eye_tpu", "msgpack",
+                      "optax"))
+    if foreign:
+        raise AssertionError(f"phase 10 imported {foreign[:5]}")
+    log(f"interop: phase 10 in {time.perf_counter() - t_phase:.1f} s "
+        f"({card_line()})")
+    return launches
+
+
 def main():
     kind = phase_device()
     phase_build()
@@ -2603,8 +2902,10 @@ def main():
     phase_refinenet()
     serving_launches = phase_serving()
     phase_segtrain()
+    interop_launches = phase_interop()
     foreign = sorted(m for m in sys.modules if m.split(".")[0] in
-                     ("jax", "jaxlib", "flax", "seg2eye_tpu"))
+                     ("jax", "jaxlib", "flax", "seg2eye_tpu", "msgpack",
+                      "optax"))
     if foreign:
         raise AssertionError(f"the port's run imported {foreign[:5]}")
 
@@ -2614,7 +2915,9 @@ def main():
         "the slice in that dtype, train_launches in one training iteration "
         "in that dtype, remat_train_launches in one --remat iteration (crop "
         f"512), serving_launches in one call of that dtype's serving "
-        f"artifact (bs{BATCH}); max_abs_err over the crop-256 and odd "
+        f"artifact (bs{BATCH}), interop_score/train_launches in scoring "
+        f"bs{BATCH} from a loaded .ckpt and one resumed iteration; "
+        f"max_abs_err over the crop-256 and odd "
         f"site checks; ms, plain_ms, library_ms and bound_ms summed over the "
         f"18 sites at N={SITE_N}")
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
@@ -2626,6 +2929,8 @@ def main():
          "train_launches": train_launches[d],
          "remat_train_launches": options["7b"][d][0],
          "serving_launches": serving_launches[d],
+         "interop_score_launches": interop_launches[d]["score"],
+         "interop_train_launches": interop_launches[d]["train"],
          **{k: summary[d][k] for k in keys}}
         for d in ("bfloat16", "float32")]}))
     print(json.dumps({"ok": True, "device": {

@@ -31,15 +31,7 @@ import numpy as np
 import torch
 
 from seg2eye_tpu_torch.data import transforms
-
-
-def split_keys(dataset_key: str) -> Dict[str, str]:
-    """Split-dependent dataset names (reference openeds_dataset.py:44-48)."""
-    if dataset_key == "test":
-        return {"style_images": "images_ss", "labels": "labels_gen",
-                "filenames": "labels_gen_filenames"}
-    return {"style_images": "images_gen", "labels": "labels_ss",
-            "filenames": "images_ss_filenames"}
+from seg2eye_tpu_torch.data.schema import split_keys
 
 
 class OpenEDSDataset:

@@ -25,8 +25,11 @@ training.py).
     output (training.py:247-300).
 
 The train state lives in the model (weights, running statistics) and the
-optimizer, and steps change it in place.  Training is single-device: the
-JAX package's data-parallel mesh is not ported (ROADMAP Queue 1 item 17).
+optimizer, and steps change it in place.  ``resume_from`` also resumes a
+JAX package's run from its ``%07d.ckpt`` (``checkpoint_manager``); the run
+then writes the port's format beside them.  Training is single-device:
+the JAX package's data-parallel mesh is not ported (ROADMAP,
+"Multi-GPU").
 """
 from __future__ import annotations
 
@@ -255,14 +258,15 @@ def main_loop(model, cfg: RefineNetConfig, train_loader, test_data: Dict,
 
     trainer = Trainer(model, cfg, loss_key, momentum=momentum)
     state = trainer.init_state(torch.Generator().manual_seed(cfg.seed))
+    steps_per_epoch = max(1, len(train_loader.dataset) // cfg.batch_size)
     start_step = 0
     if cfg.resume_from:
-        step0, state = ckpt_mgr.load_last_checkpoint(state)
+        step0, state = ckpt_mgr.load_last_checkpoint(
+            state, lambda i: learning_rate_schedule(cfg, steps_per_epoch, i))
         if step0 is not None:
             start_step = step0
             logger.info("Resumed from step %d", start_step)
 
-    steps_per_epoch = max(1, len(train_loader.dataset) // cfg.batch_size)
     num_steps = int(cfg.num_epochs * steps_per_epoch)
     if cfg.max_steps:
         num_steps = min(num_steps, start_step + cfg.max_steps)

@@ -12,10 +12,12 @@ saver.py).
     through a temporary name and a rename; when ``is_best``, best_pred.txt,
     and the checkpoint is copied to <directory>/model_best.ckpt when it
     beats the best_pred.txt of every earlier run.
+    With ``fmt="flax"`` the state is the JAX package's payload {"epoch",
+    "best_pred", "params", "batch_stats", "opt"}, written as flax msgpack,
+    as its Saver writes it; ``load_checkpoint`` reads either format (told
+    apart by the first bytes), a JAX one as its plain tree.
   * ``save_experiment_config`` writes parameters.txt with the
     reference's 'datset' key.
-
-The JAX package's checkpoints (flax msgpack) do not load here.
 """
 from __future__ import annotations
 
@@ -27,6 +29,7 @@ from typing import Dict
 
 import torch
 
+from seg2eye_tpu_torch.utils import flax_msgpack
 from seg2eye_tpu_torch.utils.checkpoint import _atomic_save
 
 
@@ -42,10 +45,15 @@ class Saver:
         os.makedirs(self.experiment_dir, exist_ok=True)
 
     def save_checkpoint(self, state: Dict, is_best: bool,
-                        filename: str = "checkpoint.ckpt") -> str:
-        """``state``: {"epoch", "best_pred", "state_dict", "optimizer"}."""
+                        filename: str = "checkpoint.ckpt",
+                        fmt: str = "torch") -> str:
+        """``state``: {"epoch", "best_pred", "state_dict", "optimizer"}, or
+        with ``fmt="flax"`` the JAX package's payload."""
         filename = os.path.join(self.experiment_dir, filename)
-        _atomic_save(state, filename)
+        if fmt == "flax":
+            flax_msgpack.write(filename, state)
+        else:
+            _atomic_save(state, filename)
         if is_best:
             best_pred = float(state["best_pred"])
             with open(os.path.join(self.experiment_dir,
@@ -72,9 +80,11 @@ class Saver:
     @staticmethod
     def load_checkpoint(path: str) -> Dict:
         """The resume path (train.py:74-87): a saved state, its tensors on
-        the CPU."""
+        the CPU; a JAX package's checkpoint as its tree of numpy arrays."""
         if not os.path.isfile(path):
             raise RuntimeError(f"=> no checkpoint found at '{path}'")
+        if flax_msgpack.is_flax_msgpack(path):
+            return flax_msgpack.read(path)
         return torch.load(path, map_location="cpu", weights_only=True)
 
     def save_experiment_config(self) -> None:

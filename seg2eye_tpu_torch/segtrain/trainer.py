@@ -27,6 +27,9 @@ refinenet/deeplab/train.py).
   * ``training(epoch)`` logs the loss of every step, dumps images 10
     times an epoch and checkpoints with --no-val; ``validation(epoch)``
     computes the four metrics and promotes a best mIoU.
+  * ``--resume`` also takes the JAX package's checkpoint.ckpt /
+    model_best.ckpt (``_load_jax_checkpoint``); the run writes the
+    port's format.
   * ``build_argparser``/``finalize_args``/``main``: the reference's CLI
     and its per-dataset defaults, counted for one device.
 
@@ -56,6 +59,7 @@ from seg2eye_tpu_torch.segtrain.metrics import Evaluator, confusion_matrix
 from seg2eye_tpu_torch.segtrain.saver import Saver
 from seg2eye_tpu_torch.segtrain.summaries import TensorboardSummary
 from seg2eye_tpu_torch.segtrain.weights import calculate_weights_labels
+from seg2eye_tpu_torch.utils import flax_msgpack, optim_state, weights
 from seg2eye_tpu_torch.utils.precision import full_float32
 
 BATCH_KEYS = ("image", "label")
@@ -77,6 +81,34 @@ def set_lr(optimizer: torch.optim.SGD, lr: float) -> None:
     """The backbone group at ``lr``, the head group at 10 ``lr``."""
     backbone, head = optimizer.param_groups
     backbone["lr"], head["lr"] = lr, HEAD_LR_SCALE * lr
+
+
+def jax_payload(net: DeepLab, optimizer: torch.optim.SGD, args, epoch: int,
+                best_pred: float, count: int) -> dict:
+    """The JAX package's checkpoint payload {"epoch", "best_pred",
+    "params", "batch_stats", "opt"} (``seg2eye_tpu/segtrain/trainer.py``);
+    ``count`` is the optimizer's, which no member of its chain reads."""
+    return {"epoch": int(epoch), "best_pred": float(best_pred),
+            **weights.deeplab_to_jax_variables(net, args.backbone),
+            "opt": optim_state.segtrain_sgd_to_jax(optimizer, net, args,
+                                                   count)}
+
+
+def load_jax_payload(net: DeepLab, optimizer: Optional[torch.optim.SGD],
+                     args, ckpt: dict, where: str,
+                     lr: Optional[float] = None) -> None:
+    """A JAX package's checkpoint payload, its structure checked against
+    ``net``'s: the weights strictly and, with ``optimizer``, the momentum;
+    with ``lr``, its learning rate must be that."""
+    fresh = optimizer or make_optimizer(net, args)
+    flax_msgpack.check_like(ckpt, jax_payload(net, fresh, args, 0, 0.0, 0),
+                            where)
+    net.load_state_dict(weights.deeplab_from_jax_variables(
+        ckpt, args.backbone), strict=True)
+    if optimizer is not None:
+        if lr is not None:
+            optim_state.check_lr(ckpt["opt"], lr, where)
+        optim_state.sgd_from_jax(optimizer, net, args.backbone, ckpt["opt"])
 
 
 class SegTrainer:
@@ -124,14 +156,18 @@ class SegTrainer:
                                      args.epochs, len(self.train_loader))
         self.optimizer = make_optimizer(self.net, args)
 
-        # resuming a checkpoint (train.py:72-91)
+        # resuming a checkpoint (train.py:72-91), the port's or the JAX
+        # package's
         self.best_pred = 0.0
         if args.resume is not None:
             ckpt = Saver.load_checkpoint(args.resume)
             args.start_epoch = int(ckpt["epoch"])
-            self.net.load_state_dict(ckpt["state_dict"])
-            if not args.ft:
-                self.optimizer.load_state_dict(ckpt["optimizer"])
+            if "params" in ckpt:
+                self._load_jax_checkpoint(ckpt, args.resume)
+            else:
+                self.net.load_state_dict(ckpt["state_dict"])
+                if not args.ft:
+                    self.optimizer.load_state_dict(ckpt["optimizer"])
             self.best_pred = float(ckpt["best_pred"])
             print(f"=> loaded checkpoint '{args.resume}' "
                   f"(epoch {ckpt['epoch']})")
@@ -169,13 +205,28 @@ class SegTrainer:
             pred = torch.argmax(logits, dim=1)
         return loss, confusion_matrix(target, pred, self.nclass)
 
-    def checkpoint_state(self, epoch: int) -> dict:
+    def checkpoint_state(self, epoch: int, fmt: str = "torch") -> dict:
         """What checkpoint.ckpt holds after ``epoch``: the reference's
-        keys, the weights as CPU tensors."""
+        keys, the weights as CPU tensors; with ``fmt="flax"`` the JAX
+        package's payload, its optimizer count that of full epochs."""
+        if fmt == "flax":
+            return jax_payload(self.net, self.optimizer, self.args, epoch + 1,
+                               self.best_pred,
+                               (epoch + 1) * len(self.train_loader))
         return {"epoch": epoch + 1, "best_pred": self.best_pred,
                 "state_dict": {k: v.detach().cpu()
                                for k, v in self.net.state_dict().items()},
                 "optimizer": self.optimizer.state_dict()}
+
+    def _load_jax_checkpoint(self, ckpt: dict, where: str) -> None:
+        """Unless --ft, the checkpoint's learning rate must be the
+        scheduler's at the last step of its epoch."""
+        epoch = int(ckpt["epoch"])
+        lr = None
+        if not self.args.ft and epoch > 0:
+            lr = self.scheduler(len(self.train_loader) - 1, epoch - 1)
+        load_jax_payload(self.net, None if self.args.ft else self.optimizer,
+                         self.args, ckpt, where, lr)
 
     # ------------------------------------------------------------------ #
     def training(self, epoch: int, step_hook=None) -> float:

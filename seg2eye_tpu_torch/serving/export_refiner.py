@@ -12,6 +12,11 @@ export random weights) and writes a batch-polymorphic artifact
 device it was exported on (``--device``, default cuda; a missing card is
 an error).
 
+``--jax_artifact DIR`` exports a JAX package's refiner artifact instead
+(its ``variables.msgpack`` and ``meta.json``; default output
+``DIR/serving_torch``); ``--model`` and the config flags are then taken
+from its meta.
+
 ``--verify`` reloads the artifact and compares it with the live model's
 ``eval_step`` on a seeded batch of 2; exit code 1 on a mismatch.
 """
@@ -33,6 +38,7 @@ def main(argv=None) -> int:
                      help="default: <resume_from>/serving_<model>")
     pre.add_argument("--device", default="cuda")
     pre.add_argument("--verify", action="store_true")
+    pre.add_argument("--jax_artifact", default=None)
     ns, rest = pre.parse_known_args(argv)
     device = torch.device(ns.device)
     if device.type == "cuda" and not torch.cuda.is_available():
@@ -42,28 +48,42 @@ def main(argv=None) -> int:
         CheckpointManager
     from seg2eye_tpu_torch.refinenet.config import RefineNetConfig
     from seg2eye_tpu_torch.refinenet.model import RefineNetModel, SegNetModel
-    from seg2eye_tpu_torch.refinenet.training import Trainer
+    from seg2eye_tpu_torch.refinenet.training import Trainer, TrainState
     from seg2eye_tpu_torch.serving import export_refiner, load_serving
+    from seg2eye_tpu_torch.serving.from_jax import refiner_from_jax_artifact
 
-    cfg = RefineNetConfig.from_args(rest)
-    if not cfg.resume_from:
-        raise SystemExit("--resume_from OUTPUT_DIR required")
-    if ns.model == "refinenet":
-        trainer = Trainer(RefineNetModel(cfg, device), cfg,
-                          loss_key="eds_loss")
+    if ns.jax_artifact:
+        model = refiner_from_jax_artifact(ns.jax_artifact, device)
+        cfg = model.cfg
+        ns.model = "refinenet" if isinstance(model, RefineNetModel) \
+            else "segnet"
+        trainer = Trainer(model, cfg, loss_key="eds_loss"
+                          if ns.model == "refinenet" else "ce_loss")
+        state = TrainState(model, None)
+        out_dir = ns.out_dir or os.path.join(ns.jax_artifact, "serving_torch")
     else:
-        trainer = Trainer(SegNetModel(cfg, device), cfg, loss_key="ce_loss")
-    state = trainer.init_state(torch.Generator().manual_seed(cfg.seed))
-    step, state = CheckpointManager(cfg.resume_from, cfg.checkpoints_keep_n
-                                    ).load_last_checkpoint(state)
-    if step is None:                  # never export random weights
-        raise SystemExit(
-            f"no checkpoint found under '{cfg.resume_from}/checkpoints': a "
-            "serving artifact of random weights would be garbage; check "
-            "--resume_from")
-    print(f"loaded checkpoint at step {step}")
-    out_dir = ns.out_dir or os.path.join(cfg.resume_from,
-                                         f"serving_{ns.model}")
+        cfg = RefineNetConfig.from_args(rest)
+        if not cfg.resume_from:
+            raise SystemExit("--resume_from OUTPUT_DIR or --jax_artifact "
+                             "DIR required")
+        if ns.model == "refinenet":
+            trainer = Trainer(RefineNetModel(cfg, device), cfg,
+                              loss_key="eds_loss")
+        else:
+            trainer = Trainer(SegNetModel(cfg, device), cfg,
+                              loss_key="ce_loss")
+        state = trainer.init_state(torch.Generator().manual_seed(cfg.seed))
+        step, state = CheckpointManager(cfg.resume_from,
+                                        cfg.checkpoints_keep_n
+                                        ).load_last_checkpoint(state)
+        if step is None:                  # never export random weights
+            raise SystemExit(
+                f"no checkpoint found under '{cfg.resume_from}/checkpoints': "
+                "a serving artifact of random weights would be garbage; "
+                "check --resume_from")
+        print(f"loaded checkpoint at step {step}")
+        out_dir = ns.out_dir or os.path.join(cfg.resume_from,
+                                             f"serving_{ns.model}")
     export_refiner(state.model, out_dir)
     size = sum(os.path.getsize(os.path.join(out_dir, f))
                for f in os.listdir(out_dir))

@@ -13,6 +13,11 @@ does, then writes a batch-polymorphic artifact (``program.pt2`` +
 model code.  The artifact runs only on the device it was exported on
 (``--device``, default cuda; a missing card is an error).
 
+``--jax_artifact DIR`` exports a JAX package's serving artifact instead:
+its ``variables.msgpack`` and ``meta.json`` (options, native size) make
+the live model; ``--name`` then only names the default output directory
+(``DIR/serving_torch``).
+
 ``--verify`` reloads the artifact and compares it with the live model on a
 seeded batch of 2; exit code 1 on a mismatch.
 """
@@ -30,7 +35,11 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(
         description=__doc__,
         formatter_class=argparse.RawDescriptionHelpFormatter)
-    ap.add_argument("--name", required=True)
+    ap.add_argument("--name", default=None,
+                    help="the run (required without --jax_artifact)")
+    ap.add_argument("--jax_artifact", default=None,
+                    help="a JAX package's serving artifact directory to "
+                         "export from")
     ap.add_argument("--checkpoints_dir", default="./checkpoints")
     ap.add_argument("--which_epoch", default="latest")
     ap.add_argument("--out_dir", default=None,
@@ -59,17 +68,26 @@ def main(argv=None) -> int:
     from seg2eye_tpu_torch.ops.image import to_255resized
     from seg2eye_tpu_torch.options import Options
     from seg2eye_tpu_torch.serving import export_inference, load_serving
+    from seg2eye_tpu_torch.serving.from_jax import seg2eye_from_jax_artifact
     from seg2eye_tpu_torch.utils.checkpoint import load_networks
 
-    expr_dir = os.path.join(args.checkpoints_dir, args.name)
-    opt = Options.load(expr_dir).replace(
-        checkpoints_dir=args.checkpoints_dir, name=args.name, isTrain=False,
-        eval_use_running_stats=args.stats == "running")
-    nets = load_networks(build_networks(opt), opt, args.which_epoch)
-    model = Pix2Pix(opt, nets, device)
-    out_dir = args.out_dir or os.path.join(expr_dir,
-                                           f"serving_{args.which_epoch}")
-    nh, nw = (int(v) for v in args.native_hw.split(","))
+    if args.jax_artifact:
+        model, (nh, nw) = seg2eye_from_jax_artifact(args.jax_artifact, device)
+        opt = model.opt
+        out_dir = args.out_dir or os.path.join(args.jax_artifact,
+                                               "serving_torch")
+    elif args.name:
+        expr_dir = os.path.join(args.checkpoints_dir, args.name)
+        opt = Options.load(expr_dir).replace(
+            checkpoints_dir=args.checkpoints_dir, name=args.name,
+            isTrain=False, eval_use_running_stats=args.stats == "running")
+        nets = load_networks(build_networks(opt), opt, args.which_epoch)
+        model = Pix2Pix(opt, nets, device)
+        out_dir = args.out_dir or os.path.join(expr_dir,
+                                               f"serving_{args.which_epoch}")
+        nh, nw = (int(v) for v in args.native_hw.split(","))
+    else:
+        raise SystemExit("--name or --jax_artifact required")
     export_inference(model, out_dir, native_hw=(nh, nw))
     size = sum(os.path.getsize(os.path.join(out_dir, f))
                for f in os.listdir(out_dir))

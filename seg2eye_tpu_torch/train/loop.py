@@ -10,7 +10,8 @@ reference's cadence: the losses to stdout and ``loss_log.txt``, a partial
 checkpoint with ``iter.txt``, and full validation; at the end of an epoch,
 ``latest`` and ``{epoch}`` checkpoints.  A resumed run (``continue_train``)
 loads networks, optimizers and step, and skips the batches its epoch had
-already trained, so it continues the unbroken run bit for bit.  Ctrl-C and
+already trained, so it continues the unbroken run bit for bit; resumed
+from the JAX package's ``.ckpt`` files, it goes on writing that format.  Ctrl-C and
 SIGTERM end in the same final save as a normal finish.
 
 Batches move to the device one step ahead (``data.openeds.
@@ -130,7 +131,10 @@ def train(opt, max_steps: Optional[int] = None, step_hook=None,
     model = state.model
     iter_counter = IterationCounter(opt, len(dataloader) * opt.batchSize)
     resume_skip = 0
+    # a run resumed from the JAX package's files goes on writing them
+    fmt = "torch"
     if opt.continue_train and checkpoint.has_checkpoint(opt, opt.which_epoch):
+        fmt = checkpoint.checkpoint_format(opt, opt.which_epoch)
         checkpoint.load_state(state, opt, opt.which_epoch)
         print(f"Resumed networks from '{opt.which_epoch}' checkpoint")
         resume_skip = iter_counter.epoch_iter // opt.batchSize
@@ -187,7 +191,7 @@ def train(opt, max_steps: Optional[int] = None, step_hook=None,
                 if iter_counter.needs_saving():
                     print("saving the latest model (epoch %d, total_steps %d)"
                           % (epoch, iter_counter.total_steps_so_far))
-                    checkpoint.save_state(state, opt, "latest")
+                    checkpoint.save_state(state, opt, "latest", fmt)
                     iter_counter.record_current_iter()
                 if iter_counter.needs_full_validation():
                     testers = testers or _testers(opt, visualizer)
@@ -205,8 +209,8 @@ def train(opt, max_steps: Optional[int] = None, step_hook=None,
                     or epoch == iter_counter.total_epochs):
                 print("saving the model at the end of epoch %d, iters %d"
                       % (epoch, iter_counter.total_steps_so_far))
-                checkpoint.save_state(state, opt, "latest")
-                checkpoint.save_state(state, opt, epoch)
+                checkpoint.save_state(state, opt, "latest", fmt)
+                checkpoint.save_state(state, opt, epoch, fmt)
             if stop:
                 break
         print("Training was successfully finished.")
@@ -222,7 +226,7 @@ def train(opt, max_steps: Optional[int] = None, step_hook=None,
         profile.stop()
         visualizer.close()
         print("saving the model before quitting")
-        checkpoint.save_state(state, opt, "latest")
+        checkpoint.save_state(state, opt, "latest", fmt)
         iter_counter.record_current_iter()
     return {"losses": _host_losses(last_losses), "steps": n_iters,
             "state": state}

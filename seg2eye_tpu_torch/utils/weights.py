@@ -210,22 +210,26 @@ def export_vgg19(variables: Dict) -> Dict[str, np.ndarray]:
     return sd
 
 
+def export_network(name: str, variables: Dict) -> Dict[str, np.ndarray]:
+    """One network's variables -> its state_dict, as numpy arrays; ``name``
+    is "G", "E", "D" or "VGG" (the discriminator's scales and depth are
+    read off its variables)."""
+    if name == "D":
+        d = variables["params"]
+        num_d = sum(1 for k in d if k.startswith("discriminator_"))
+        n_layers = sum(1 for k in d["discriminator_0"]
+                       if k.startswith("model")) - 1
+        return export_discriminator(variables, num_d, n_layers)
+    return {"G": export_generator, "E": export_encoder,
+            "VGG": export_vgg19}[name](variables)
+
+
 def from_jax_variables(variables: Dict) -> Dict[str, Dict[str, torch.Tensor]]:
     """{"G": generator variables, "E": encoder variables[, "D":
     discriminator variables][, "VGG": VGG19 variables]} (numpy arrays) ->
     state_dicts of CPU tensors under the same keys."""
-    out = {"G": _to_torch(export_generator(variables["G"])),
-           "E": _to_torch(export_encoder(variables["E"]))}
-    if "D" in variables:
-        d = variables["D"]["params"]
-        num_d = sum(1 for k in d if k.startswith("discriminator_"))
-        n_layers = sum(1 for k in d["discriminator_0"]
-                       if k.startswith("model")) - 1
-        out["D"] = _to_torch(export_discriminator(variables["D"], num_d,
-                                                 n_layers))
-    if "VGG" in variables:
-        out["VGG"] = _to_torch(export_vgg19(variables["VGG"]))
-    return out
+    return {name: _to_torch(export_network(name, v))
+            for name, v in variables.items()}
 
 
 def _export_resnet_into(sd, p, bs, prefix: str = ""):
@@ -465,3 +469,301 @@ def init_networks(opt, generator: torch.Generator,
         else:
             _init_module(net, init, opt.init_variance, generator)
     return {k: v.to(device) for k, v in nets.items()}
+
+
+# ------------------------------------------------- the reverse: to the JAX layout
+# The port's counterpart of ``seg2eye_tpu/utils/torch_convert.py``: a
+# state_dict of the port's (the reference's) keys -> the JAX package's
+# variables, as numpy arrays.  No template: which blocks, convs, biases,
+# spectral states and batch statistics a network has is read off its keys.
+# Each layout step is the exact inverse of its export above (``_hwio`` of
+# ``_conv``, ``_perm_v`` of ``_unperm_v``, the encoder fc's CHW -> HWC), so
+# a round trip gives back the same bits.  ``num_batches_tracked`` has no
+# counterpart in the JAX package.
+
+def _hwio(w):
+    """torch OIHW weight -> flax HWIO kernel."""
+    return np.transpose(np.asarray(w), (2, 3, 1, 0))
+
+
+def _perm_v(v, w_oihw):
+    """Spectral v in torch's (I, kh, kw) flatten order -> (kh, kw, I)."""
+    _, i, kh, kw = w_oihw.shape
+    return np.transpose(np.asarray(v).reshape(i, kh, kw),
+                        (1, 2, 0)).reshape(-1)
+
+
+def _put(tree: Dict, path, value) -> None:
+    node = tree
+    for k in path[:-1]:
+        node = node.setdefault(k, {})
+    node[path[-1]] = np.asarray(value)
+
+
+def _import_conv(sd, base: str, p, sp, path) -> None:
+    """A conv at ``base``: a spectral one (weight_orig, u, v) or a plain
+    weight, and its bias if it has one."""
+    if f"{base}.weight_orig" in sd:
+        w = np.asarray(sd[f"{base}.weight_orig"])
+        _put(p, (*path, "kernel"), _hwio(w))
+        _put(sp, (*path, "u"), sd[f"{base}.weight_u"])
+        _put(sp, (*path, "v"), _perm_v(sd[f"{base}.weight_v"], w))
+    else:
+        _put(p, (*path, "kernel"), _hwio(sd[f"{base}.weight"]))
+    if f"{base}.bias" in sd:
+        _put(p, (*path, "bias"), sd[f"{base}.bias"])
+
+
+def _import_bn(sd, base: str, p, bs, path) -> None:
+    _put(p, (*path, "scale"), sd[f"{base}.weight"])
+    _put(p, (*path, "bias"), sd[f"{base}.bias"])
+    _put(bs, (*path, "mean"), sd[f"{base}.running_mean"])
+    _put(bs, (*path, "var"), sd[f"{base}.running_var"])
+
+
+def _collections(p, sp=None, bs=None) -> Dict:
+    out = {"params": p}
+    if sp:
+        out["spectral"] = sp
+    if bs:
+        out["batch_stats"] = bs
+    return out
+
+
+def import_generator(sd: Dict) -> Dict:
+    """The generator's state_dict -> its {'params', 'spectral'[,
+    'batch_stats']} (``torch_convert.convert_generator``)."""
+    p, sp, bs = {}, {}, {}
+    for name in ("fc", "conv_img"):
+        _import_conv(sd, name, p, sp, (name,))
+    for blk in GEN_BLOCKS:
+        for conv in ("conv_0", "conv_1", "conv_s"):
+            base = f"{blk}.{conv}"
+            if f"{base}.weight_orig" in sd or f"{base}.weight" in sd:
+                _import_conv(sd, base, p, sp, (blk, conv))
+        for norm in ("norm_0", "norm_1", "norm_s"):
+            base = f"{blk}.{norm}"
+            if f"{base}.spade.mlp_shared.0.weight" not in sd:
+                continue
+            for torch_name, jax_name in (("mlp_shared.0", "mlp_shared"),
+                                         ("mlp_gamma", "mlp_gamma"),
+                                         ("mlp_beta", "mlp_beta")):
+                _put(p, (blk, norm, f"spade_{jax_name}_kernel"),
+                     _hwio(sd[f"{base}.spade.{torch_name}.weight"]))
+                _put(p, (blk, norm, f"spade_{jax_name}_bias"),
+                     sd[f"{base}.spade.{torch_name}.bias"])
+            _put(p, (blk, norm, "adain_linear", "weight"),
+                 np.asarray(sd[f"{base}.adain.linear.weight"]).T)
+            _put(p, (blk, norm, "adain_linear", "bias"),
+                 sd[f"{base}.adain.linear.bias"])
+            stats = f"{base}.spade.param_free_norm"
+            if f"{stats}.running_mean" in sd:
+                _put(bs, (blk, norm, "mean"), sd[f"{stats}.running_mean"])
+                _put(bs, (blk, norm, "var"), sd[f"{stats}.running_var"])
+    return _collections(p, sp, bs)
+
+
+def import_encoder(sd: Dict) -> Dict:
+    """The encoder's state_dict -> its variables
+    (``torch_convert.convert_encoder``): fc_mu/fc_var re-flattened from
+    torch's CHW to HWC."""
+    p, sp, bs = {}, {}, {}
+    n_layers = 0
+    while any(f"layer{n_layers}.0.{w}" in sd for w in ("weight_orig",
+                                                        "weight")):
+        i = n_layers
+        _import_conv(sd, f"layer{i}.0", p, sp, (f"layer{i}",))
+        if f"layer{i}.1.weight" in sd:
+            _import_bn(sd, f"layer{i}.1", p, bs,
+                       (f"norm{i}", "TorchBatchNorm_0"))
+        n_layers += 1
+    c = p[f"layer{n_layers - 1}"]["kernel"].shape[-1]
+    for fc in ("fc_mu", "fc_var"):
+        w = np.asarray(sd[f"{fc}.weight"])
+        w_dim = w.shape[0]
+        g = int(round((w.shape[1] // c) ** 0.5))
+        assert g * g * c == w.shape[1], (w.shape, c)
+        w = np.transpose(w.reshape(w_dim, c, g, g), (0, 2, 3, 1))
+        _put(p, (fc, "kernel"), w.reshape(w_dim, -1).T)
+        _put(p, (fc, "bias"), sd[f"{fc}.bias"])
+    return _collections(p, sp, bs)
+
+
+def import_discriminator(sd: Dict) -> Dict:
+    """The multiscale discriminator's state_dict -> its variables
+    (``torch_convert.convert_discriminator``)."""
+    p, sp, bs = {}, {}, {}
+    k = 0
+    while f"discriminator_{k}.model0.0.weight" in sd:
+        dk = f"discriminator_{k}"
+        last = max(int(key[len(dk) + 6:].split(".")[0]) for key in sd
+                   if key.startswith(f"{dk}.model"))
+        _import_conv(sd, f"{dk}.model0.0", p, sp, (dk, "model0_conv"))
+        for n in range(1, last):
+            base = f"{dk}.model{n}.0"
+            nested = any(key.startswith(f"{base}.0.") for key in sd)
+            _import_conv(sd, f"{base}.0" if nested else base, p, sp,
+                         (dk, f"model{n}_conv"))
+            if f"{base}.1.weight" in sd:
+                _import_bn(sd, f"{base}.1", p, bs,
+                           (dk, f"norm{n}", "TorchBatchNorm_0"))
+        _import_conv(sd, f"{dk}.model{last}.0", p, sp, (dk, f"model{last}_conv"))
+        k += 1
+    return _collections(p, sp, bs)
+
+
+def _import_resnet_into(sd, p, bs, prefix: str = "") -> None:
+    _put(p, ("conv1", "kernel"), _hwio(sd[f"{prefix}conv1.weight"]))
+    _import_bn(sd, f"{prefix}bn1", p, bs, ("bn1",))
+    for lname in ("layer1", "layer2", "layer3", "layer4"):
+        i = 0
+        while f"{prefix}{lname}.{i}.conv1.weight" in sd:
+            fb, tb = f"{lname}_{i}", f"{prefix}{lname}.{i}"
+            for j in (1, 2, 3):
+                _put(p, (fb, f"conv{j}", "conv", "kernel"),
+                     _hwio(sd[f"{tb}.conv{j}.weight"]))
+                _import_bn(sd, f"{tb}.bn{j}", p, bs, (fb, f"conv{j}", "bn"))
+            if f"{tb}.downsample.0.weight" in sd:
+                _put(p, (fb, "downsample", "conv", "kernel"),
+                     _hwio(sd[f"{tb}.downsample.0.weight"]))
+                _import_bn(sd, f"{tb}.downsample.1", p, bs,
+                           (fb, "downsample", "bn"))
+            i += 1
+
+
+def _import_sepconv(sd, base: str, p, bs, path) -> None:
+    _put(p, (*path, "depthwise", "kernel"), _hwio(sd[f"{base}.conv1.weight"]))
+    _import_bn(sd, f"{base}.bn", p, bs, (*path, "bn"))
+    _put(p, (*path, "pointwise", "kernel"),
+         _hwio(sd[f"{base}.pointwise.weight"]))
+
+
+def _import_xception_into(sd, p, bs, prefix: str = "") -> None:
+    for i in (1, 2):
+        _put(p, (f"conv{i}", "kernel"), _hwio(sd[f"{prefix}conv{i}.weight"]))
+        _import_bn(sd, f"{prefix}bn{i}", p, bs, (f"bn{i}",))
+    for b in range(1, 21):
+        fb = f"block{b}"
+        off = 0 if b not in (1, 2) else -1
+        for u in range(3):
+            si = 3 * u + 1 + off
+            _import_sepconv(sd, f"{prefix}{fb}.rep.{si}", p, bs,
+                            (fb, f"sep{u}"))
+            _import_bn(sd, f"{prefix}{fb}.rep.{si + 1}", p, bs,
+                       (fb, f"sepbn{u}"))
+        if f"{prefix}{fb}.skip.weight" in sd:
+            _put(p, (fb, "skip", "kernel"),
+                 _hwio(sd[f"{prefix}{fb}.skip.weight"]))
+            _import_bn(sd, f"{prefix}{fb}.skipbn", p, bs, (fb, "skipbn"))
+    for i in (3, 4, 5):
+        _import_sepconv(sd, f"{prefix}conv{i}", p, bs, (f"conv{i}",))
+        _import_bn(sd, f"{prefix}bn{i}", p, bs, (f"bn{i}",))
+
+
+def _import_drn_into(sd, p, bs, prefix: str = "") -> None:
+    _put(p, ("layer0_conv", "kernel"), _hwio(sd[f"{prefix}layer0.0.weight"]))
+    _import_bn(sd, f"{prefix}layer0.1", p, bs, ("layer0_bn",))
+    for lname in ("layer1", "layer2", "layer7", "layer8"):
+        i = 0
+        while f"{prefix}{lname}.{3 * i}.weight" in sd:
+            _put(p, (f"{lname}_conv{i}", "kernel"),
+                 _hwio(sd[f"{prefix}{lname}.{3 * i}.weight"]))
+            _import_bn(sd, f"{prefix}{lname}.{3 * i + 1}", p, bs,
+                       (f"{lname}_bn{i}",))
+            i += 1
+    for lname in ("layer3", "layer4", "layer5", "layer6"):
+        i = 0
+        while f"{prefix}{lname}.{i}.conv1.weight" in sd:
+            fb, tb = f"{lname}_{i}", f"{prefix}{lname}.{i}"
+            for j in (1, 2, 3):
+                _put(p, (fb, f"conv{j}", "kernel"),
+                     _hwio(sd[f"{tb}.conv{j}.weight"]))
+                _import_bn(sd, f"{tb}.bn{j}", p, bs, (fb, f"bn{j}"))
+            if f"{tb}.downsample.0.weight" in sd:
+                _put(p, (fb, "down", "kernel"),
+                     _hwio(sd[f"{tb}.downsample.0.weight"]))
+                _import_bn(sd, f"{tb}.downsample.1", p, bs, (fb, "down_bn"))
+            i += 1
+
+
+def _import_mobilenet_into(sd, p, bs, prefix: str = "") -> None:
+    """Reads ``features.*``; the low/high_level_features aliases of the
+    same tensors are not read."""
+    _put(p, ("stem", "conv", "kernel"),
+         _hwio(sd[f"{prefix}features.0.0.weight"]))
+    _import_bn(sd, f"{prefix}features.0.1", p, bs, ("stem", "bn"))
+    cfg = [(1, 1), (6, 2), (6, 3), (6, 4), (6, 3), (6, 3), (6, 1)]  # t, n
+    fi = 1
+    for bi, (t, n) in enumerate(cfg):
+        for i in range(n):
+            fb, tb = f"block{bi}_{i}", f"{prefix}features.{fi}"
+            fi += 1
+            dwi = 0
+            if t != 1:
+                _put(p, (fb, "expand", "conv", "kernel"),
+                     _hwio(sd[f"{tb}.conv.0.weight"]))
+                _import_bn(sd, f"{tb}.conv.1", p, bs, (fb, "expand", "bn"))
+                dwi = 3
+            _put(p, (fb, "dw", "kernel"), _hwio(sd[f"{tb}.conv.{dwi}.weight"]))
+            _import_bn(sd, f"{tb}.conv.{dwi + 1}", p, bs, (fb, "dw_bn"))
+            _put(p, (fb, "project", "conv", "kernel"),
+                 _hwio(sd[f"{tb}.conv.{dwi + 3}.weight"]))
+            _import_bn(sd, f"{tb}.conv.{dwi + 4}", p, bs,
+                       (fb, "project", "bn"))
+
+
+_BACKBONE_IMPORTERS = {
+    "resnet": _import_resnet_into,
+    "xception": _import_xception_into,
+    "drn": _import_drn_into,
+    "mobilenet": _import_mobilenet_into,
+}
+
+
+def import_deeplab(sd: Dict, backbone: str = "resnet") -> Dict:
+    """The reference's DeepLab state_dict -> DeepLab variables
+    {'params', 'batch_stats'} (``torch_convert.convert_deeplab``)."""
+    p, bs = {"backbone": {}}, {"backbone": {}}
+    _BACKBONE_IMPORTERS[backbone](sd, p["backbone"], bs["backbone"],
+                                  "backbone.")
+
+    def convbn(path, torch_conv, torch_bn):
+        _put(p, (*path, "conv", "kernel"), _hwio(sd[torch_conv]))
+        _import_bn(sd, torch_bn, p, bs, (*path, "bn"))
+
+    for i in (1, 2, 3, 4):
+        convbn(("aspp", f"aspp{i}"), f"aspp.aspp{i}.atrous_conv.weight",
+               f"aspp.aspp{i}.bn")
+    convbn(("aspp", "global_pool"), "aspp.global_avg_pool.1.weight",
+           "aspp.global_avg_pool.2")
+    convbn(("aspp", "proj"), "aspp.conv1.weight", "aspp.bn1")
+    convbn(("decoder", "low_proj"), "decoder.conv1.weight", "decoder.bn1")
+    convbn(("decoder", "conv1"), "decoder.last_conv.0.weight",
+           "decoder.last_conv.1")
+    convbn(("decoder", "conv2"), "decoder.last_conv.4.weight",
+           "decoder.last_conv.5")
+    _put(p, ("decoder", "classifier", "kernel"),
+         _hwio(sd["decoder.last_conv.8.weight"]))
+    _put(p, ("decoder", "classifier", "bias"), sd["decoder.last_conv.8.bias"])
+    return {"params": p, "batch_stats": bs}
+
+
+def numpy_state_dict(net: nn.Module) -> Dict[str, np.ndarray]:
+    """A module's state_dict as CPU numpy arrays."""
+    return {k: v.detach().cpu().numpy() for k, v in net.state_dict().items()}
+
+
+IMPORTERS = {"G": import_generator, "E": import_encoder,
+             "D": import_discriminator}
+
+
+def to_jax_variables(nets: Dict[str, nn.Module]) -> Dict[str, Dict]:
+    """{"G", "E"[, "D"]: the port's modules} -> the JAX package's variables
+    of each, as numpy arrays (the reverse of ``from_jax_variables``)."""
+    return {k: IMPORTERS[k](numpy_state_dict(net)) for k, net in nets.items()
+            if k in IMPORTERS}
+
+
+def deeplab_to_jax_variables(net: DeepLab, backbone: str) -> Dict:
+    """The port's DeepLab -> the JAX package's DeepLab variables."""
+    return import_deeplab(numpy_state_dict(net), backbone)

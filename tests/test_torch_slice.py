@@ -310,26 +310,49 @@ def test_parse_options_matches_jax(argv, is_train, capsys):
     assert printed[0] == printed[1].split("\n", 1)[1]
 
 
-def test_port_imports_no_jax():
-    """Every module of the port imports without jax, flax or anything of
-    the JAX package, and with PIL, h5py and cv2 blocked, as on the card's
-    machine, which has none of them."""
+def port_import_run(blocked):
+    """Import every module of the port in a fresh interpreter with
+    ``blocked`` made unimportable -> (the modules of jax, flax, msgpack,
+    optax or the JAX package it imported, the count of the port's
+    modules)."""
     code = (
         "import importlib, pkgutil, sys\n"
-        "for m in ('PIL', 'h5py', 'cv2'):\n"
+        f"for m in {tuple(blocked)!r}:\n"
         "    sys.modules[m] = None\n"
         "import seg2eye_tpu_torch as p\n"
         "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
         "    importlib.import_module(m.name)\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in\n"
-        "       ('jax', 'flax', 'seg2eye_tpu')]\n"
-        "assert not bad, bad\n"
+        "       ('jax', 'flax', 'seg2eye_tpu', 'msgpack', 'optax')\n"
+        f"       and m not in {tuple(blocked)!r}]\n"
+        "print(repr(bad))\n"
         "print(len([m for m in sys.modules if m.startswith(p.__name__)]))\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr[-3000:]
-    assert int(proc.stdout.split()[-1]) >= 15
+    bad, count = proc.stdout.strip().split("\n")[-2:]
+    return ast.literal_eval(bad), int(count)
+
+
+def test_port_imports_no_jax():
+    """Every module of the port imports with PIL, h5py, cv2 and imageio
+    blocked, as on the card's machine, which has none of them, and with
+    jax, flax, msgpack and optax importable imports none of them nor
+    anything of the JAX package; all 76 of them (the flax msgpack codec,
+    the optimizer-state mapping and the host data modules included)."""
+    bad, count = port_import_run(("PIL", "h5py", "cv2", "imageio"))
+    assert not bad, bad
+    assert count >= 76
+
+
+def test_port_imports_on_a_machine_without_jax():
+    """Every module of the port imports with jax, flax, optax and msgpack
+    blocked as well, as on the card's machine, which has none of them."""
+    bad, count = port_import_run(("jax", "flax", "optax", "msgpack", "PIL",
+                                  "h5py", "cv2", "imageio"))
+    assert not bad, bad
+    assert count >= 76
 
 
 def imports_of_jax_package(path):
@@ -364,7 +387,8 @@ def test_port_source_never_imports_jax_package(tmp_path):
               os.path.join(REPO, "tools", "time_torch_options.py"),
               os.path.join(REPO, "tools", "bench_torch_serving.py"),
               os.path.join(REPO, "tools", "time_torch_convs.py"),
-              os.path.join(REPO, "tools", "profile_torch_segtrain.py")]
+              os.path.join(REPO, "tools", "profile_torch_segtrain.py"),
+              os.path.join(REPO, "tools", "convert_checkpoint_torch.py")]
     assert len(files) >= 20
     bad = {os.path.relpath(f, REPO): imports_of_jax_package(f) for f in files}
     assert not {f: v for f, v in bad.items() if v}
