@@ -130,6 +130,20 @@ Phases; any failure raises and the script exits non-zero:
      checkpoint.ckpt: weights, statistics and momentum bit for bit, eval
      outputs bitwise, epoch and best_pred, no K1 launch.  File sizes and
      write/load seconds are printed;
+  11. data (after phase 10): the host-data tools on arrays in memory (the
+     card's machine has no h5py).  (a) The style ranking
+     (``data.style_ranking``) at one OpenEDS 2019 user's size: 84 target
+     and 1,662 + 600 candidate masks at 640x400, nested jittered ellipses
+     from the seed, one target and one candidate made so that their
+     summed squared difference exceeds 2**24.  The card's distances and
+     stable orders bit for bit equal to the same function's on the CPU
+     over all 84 targets, and the pair above 2**24 equal to the exact
+     integer sum rounded once to float32, over 4096; ms per user on the
+     card (masks resident there) and on the CPU.  (b) The native batch
+     assembly (``native``, built with g++ from the checkout): the 16 x 4
+     references of a bs16 batch at the default crop (320x256) and 16
+     masks, per-sample flips, bit for bit equal to the numpy versions,
+     both timed;
 Nothing of JAX, flax, optax, msgpack or the JAX package may have been
 imported.
 The port keeps float32 in full float32 by itself (its float32 forward and
@@ -2892,6 +2906,161 @@ def phase_interop():
     return launches
 
 
+# --------------------------------------------------------------- phase 11
+# one OpenEDS 2019 user (Garbin et al., arXiv:1905.03702): 12,759 labelled,
+# 252,690 generative and 91,200 sequence images over 152 subjects
+RANK_TARGETS = 84
+RANK_CANDIDATES = (1662, 600)
+RANK_HW = (640, 400)
+RANK_REPEATS = {"card": 5, "cpu": 3}
+ASSEMBLY_REPEATS = 20
+DATA_DEVICE = "cuda"
+
+
+def eye_masks(n, seed, device, h=RANK_HW[0], w=RANK_HW[1], chunk=128):
+    """(n, h, w) uint8 class ids: nested ellipses (sclera 1, iris 2,
+    pupil 3) on background 0, centre, radius and squash jittered from the
+    seed, drawn on ``device``."""
+    g = torch.Generator().manual_seed(seed)
+    u = torch.rand((n, 4), generator=g, dtype=torch.float64)
+    cy = (h * (0.35 + 0.3 * u[:, 0])).to(device, torch.float32)
+    cx = (w * (0.35 + 0.3 * u[:, 1])).to(device, torch.float32)
+    r = (min(h, w) * (0.25 + 0.2 * u[:, 2])).to(device, torch.float32)
+    squash = (1.0 + 0.6 * u[:, 3]).to(device, torch.float32)
+    yy = torch.arange(h, device=device, dtype=torch.float32)[None, :, None]
+    xx = torch.arange(w, device=device, dtype=torch.float32)[None, None, :]
+    out = torch.empty((n, h, w), dtype=torch.uint8, device=device)
+    for i in range(0, n, chunk):
+        s = slice(i, i + chunk)
+        d = torch.hypot((yy - cy[s, None, None]) / squash[s, None, None],
+                        xx - cx[s, None, None])
+        rr = r[s, None, None]
+        out[s] = ((d < rr).to(torch.uint8) + (d < 0.55 * rr).to(torch.uint8)
+                  + (d < 0.25 * rr).to(torch.uint8))
+    return out
+
+
+def rank_user(targets, candidates):
+    """The ranking of one user, as ``style_ranking.main`` computes it:
+    -> (distances (T, N) float32, orders (T, N) int64)."""
+    from seg2eye_tpu_torch.data import style_ranking as sr
+
+    d = sr.mask_distances(targets, candidates)
+    return d, sr.rank(d)
+
+
+def data_ranking():
+    from seg2eye_tpu_torch.data import style_ranking as sr
+
+    n_cand = sum(RANK_CANDIDATES)
+    targets = eye_masks(RANK_TARGETS, 11, DATA_DEVICE)
+    candidates = eye_masks(n_cand, 12, DATA_DEVICE)
+    # the pair above 2**24: an all-background target against a candidate
+    # of pupil (80%) and iris
+    g = torch.Generator().manual_seed(13)
+    targets[-1] = 0
+    candidates[-1] = torch.where(torch.rand(RANK_HW, generator=g) < 0.8,
+                                 3, 2).to(DATA_DEVICE, torch.uint8)
+    t_cpu, c_cpu = targets.cpu(), candidates.cpu()
+    mb = c_cpu.numel() / 2 ** 20
+    inputs = {"card": (targets, candidates), "cpu": (t_cpu, c_cpu)}
+    times, results = {}, {}
+    for where, reps in RANK_REPEATS.items():
+        times[where] = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            results[where] = rank_user(*inputs[where])
+            torch.cuda.synchronize()
+            times[where].append((time.perf_counter() - t0) * 1e3)
+    host = results["cpu"]
+    d_card, o_card = (x.cpu() for x in results["card"])
+    if not (torch.equal(d_card, host[0]) and torch.equal(o_card, host[1])):
+        bad = (d_card != host[0]).sum().item()
+        raise AssertionError(f"ranking: card and CPU differ ({bad} distances "
+                             "not bit for bit, or the orders)")
+    diff = (sr.mask_codes(c_cpu[-1:]).long()
+            - sr.mask_codes(t_cpu[-1:]).long())
+    exact = int((diff * diff).sum())
+    want = torch.tensor(exact, dtype=torch.float32) / 4096
+    if not exact > 2 ** 24 or d_card[-1, -1] != want:
+        raise AssertionError(f"ranking: pair above 2**24: sum {exact}, "
+                             f"distance {d_card[-1, -1].item()} != "
+                             f"{want.item()}")
+    below = (d_card * 4096 < 2 ** 24).float().mean().item()
+    ms_card = statistics.median(times["card"])
+    ms_cpu = statistics.median(times["cpu"])
+    log(f"data: ranking one user ({RANK_TARGETS} targets x {n_cand} "
+        f"candidates at {RANK_HW[0]}x{RANK_HW[1]}, {mb:.0f} MiB of candidate "
+        f"masks): card {ms_card:.2f} ms/user (masks on the card; runs "
+        f"{[round(t, 2) for t in times['card']]}), CPU {ms_cpu:.2f} ms/user "
+        f"({torch.get_num_threads()} threads; runs "
+        f"{[round(t, 1) for t in times['cpu']]}), medians; distances and "
+        f"orders bit for bit over all "
+        f"{RANK_TARGETS} targets ({below:.4f} of the sums below 2**24); the "
+        f"pair above 2**24 (sum {exact}) = float32(sum) / 4096")
+    return {"card_ms": ms_card, "cpu_ms": ms_cpu}
+
+
+def data_assembly():
+    from seg2eye_tpu_torch import native
+    from seg2eye_tpu_torch.options import Options
+
+    t0 = time.perf_counter()
+    native.library()
+    build_s = time.perf_counter() - t0
+    opt = Options().finalize()
+    bs, ns = TRAIN_BATCH, opt.input_ns
+    h, w = opt.image_height, opt.image_width
+    rng = np.random.default_rng(14)
+    refs = [rng.integers(0, 256, (h, w), dtype=np.uint8)
+            for _ in range(bs * ns)]
+    masks = [rng.integers(0, 4, (h, w), dtype=np.uint8) for _ in range(bs)]
+    sample_flips = rng.random(bs) > 0.5
+    flips = np.repeat(sample_flips, ns)
+    pairs = {"images": (native.assemble_images, native.assemble_images_plain,
+                        refs, flips),
+             "masks": (native.assemble_masks, native.assemble_masks_plain,
+                       masks, sample_flips)}
+    out = {}
+    for what, (fn, plain, arrays, fl) in pairs.items():
+        got, want = fn(arrays, fl), plain(arrays, fl)
+        if got.dtype != want.dtype or got.tobytes() != want.tobytes():
+            raise AssertionError(f"native assemble_{what} differs from numpy")
+        ms = [[], []]
+        for _ in range(ASSEMBLY_REPEATS):
+            for f, acc in zip((fn, plain), ms):
+                t0 = time.perf_counter()
+                f(arrays, fl)
+                acc.append((time.perf_counter() - t0) * 1e3)
+        out[what] = [statistics.median(m) for m in ms]
+    log(f"data: native assembly built in {build_s:.2f} s; bs{bs} x "
+        f"input_ns {ns} references at {h}x{w} (float32 in [-1, 1], "
+        f"{int(sample_flips.sum())} of {bs} samples flipped): native "
+        f"{out['images'][0]:.3f} ms, numpy {out['images'][1]:.3f} ms; "
+        f"{bs} masks: native {out['masks'][0]:.3f} ms, numpy "
+        f"{out['masks'][1]:.3f} ms (medians of {ASSEMBLY_REPEATS}, host "
+        "clock); bit for bit equal")
+    return out
+
+
+def phase_data():
+    """11: the style ranking at one OpenEDS user's size, card against CPU,
+    and the native batch assembly against numpy."""
+    t_phase = time.perf_counter()
+    ranking = data_ranking()
+    torch.cuda.empty_cache()
+    assembly = data_assembly()
+    foreign = sorted(m for m in sys.modules if m.split(".")[0] in
+                     ("jax", "jaxlib", "flax", "seg2eye_tpu", "msgpack",
+                      "optax"))
+    if foreign:
+        raise AssertionError(f"phase 11 imported {foreign[:5]}")
+    log(f"data: phase 11 in {time.perf_counter() - t_phase:.1f} s "
+        f"({card_line()})")
+    return ranking, assembly
+
+
 def main():
     kind = phase_device()
     phase_build()
@@ -2903,6 +3072,7 @@ def main():
     serving_launches = phase_serving()
     phase_segtrain()
     interop_launches = phase_interop()
+    phase_data()
     foreign = sorted(m for m in sys.modules if m.split(".")[0] in
                      ("jax", "jaxlib", "flax", "seg2eye_tpu", "msgpack",
                       "optax"))

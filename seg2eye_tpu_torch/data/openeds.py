@@ -14,6 +14,11 @@ worker thread.  Given the same options and file, it yields the same
 batches byte for byte as the JAX package's ``DataLoader`` (tested).  It
 batches any dataset with ``__len__`` and ``__getitem__(index, rng)``: the
 RefineNet datasets too, and their ``subsample``d test splits.
+In 'fixed' mode with ``host_cache_mb`` > 0 the dataset keeps the resized
+style references and targets in a ``transforms.ResizeCache`` of that many
+MB, as the JAX dataset does, and with ``--no_device_normalize`` assembles
+the references' float32 batch in C++ (``seg2eye_tpu_torch.native``); the
+batches are the same bytes with the cache on or off.
 ``device_prefetch`` moves the arrays of the given keys of each batch to
 the card one step ahead, from pinned memory.
 
@@ -45,6 +50,9 @@ class OpenEDSDataset:
         self.keys = split_keys(self.dataset_key)
         self._h5 = None
         self._style_refs = None
+        mb = opt.host_cache_mb
+        self._cache = (transforms.ResizeCache(mb)
+                       if mb > 0 and opt.preprocess_mode == "fixed" else None)
         with h5py.File(opt.dataroot, "r") as f:
             grp = f[self.dataset_key]
             self.user_ids = list(grp.keys())
@@ -107,8 +115,20 @@ class OpenEDSDataset:
             if subsets is not None and subsets[i] == b"s":
                 # sequence frames are ranked after the generative images
                 key, sel = "images_seq", sel - n_images
-            images.append(np.asarray(grp[key][sel]))
-        return transforms.transform_images(images, self.opt, params)
+            if self._cache is None:
+                images.append(np.asarray(grp[key][sel]))
+            else:
+                images.append(self._cache.get(
+                    (user, key, sel),
+                    lambda k=key, s=sel: transforms.resize_for_fixed(
+                        np.asarray(grp[k][s]), self.opt)))
+        if self._cache is None:
+            return transforms.transform_images(images, self.opt, params)
+        flip = bool(params.get("flip"))
+        if self.opt.device_normalize:
+            return transforms.assemble_u8(images, flip)
+        from seg2eye_tpu_torch import native
+        return native.assemble_images(images, [flip] * len(images))
 
     def __getitem__(self, index: int,
                     rng: Optional[np.random.Generator] = None) -> Dict:
@@ -131,10 +151,18 @@ class OpenEDSDataset:
         if self.dataset_key != "test":
             target = np.asarray(grp["images_ss"][within])
             u8 = self.opt.device_normalize
-            item["target"] = (
-                np.ascontiguousarray(transforms.spatial_image(
-                    target, self.opt, params))[..., None] if u8
-                else transforms.transform_image(target, self.opt, params))
+            if self._cache is not None:
+                resized = self._cache.get(
+                    (user, "images_ss", within),
+                    lambda: transforms.resize_for_fixed(target, self.opt))
+                item["target"] = (transforms.finish_image_u8 if u8 else
+                                  transforms.finish_image)(resized, params)
+            elif u8:
+                item["target"] = np.ascontiguousarray(transforms.spatial_image(
+                    target, self.opt, params))[..., None]
+            else:
+                item["target"] = transforms.transform_image(target, self.opt,
+                                                            params)
             orig = target[:, ::-1] if params["flip"] else target
             item["target_original"] = np.ascontiguousarray(orig).astype(
                 np.uint8 if u8 else np.int32)[..., None]

@@ -14,14 +14,61 @@
   * Transport: uint8 (``device_normalize``, the default; the model
     normalises on the device), or float32 in [-1, 1] on the host
     (``--no_device_normalize``): (x / 255 - 0.5) / 0.5.
+  * ``ResizeCache``: a byte-capped LRU of the 'fixed'-mode resizes
+    (``resize_for_fixed``), which ``finish_image``/``finish_image_u8`` and
+    ``assemble_u8`` (or ``native.assemble_images``) flip and normalise.
 
 cv2 and PIL are imported inside the resize.
 """
 from __future__ import annotations
 
-from typing import Dict, List
+import collections
+import threading
+from typing import Callable, Dict, Hashable, List
 
 import numpy as np
+
+
+class ResizeCache:
+    """Byte-capped LRU cache of deterministic host work (H5 read + resize),
+    keyed by (user, dataset key, index); a copy of the JAX package's.
+
+    The value is the pre-flip, pre-normalise resized uint8 image, and in
+    'fixed' mode the resize target is fixed for the run, so the cached and
+    uncached paths give the same bytes.  ``produce`` runs outside the lock
+    (slow I/O); if another thread inserted the key meanwhile, its value is
+    kept and returned, and counted once."""
+
+    def __init__(self, limit_mb: int):
+        self.limit = int(limit_mb) << 20
+        self.size = 0
+        self._d: "collections.OrderedDict[Hashable, np.ndarray]" = \
+            collections.OrderedDict()
+        self._lock = threading.Lock()
+        self.hits = 0
+        self.misses = 0
+
+    def get(self, key: Hashable, produce: Callable[[], np.ndarray]
+            ) -> np.ndarray:
+        with self._lock:
+            v = self._d.get(key)
+            if v is not None:
+                self.hits += 1
+                self._d.move_to_end(key)
+                return v
+            self.misses += 1
+        v = produce()
+        with self._lock:
+            racer = self._d.get(key)
+            if racer is not None:
+                self._d.move_to_end(key)
+                return racer
+            self._d[key] = v
+            self.size += v.nbytes
+            while self.size > self.limit and self._d:
+                _, old = self._d.popitem(last=False)
+                self.size -= old.nbytes
+        return v
 
 
 def get_params(opt, rng: np.random.Generator, size: tuple = None) -> Dict:
@@ -114,11 +161,43 @@ def spatial_image(img: np.ndarray, opt, params: Dict) -> np.ndarray:
     return apply_spatial(img, opt, params, is_mask=False)
 
 
-def transform_image(img: np.ndarray, opt, params: Dict) -> np.ndarray:
-    """(H,W) image -> (h,w,1) float32 in [-1, 1] (ToTensor +
+def normalize(img: np.ndarray) -> np.ndarray:
+    """(h,w) image -> (h,w,1) float32 in [-1, 1] (ToTensor +
     Normalize(0.5, 0.5))."""
-    out = spatial_image(img, opt, params).astype(np.float32) / 255.0
+    out = img.astype(np.float32) / 255.0
     return np.ascontiguousarray((out - 0.5) / 0.5)[..., None]
+
+
+def transform_image(img: np.ndarray, opt, params: Dict) -> np.ndarray:
+    """(H,W) image -> (h,w,1) float32 in [-1, 1]."""
+    return normalize(spatial_image(img, opt, params))
+
+
+def resize_for_fixed(img: np.ndarray, opt) -> np.ndarray:
+    """The 'fixed'-mode image resize (W = crop, H = crop / aspect): the unit
+    that ``ResizeCache`` stores."""
+    return resize(img, opt.image_width, opt.image_height, False)
+
+
+def _flipped(img: np.ndarray, params: Dict) -> np.ndarray:
+    return img[:, ::-1] if params.get("flip") else img
+
+
+def finish_image(resized: np.ndarray, params: Dict) -> np.ndarray:
+    """The flip and normalisation that follow ``resize_for_fixed``."""
+    return normalize(_flipped(resized, params))
+
+
+def finish_image_u8(resized: np.ndarray, params: Dict) -> np.ndarray:
+    """The flip that follows ``resize_for_fixed`` (uint8 transport)."""
+    return np.ascontiguousarray(_flipped(resized, params))[..., None]
+
+
+def assemble_u8(resized: List[np.ndarray], flip: bool) -> np.ndarray:
+    """n resized uint8 (h,w) images -> (n,h,w,1) uint8 with a shared flip:
+    the uint8 companion of ``native.assemble_images``."""
+    return np.stack([_flipped(im, {"flip": flip})
+                     for im in resized])[..., None]
 
 
 def transform_mask(mask: np.ndarray, opt, params: Dict) -> np.ndarray:

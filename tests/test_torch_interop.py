@@ -574,8 +574,9 @@ def seg_jax():
     the float32 trainer and a fresh JAX state."""
     jx = JaxSegSteps(port_args(lr=STEP_LR))
     t = jx.trainer("f32")
-    v = jax.device_get(jx.model.init(jax.random.PRNGKey(0),
-                                     jnp.zeros((1, 33, 33, 3)), train=False))
+    # one jitted init program (op by op, its compiles took 17 s)
+    v = jax.device_get(jax.jit(functools.partial(jx.model.init, train=False))(
+        jax.random.PRNGKey(0), jnp.zeros((1, 33, 33, 3))))
     return jx, t, {"params": v["params"], "batch_stats": v["batch_stats"],
                    "opt": t.tx.init(v["params"])}
 

@@ -26,6 +26,15 @@ GEOMETRIES = {"square": dict(crop_size=32, aspect_ratio=1.0),
               "aspect0.8": dict(crop_size=128, aspect_ratio=0.8)}
 
 
+@pytest.fixture(autouse=True, scope="module")
+def few_torch_threads():
+    """Two intra-op threads while this module runs (parallel workers)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
+
+
 def tiny_opt(**kw):
     base = dict(ngf=4, crop_size=32, w_dim=8, input_ns=2,
                 compute_dtype="float32", isTrain=False)

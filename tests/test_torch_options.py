@@ -83,12 +83,14 @@ def check_against_jax(opt, iterations, grad_rtol=GRAD_RTOL):
     """``iterations`` G+D iterations of the port against JAX's from the
     same weights: every iteration's loss dict, the step-1 gradients and,
     with ``iterations`` > 1, the buffers after the first and the last
-    iteration."""
+    iteration.  -> (the port's model, the JAX variables, JAX's first G
+    step alone: its loss dict and the variables after it)."""
     model = port_model(opt)
     nets = {"G": model.netG, "E": model.netE, "D": model.netD}
     variables = to_jax_variables(opt, nets)
     batches = [make_batch(opt, seed) for seed in range(iterations)]
-    grads, trajectory = jax_reference(opt, variables, batches)
+    grads, trajectory, g_step = jax_reference(opt, variables, batches,
+                                              with_g_step=True)
     state = state_lib.create_state(model)
     for i, (batch, (want, new)) in enumerate(zip(batches, trajectory)):
         got, _ = steps.train_step(state, batch)
@@ -105,7 +107,7 @@ def check_against_jax(opt, iterations, grad_rtol=GRAD_RTOL):
     if iterations > 1:
         assert_buffers_close(model, exported(trajectory[-1][1], opt),
                              STATE_ATOL)
-    return model, variables
+    return model, variables, g_step
 
 
 # ----------------------------------------------- batch sub-norms (E and D)
@@ -127,7 +129,8 @@ def test_spectralbatch_per_sample_iterations_match_jax(batch):
     assert opt.per_sample_encode_enabled
     before = numpy_state({"E": port_model(opt).netE})["E"]
     iterations = 3 if batch == 2 else 1
-    model, variables = check_against_jax(opt, iterations, BN_GRAD_RTOL)
+    model, _, (want, jvars) = check_against_jax(opt, iterations,
+                                                BN_GRAD_RTOL)
     moved = [k for k, t in model.netE.state_dict().items()
              if k.endswith("running_mean")
              and not np.array_equal(t.numpy(), before[k])]
@@ -138,15 +141,12 @@ def test_spectralbatch_per_sample_iterations_match_jax(batch):
         iterations * 2 * batch
     assert isinstance(model.netD.discriminator_0.model1[0][1], BatchSubNorm)
     if batch == 3:
-        jm = JPix2Pix(jax_opt(opt))
-        fns = jsteps.StepFunctions(jm, donate=False)
-        jstate, want, _ = fns.g_step(_jax_state(jm, fns, variables),
-                                     make_batch(opt))
+        # JAX's G step on the first batch from the same weights, as the
+        # step-1 gradient program computed it
         model = port_model(opt)
         got, _ = steps.g_step(state_lib.create_state(model), make_batch(opt))
-        assert_losses_close(got, jax.device_get(want), LOSS_RTOL)
-        assert_buffers_close(model, exported(jax.device_get(
-            jstate.variables), opt), STATE_ATOL)
+        assert_losses_close(got, want, LOSS_RTOL)
+        assert_buffers_close(model, exported(jvars, opt), STATE_ATOL)
 
 
 def test_batch_subnorm_exports_match_torch_export():

@@ -15,6 +15,7 @@ measured bfloat16 bound against JAX at this config.  RefineNet's
 prediction within 1e-5; SegNet's class ids equal but at a near tie of the
 logits, where float32 round-off decides (at most 1e-3 of the pixels, as
 ``test_torch_refinenet`` holds the live models)."""
+import importlib.util
 import json
 import os
 import subprocess
@@ -48,6 +49,10 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ATOL = 1e-5
 NATIVE_HW = (64, 40)
 SEGNET_FLIPS = 1e-3
+
+
+# a child process takes the two intra-op threads this module's tests take
+SUBPROCESS_ENV = {**os.environ, "PYTHONPATH": REPO, "OMP_NUM_THREADS": "2"}
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -211,7 +216,7 @@ def test_no_model_code_needed(artifacts, tmp_path):
     out = str(tmp_path / "out.pt")
     proc = subprocess.run(
         [sys.executable, "-c", BLOCKED_LOAD, artifacts["port_dir"], out],
-        cwd=REPO, env={**os.environ, "PYTHONPATH": REPO}, capture_output=True,
+        cwd=REPO, env=SUBPROCESS_ENV, capture_output=True,
         text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-3000:]
     got = torch.load(out)
@@ -585,7 +590,7 @@ def test_serving_model_refuses_another_device(artifacts):
 def run_cli(module, args):
     return subprocess.run(
         [sys.executable, "-m", module, "--device", "cpu", "--verify", *args],
-        cwd=REPO, env={**os.environ, "PYTHONPATH": REPO}, capture_output=True,
+        cwd=REPO, env=SUBPROCESS_ENV, capture_output=True,
         text=True, timeout=600)
 
 
@@ -664,15 +669,19 @@ def test_bf16_artifact_matches_jax(tmp_path):
     np.testing.assert_allclose(fake.numpy(), jfake, atol=BF16_ATOL, rtol=0)
 
 
-def test_bench_tool_runs_on_the_cpu():
-    """``tools/bench_torch_serving.py --device cpu --tiny`` prints its one
-    JSON line, artifact and live equal (its times are the host's)."""
-    proc = subprocess.run(
-        [sys.executable, os.path.join(REPO, "tools", "bench_torch_serving.py"),
-         "--device", "cpu", "--tiny", "--batches", "1", "3", "--iters", "1"],
-        cwd=REPO, capture_output=True, text=True, timeout=600)
-    assert proc.returncode == 0, proc.stderr[-3000:]
-    result = json.loads(proc.stdout.strip().splitlines()[-1])
+def test_bench_tool_runs_on_the_cpu(capsys):
+    """``tools/bench_torch_serving.py --device cpu --tiny`` (its ``main``,
+    in this process) prints its one JSON line, artifact and live equal
+    (its times are the host's)."""
+    spec = importlib.util.spec_from_file_location(
+        "bench_torch_serving",
+        os.path.join(REPO, "tools", "bench_torch_serving.py"))
+    tool = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(tool)
+    returned = tool.main(["--device", "cpu", "--tiny", "--batches", "1", "3",
+                          "--iters", "1"])
+    result = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert result == json.loads(json.dumps(returned))
     assert result["card"] == "cpu" and result["dtype"] == "bfloat16"
     assert [r["bs"] for r in result["rows"]] == [1, 3]
     assert all(r["max_abs_diff"] == 0.0 for r in result["rows"])

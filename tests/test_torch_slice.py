@@ -47,6 +47,15 @@ CASES = {
 }
 
 
+@pytest.fixture(autouse=True, scope="module")
+def few_torch_threads():
+    """Two intra-op threads while this module runs (parallel workers)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
+
+
 def tiny_opt(**kw):
     base = dict(ngf=4, crop_size=32, w_dim=8, input_ns=2,
                 compute_dtype="float32", isTrain=False)
@@ -221,7 +230,7 @@ def test_cpu_slice_launches_no_kernel(jax_variables, monkeypatch):
 
 
 def _run_cli(args):
-    env = {**os.environ, "PYTHONPATH": REPO}
+    env = {**os.environ, "PYTHONPATH": REPO, "OMP_NUM_THREADS": "2"}
     proc = subprocess.run(
         [sys.executable, "-m", "seg2eye_tpu_torch.test", *args],
         cwd=REPO, env=env, capture_output=True, text=True, timeout=300)
@@ -339,11 +348,12 @@ def test_port_imports_no_jax():
     """Every module of the port imports with PIL, h5py, cv2 and imageio
     blocked, as on the card's machine, which has none of them, and with
     jax, flax, msgpack and optax importable imports none of them nor
-    anything of the JAX package; all 76 of them (the flax msgpack codec,
-    the optimizer-state mapping and the host data modules included)."""
+    anything of the JAX package; all 78 of them (the flax msgpack codec,
+    the optimizer-state mapping, the host data modules, the style ranking
+    and the native batch assembly included)."""
     bad, count = port_import_run(("PIL", "h5py", "cv2", "imageio"))
     assert not bad, bad
-    assert count >= 76
+    assert count >= 78
 
 
 def test_port_imports_on_a_machine_without_jax():
@@ -352,7 +362,7 @@ def test_port_imports_on_a_machine_without_jax():
     bad, count = port_import_run(("jax", "flax", "optax", "msgpack", "PIL",
                                   "h5py", "cv2", "imageio"))
     assert not bad, bad
-    assert count >= 76
+    assert count >= 78
 
 
 def imports_of_jax_package(path):
@@ -388,7 +398,8 @@ def test_port_source_never_imports_jax_package(tmp_path):
               os.path.join(REPO, "tools", "bench_torch_serving.py"),
               os.path.join(REPO, "tools", "time_torch_convs.py"),
               os.path.join(REPO, "tools", "profile_torch_segtrain.py"),
-              os.path.join(REPO, "tools", "convert_checkpoint_torch.py")]
+              os.path.join(REPO, "tools", "convert_checkpoint_torch.py"),
+              os.path.join(REPO, "tools", "build_style_ranking_torch.py")]
     assert len(files) >= 20
     bad = {os.path.relpath(f, REPO): imports_of_jax_package(f) for f in files}
     assert not {f: v for f, v in bad.items() if v}

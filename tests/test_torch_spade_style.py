@@ -27,6 +27,15 @@ GRAD_TOL = 5e-4
 KERNEL_ARGS = (5, 7, 9)          # HWIO conv kernels -> torch OIHW
 
 
+@pytest.fixture(autouse=True, scope="module")
+def few_torch_threads():
+    """Two intra-op threads while this module runs (parallel workers)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
+
+
 def to_torch(args):
     out = []
     for i, a in enumerate(args):

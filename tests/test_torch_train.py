@@ -471,11 +471,13 @@ def test_losses_match_jax(mode):
 
 
 # ---------------------------------------------------------- one iteration
-def jax_reference(opt, variables, batches):
+def jax_reference(opt, variables, batches, with_g_step=False):
     """JAX's train_step over ``batches`` from ``variables``, and its step-1
     gradients: G/E from the generator loss, D from the discriminator loss
     after the G update (the fake regenerated), as ``_d_update`` takes
-    them."""
+    them.  ``with_g_step``: also the first batch's G step alone (its loss
+    dict and the variables after it), which that gradient program computes
+    on its way to D's."""
     jm = JPix2Pix(jax_opt(opt))
     fns = jsteps.StepFunctions(jm, donate=False)
     state = _jax_state(jm, fns, variables)
@@ -489,7 +491,7 @@ def jax_reference(opt, variables, batches):
             return jm.generator_loss(v, batch)[0]
 
         g_grads = jax.grad(g_loss)(state.params_ge())
-        state1, _, _ = jsteps._g_update(jm, fns.tx_g, state, batch)
+        state1, g_losses, _ = jsteps._g_update(jm, fns.tx_g, state, batch)
         seg, style, _ = jm.preprocess(batch)
         fake, _, _, gen_new = jm.generate_fake(state1.variables, seg, style,
                                                train=True)
@@ -500,15 +502,17 @@ def jax_reference(opt, variables, batches):
                                   "params": params_d}}
             return jm.discriminator_loss(v, batch, fake=fake)[0]
 
-        return g_grads, jax.grad(d_loss)(state1.params_d())
+        return (g_grads, jax.grad(d_loss)(state1.params_d()),
+                (g_losses, state1.variables))
 
-    g_grads, d_grads = grads(state, batches[0])
+    g_grads, d_grads, g_step = grads(state, batches[0])
     trajectory = []
     for batch in batches:
         state, losses, _ = fns.train_step(state, batch)
         trajectory.append((jax.device_get(losses),
                            jax.device_get(state.variables)))
-    return {"G": g_grads["G"], "E": g_grads["E"], "D": d_grads}, trajectory
+    out = ({"G": g_grads["G"], "E": g_grads["E"], "D": d_grads}, trajectory)
+    return (*out, jax.device_get(g_step)) if with_g_step else out
 
 
 def _jax_state(jm, fns, variables):
