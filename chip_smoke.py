@@ -144,6 +144,21 @@ Phases; any failure raises and the script exits non-zero:
      references of a bs16 batch at the default crop (320x256) and 16
      masks, per-sample flips, bit for bit equal to the numpy versions,
      both timed;
+  12. parallel (after phase 11): data-parallel training
+     (``parallel.data_parallel``), each rank a child process of this
+     script with its own timeout; a child that fails or times out fails
+     the phase.  (a) World 1 on NCCL: the default model at bs16, 2
+     float32 iterations, each step (G, then D) taken by the DP route and
+     by the one-process route from identical states (losses and gradients
+     to F32_ROUTE, the updated state to the card-vs-CPU limits), 36 K1
+     launches per iteration; then both routes timed in turns in float32
+     and bfloat16 (their difference: the synchronised statistics and the
+     gradient all-reduce).  (b) World 2 on gloo with CUDA tensors on the
+     one card: the same at 8 samples per rank against rank 0's
+     one-process run of the whole bs16 batch, 36 launches per rank per
+     iteration; then segtrain (ResNet-101 os16, crop 513) at global bs4,
+     2 float64 steps against the one-process step, 0 launches.  The gloo
+     times are a correctness run's, not a speed figure;
 Nothing of JAX, flax, optax, msgpack or the JAX package may have been
 imported.
 The port keeps float32 in full float32 by itself (its float32 forward and
@@ -997,7 +1012,7 @@ def state_on(state, device):
 
 def compare_state(where, card, cpu, lr):
     """-> failures: spectral u/v, running statistics and parameters of the
-    two states, as CARD_CPU_* states."""
+    two states (on any devices), as CARD_CPU_* states."""
     sd_card = {f"{n}.{k}": t.detach().cpu() for n, net in
                nets_of(card.model).items() for k, t in net.state_dict().items()}
     uv = run = worst_param = 0.0
@@ -1006,6 +1021,7 @@ def compare_state(where, card, cpu, lr):
         for k, t in net.state_dict().items():
             if "num_batches_tracked" in k:
                 continue
+            t = t.detach().cpu()
             diff = (sd_card[f"{n}.{k}"] - t).abs()
             if k.endswith(("weight_u", "weight_v")):
                 uv = max(uv, float(diff.max()))
@@ -3061,6 +3077,332 @@ def phase_data():
     return ranking, assembly
 
 
+# --------------------------------------------------------------- phase 12
+# Data parallelism (``parallel.data_parallel``), each rank a child process
+# of this script (DP_CHILD_TIMEOUT each), rendezvous through a FileStore.
+# The card machine has one GPU and NCCL refuses two ranks on one card, so:
+# (a) world 1 on NCCL, the DP code path with real collectives, against the
+# one-process route in the same process (``parallel.data_parallel.local``),
+# and both timed; (b) world 2 on gloo with CUDA tensors on the one card,
+# each rank holding half of the global batch, against the one-process run
+# of the whole batch on rank 0.  Every iteration (segtrain: step) starts
+# both routes from identical copies of the DP route's state, as phase 5's
+# routes: losses and gradients to F32_ROUTE, then the updated state to
+# compare_state's limits.  The gloo run's times are those of a correctness
+# run, not a speed figure.
+DP_DEVICE = "cuda"
+DP_ITERS, DP_TIMED_ITERS = 2, 3
+DP_CHILD_TIMEOUT = 180
+# segtrain at the CLI's pascal defaults but global batch 4 over the ranks,
+# so that unsynchronised BN (statistics of 2 images against 4) would show,
+# in float64: in float32 ResNet-101's BNs (the ASPP pool's, over 4 values,
+# above all) carried the two routes' summation orders to 5e-2 of conv1's
+# gradient and 1.2e-4 of a running statistic (on an H100), where in
+# float64 round-off stays far below F32_ROUTE and a real difference (local
+# statistics, a misscaled gradient) does not
+DP_SEG_BATCH, DP_SEG_STEPS = 4, 2
+# a CPU rehearsal shrinks the Seg2Eye model here (Options fields)
+DP_OVERRIDES = {}
+
+
+def dp_sync(device):
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def adam_reach(lr, beta2, t):
+    """The farthest Adam at beta1 = 0 moves an element in its t-th step: lr
+    sqrt((1 - beta2^t) / (1 - beta2)), when that step's gradient alone
+    makes the second moment (an element whose earlier gradients were
+    round-off)."""
+    return lr * math.sqrt((1 - beta2 ** t) / (1 - beta2))
+
+
+def dp_iterations(where, opt, nets_cpu, batches, device, failures):
+    """DP_ITERS Seg2Eye iterations on this rank's rows of each global batch.
+    Rank 0 takes each step (G, then D) also in one process on the whole
+    batch from a copy of the state before it, as phase 5's card-vs-CPU
+    iteration does: across a whole iteration the two would not stay
+    comparable, since the G update steps the elements whose gradient is
+    round-off either way (about lr each, by Adam's sign) and the D step's
+    regenerated fake and the running updates see that.  -> K1 launches of
+    each DP iteration."""
+    from seg2eye_tpu_torch.ops import spade_style as K
+    from seg2eye_tpu_torch.parallel import data_parallel as dp
+    from seg2eye_tpu_torch.train import steps
+    from seg2eye_tpu_torch.train.state import ttur_betas, ttur_lrs
+
+    rank, world = dp.rank(), dp.world_size()
+    state = train_state(opt, nets_cpu, device)
+    dp.check_replicated(dp.module_tensors(nets_of(state.model)),
+                        "the seeded state:")
+    lrs, beta2 = ttur_lrs(opt, opt.lr), ttur_betas(opt)[1]
+    launches = []
+    for it, batch in enumerate(batches):
+        local = dp.local_rows(batch, rank, world)
+        dp_launches = 0
+        for half, step, nets, lr in (("G step", steps.g_step, ("G", "E"),
+                                      lrs[0]),
+                                     ("D step", steps.d_step, ("D",),
+                                      lrs[1])):
+            ref = clone_state(state) if rank == 0 else None
+            before = K.spade_style.launches
+            out = step(state, local)
+            dp_launches += K.spade_style.launches - before
+            losses = out[0] if half == "G step" else out
+            losses = {k: float(v)
+                      for k, v in dp.mean_over_ranks(losses).items()}
+            if rank:
+                continue
+            with dp.local():
+                out = step(ref, batch)
+            ref_losses = out[0] if half == "G step" else out
+            at = f"{where}, iteration {it + 1} {half}"
+            failures += compare_losses(at, losses, {
+                k: float(torch.mean(v.float()))
+                for k, v in ref_losses.items()}, None)
+            failures += compare_grads(at, grads_of(state.model),
+                                      grads_of(ref.model), None,
+                                      "DP - one process", nets)
+            failures += compare_state(at, state, ref,
+                                      adam_reach(lr, beta2, it + 1))
+            del ref
+        launches.append(dp_launches)
+    return launches
+
+
+def dp_timed(opt, nets_cpu, batch, device):
+    """ms/iteration of the DP route and the one-process route, in turns,
+    medians of DP_TIMED_ITERS after one of each; -> (dp ms, one-process
+    ms, K1 launches of the DP iteration)."""
+    from seg2eye_tpu_torch.ops import spade_style as K
+    from seg2eye_tpu_torch.parallel import data_parallel as dp
+    from seg2eye_tpu_torch.train import steps
+
+    state = train_state(opt, nets_cpu, device)
+    times = {True: [], False: []}
+    launches = 0
+    for i in range(DP_TIMED_ITERS + 1):
+        for synced in (True, False):
+            K.spade_style.launches = 0
+            dp_sync(device)
+            t0 = time.perf_counter()
+            with contextlib.nullcontext() if synced else dp.local():
+                steps.train_step(state, batch)
+            dp_sync(device)
+            if i:
+                times[synced].append((time.perf_counter() - t0) * 1e3)
+            if synced:
+                launches = K.spade_style.launches
+    return (statistics.median(times[True]), statistics.median(times[False]),
+            launches)
+
+
+def dp_segtrain(tmp, device, overrides, failures):
+    """DP_SEG_STEPS float64 segtrain steps (dropout on) on this rank's rows
+    of each global batch, each also taken by rank 0 on the whole batch from
+    a copy of the net and optimizer: loss and gradients to F32_ROUTE,
+    running statistics to CARD_CPU_RUN_RTOL; -> (K1 launches, median host
+    ms of the DP steps)."""
+    import copy
+
+    from seg2eye_tpu_torch.ops import spade_style as K
+    from seg2eye_tpu_torch.parallel import data_parallel as dp
+    from seg2eye_tpu_torch.refinenet.training import dropout_generator
+    from seg2eye_tpu_torch.segtrain.trainer import SegTrainer, make_optimizer
+
+    rank, world = dp.rank(), dp.world_size()
+    args = seg_args(tmp, "--batch-size", str(DP_SEG_BATCH), **overrides)
+    args.no_cuda = device.type == "cpu"
+    data = SegData(DP_SEG_BATCH * DP_SEG_STEPS, args.crop_size, seed=7)
+    t = SegTrainer(args, loaders=([None] * DP_SEG_STEPS, [None], None, 21))
+    t.net.double()
+    t.dtype = torch.float64
+    K.spade_style.launches = 0
+    times = []
+    for step in range(DP_SEG_STEPS):
+        image, label = seg_batch(data, step * DP_SEG_BATCH, DP_SEG_BATCH,
+                                 device)
+        lr = t.scheduler(step, 0)
+        ref = None
+        if rank == 0:
+            ref = copy.copy(t)
+            ref.net = copy.deepcopy(t.net)
+            ref.optimizer = make_optimizer(ref.net, args)
+            ref.optimizer.load_state_dict(t.optimizer.state_dict())
+        b = DP_SEG_BATCH // world
+        dp_sync(device)
+        t0 = time.perf_counter()
+        loss, _ = t.train_step(image[rank * b:(rank + 1) * b],
+                               label[rank * b:(rank + 1) * b], lr,
+                               dropout_generator(args, step, device))
+        dp_sync(device)
+        times.append((time.perf_counter() - t0) * 1e3)
+        if ref is None:
+            continue
+        with dp.local():
+            ref_loss, _ = ref.train_step(image, label, lr,
+                                         dropout_generator(args, step,
+                                                           device))
+        at = f"segtrain DP vs one process, step {step + 1}"
+        failures += compare_losses(at, {"loss": float(loss)},
+                                   {"loss": float(ref_loss)}, None)
+        grads = {f"N.{n}": p.grad for n, p in t.net.named_parameters()}
+        failures += compare_grads(at, grads, {
+            f"N.{n}": p.grad for n, p in ref.net.named_parameters()}, None,
+            "DP - one process", ("N",))
+        worst = max(float((v - ref.net.state_dict()[k]).norm()
+                          / v.norm().clamp(min=1e-30))
+                    for k, v in t.net.state_dict().items()
+                    if "running" in k)
+        log(f"    running statistics, worst ||DP - one process|| / ||stat|| "
+            f"{worst:.3e} (tolerance {CARD_CPU_RUN_RTOL})")
+        if worst > CARD_CPU_RUN_RTOL:
+            failures.append(f"{at}: running statistics differ")
+        del ref
+    return K.spade_style.launches, statistics.median(times)
+
+
+def dp_child(form, rank, world, tmp, config):
+    """One rank of phase 12 (run by phase_parallel in a process of its
+    own): (a) form 'nccl' at world 1, (b) 'gloo' at world 2.  Writes
+    ``{tmp}/{form}{rank}.json``; any failure raises."""
+    import os
+
+    import torch.distributed as dist
+
+    from seg2eye_tpu_torch.options import Options
+    from seg2eye_tpu_torch.utils.weights import init_networks
+
+    device = torch.device(config["device"])
+    if device.type == "cuda":
+        device = torch.device("cuda", 0)
+        torch.cuda.set_device(device)
+    backend = "nccl" if form == "nccl" and device.type == "cuda" else "gloo"
+    store = dist.FileStore(os.path.join(tmp, f"{form}.store"), world)
+    dist.init_process_group(backend, store=store, rank=rank,
+                            world_size=world)
+    try:
+        opt = Options(batchSize=config["batch"], compute_dtype="float32",
+                      **config["seg2eye"]).finalize()
+        nets_cpu = init_networks(opt, torch.Generator().manual_seed(0), "cpu")
+        batches = [make_train_batch(opt, opt.batchSize, seed=30 + i)
+                   for i in range(DP_ITERS)]
+        failures = []
+        out = {"launches": dp_iterations(
+            f"{backend} world {world} DP vs one process, float32", opt,
+            nets_cpu, batches, device, failures)}
+        if form == "nccl":
+            for dname in ("float32", "bfloat16"):
+                out[dname] = dp_timed(opt.replace(compute_dtype=dname),
+                                      nets_cpu, batches[0], device)
+        else:
+            os.chdir(tmp)
+            out["segtrain"] = dp_segtrain(tmp, device, config["segtrain"],
+                                          failures)
+        want = config["launches"]
+        bad = [n for n in out["launches"] if n != want]
+        if form == "nccl":
+            bad += [v[2] for v in (out["float32"], out["bfloat16"])
+                    if v[2] != want]
+        else:
+            bad += [out["segtrain"][0]] if out["segtrain"][0] else []
+        if bad:
+            failures.append(f"K1 launched {bad} times in a DP iteration "
+                            f"(segtrain: in its steps); expected {want} per "
+                            "Seg2Eye iteration and 0 on segtrain")
+        if failures:
+            raise AssertionError(f"rank {rank}: " + "; ".join(failures))
+        with open(os.path.join(tmp, f"{form}{rank}.json"), "w") as f:
+            json.dump(out, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def dp_children(tmp, form, world):
+    """Runs the ``world`` ranks of ``form``; any rank that fails or
+    outlives DP_CHILD_TIMEOUT fails the phase, and every child is stopped
+    on the way out.  -> the ranks' results."""
+    import os
+
+    config = {"device": DP_DEVICE, "batch": TRAIN_BATCH,
+              "seg2eye": DP_OVERRIDES, "segtrain": SEG_OVERRIDES,
+              "launches": TRAIN_LAUNCHES}
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = {**os.environ, "PYTHONPATH": root}
+    for k in ("WORLD_SIZE", "RANK", "LOCAL_RANK", "MASTER_ADDR",
+              "MASTER_PORT"):
+        env.pop(k, None)
+    code = ("import json, sys; import chip_smoke as cs; "
+            "cs.dp_child(*json.loads(sys.argv[1]))")
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", code,
+         json.dumps([form, r, world, tmp, config])], cwd=tmp, env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for r in range(world)]
+    deadline = time.monotonic() + DP_CHILD_TIMEOUT
+    try:
+        for r, p in enumerate(procs):
+            try:
+                output, _ = p.communicate(
+                    timeout=max(1.0, deadline - time.monotonic()))
+            except subprocess.TimeoutExpired:
+                raise AssertionError(f"{form} rank {r} of {world} outlived "
+                                     f"{DP_CHILD_TIMEOUT} s") from None
+            for line in output.splitlines():
+                log(f"  [{form} rank {r}] {line}")
+            if p.returncode:
+                raise AssertionError(f"{form} rank {r} of {world} exited "
+                                     f"with {p.returncode}")
+        results = []
+        for r in range(world):
+            with open(os.path.join(tmp, f"{form}{r}.json")) as f:
+                results.append(json.load(f))
+        return results
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+
+
+def phase_parallel():
+    """(a) world 1 on NCCL, then (b) world 2 on gloo; -> K1 launches per
+    DP iteration, {"nccl": per dtype, "gloo": float32's}."""
+    import tempfile
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        log(f"parallel (a): Seg2Eye at bs{TRAIN_BATCH}, world 1 on NCCL "
+            f"(the DP path with real collectives) against the one-process "
+            f"route, {DP_ITERS} float32 iterations; then both routes timed")
+        (a,) = dp_children(tmp, "nccl", 1)
+        for dname in ("float32", "bfloat16"):
+            dp_ms, one_ms, _ = a[dname]
+            log(f"  {dname} bs{TRAIN_BATCH}: DP at world 1 {dp_ms:.2f} "
+                f"ms/iteration, one process {one_ms:.2f}, the cost of the "
+                f"synchronised statistics and gradient all-reduces "
+                f"{dp_ms - one_ms:+.2f} ms (medians of {DP_TIMED_ITERS} in "
+                f"turns, host clock, synchronised; {card_line()})")
+        log(f"parallel (b): world 2 on gloo, CUDA tensors on the one card: "
+            f"Seg2Eye bs{TRAIN_BATCH} ({TRAIN_BATCH // 2} per rank), "
+            f"{DP_ITERS} float32 iterations, and segtrain (ResNet-101 os16, "
+            f"crop 513) at global bs{DP_SEG_BATCH}, {DP_SEG_STEPS} float64 "
+            "steps, each against the one-process run on rank 0")
+        b = dp_children(tmp, "gloo", 2)
+        log(f"  gloo segtrain steps {b[0]['segtrain'][1]:.1f} ms (median, "
+            "rank 0; a correctness run, not a speed figure: the gloo "
+            "all-reduces go through the host)")
+    log(f"parallel: K1 launches per rank per DP iteration: NCCL "
+        f"{a['launches']} (float32), {a['bfloat16'][2]} (bfloat16); gloo "
+        f"{[r['launches'] for r in b]}; segtrain "
+        f"{[r['segtrain'][0] for r in b]}; phase 12 took "
+        f"{time.perf_counter() - t0:.1f} s")
+    return {"nccl": {"float32": a["launches"][0],
+                     "bfloat16": a["bfloat16"][2]},
+            "gloo": b[0]["launches"][0]}
+
+
 def main():
     kind = phase_device()
     phase_build()
@@ -3073,6 +3415,7 @@ def main():
     phase_segtrain()
     interop_launches = phase_interop()
     phase_data()
+    dp_launches = phase_parallel()
     foreign = sorted(m for m in sys.modules if m.split(".")[0] in
                      ("jax", "jaxlib", "flax", "seg2eye_tpu", "msgpack",
                       "optax"))
@@ -3087,6 +3430,8 @@ def main():
         f"512), serving_launches in one call of that dtype's serving "
         f"artifact (bs{BATCH}), interop_score/train_launches in scoring "
         f"bs{BATCH} from a loaded .ckpt and one resumed iteration; "
+        "dp_train_launches per rank in one data-parallel iteration at world "
+        "1 on NCCL, dp_gloo_train_launches at world 2 on gloo (float32); "
         f"max_abs_err over the crop-256 and odd "
         f"site checks; ms, plain_ms, library_ms and bound_ms summed over the "
         f"18 sites at N={SITE_N}")
@@ -3101,6 +3446,9 @@ def main():
          "serving_launches": serving_launches[d],
          "interop_score_launches": interop_launches[d]["score"],
          "interop_train_launches": interop_launches[d]["train"],
+         "dp_train_launches": dp_launches["nccl"][d],
+         "dp_gloo_train_launches": dp_launches["gloo"]
+         if d == "float32" else None,
          **{k: summary[d][k] for k in keys}}
         for d in ("bfloat16", "float32")]}))
     print(json.dumps({"ok": True, "device": {

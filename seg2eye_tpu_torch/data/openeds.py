@@ -37,6 +37,7 @@ import torch
 
 from seg2eye_tpu_torch.data import transforms
 from seg2eye_tpu_torch.data.schema import split_keys
+from seg2eye_tpu_torch.parallel import data_parallel as dp
 
 
 class OpenEDSDataset:
@@ -272,13 +273,26 @@ class DataLoader:
     from the generator seeded (seed, e, i), as the JAX package's loader
     does: no state carries from one pass to the next, so a run resumed at
     epoch e (``set_epoch``) sees the batches the unbroken run saw there.
-    ``prefetch`` > 0 reads that many batches ahead on a worker thread."""
+    ``prefetch`` > 0 reads that many batches ahead on a worker thread.
+
+    ``batch_size`` is the global batch.  With ``process_count`` N > 1
+    (data parallelism) process ``process_index`` loads only its contiguous
+    B/N samples of each global batch, and a batch that N does not divide
+    (a tail kept without ``drop_last``) is an error: every process slices
+    the same global order and draws each sample from its global index, so
+    N processes load between them what one process loads."""
 
     def __init__(self, dataset, batch_size: int,
                  shuffle: bool = False, drop_last: bool = False,
-                 seed: int = 0, prefetch: int = 0):
+                 seed: int = 0, prefetch: int = 0, process_index: int = 0,
+                 process_count: int = 1):
+        if batch_size % process_count:
+            raise ValueError(f"the global batch {batch_size} is not "
+                             f"divisible by {process_count} processes")
         self.dataset = dataset
         self.batch_size = batch_size
+        self.process_index = process_index
+        self.process_count = process_count
         self.shuffle = shuffle
         self.drop_last = drop_last
         self.seed = seed
@@ -323,6 +337,16 @@ class DataLoader:
         yield from threaded_iter(batches, self._load, self.prefetch)
 
     def _load(self, idxs) -> Dict:
+        if self.process_count > 1:
+            if len(idxs) % self.process_count:
+                raise ValueError(
+                    f"multi-process loading needs every batch divisible by "
+                    f"process_count={self.process_count}; got a tail batch "
+                    f"of {len(idxs)}: use drop_last, pad the dataset, or "
+                    f"pick a dividing batch size")
+            local = len(idxs) // self.process_count
+            idxs = idxs[self.process_index * local:
+                        (self.process_index + 1) * local]
         return collate([self._item(i) for i in idxs])
 
     def _item(self, idx: int) -> Dict:
@@ -336,11 +360,16 @@ class DataLoader:
 
 def create_dataloader(opt, dataset_key: Optional[str] = None) -> DataLoader:
     """The loader of ``opt``: shuffled unless ``serial_batches``, the last
-    short batch dropped when training."""
+    short batch dropped when training; a training loader loads this
+    process's share of each global batch under data parallelism, an
+    inference loader whole batches."""
+    train = opt.isTrain
     return DataLoader(OpenEDSDataset(opt, dataset_key=dataset_key),
                       batch_size=opt.batchSize,
-                      shuffle=not opt.serial_batches, drop_last=opt.isTrain,
-                      seed=opt.seed, prefetch=opt.prefetch)
+                      shuffle=not opt.serial_batches, drop_last=train,
+                      seed=opt.seed, prefetch=opt.prefetch,
+                      process_index=dp.rank() if train else 0,
+                      process_count=dp.world_size() if train else 1)
 
 
 MODEL_KEYS = ("label", "style_image", "target")

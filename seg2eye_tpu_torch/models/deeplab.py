@@ -51,6 +51,7 @@ from seg2eye_tpu_torch.models.backbones_extra import (DRNBackbone,
 from seg2eye_tpu_torch.models.layers import (BatchNorm, Bottleneck, apply_conv,
                                              at_least_f32, make_conv)
 from seg2eye_tpu_torch.ops.image import resize_bilinear_ac
+from seg2eye_tpu_torch.parallel import data_parallel as dp
 
 RESNET_LAYERS = {101: (3, 4, 23, 3), 50: (3, 4, 6, 3), 26: (2, 2, 2, 2),
                  14: (1, 1, 1, 1)}
@@ -67,11 +68,18 @@ def _cat(tensors) -> torch.Tensor:
 
 def dropout(x: torch.Tensor, p: float,
             generator: Optional[torch.Generator]) -> torch.Tensor:
-    """Inverted dropout drawn from ``generator``; the identity without one."""
+    """Inverted dropout drawn from ``generator``; the identity without one.
+    Under data parallelism the mask is drawn at the global batch's shape
+    and each rank keeps its own rows, so N ranks drop what one process
+    drops on the whole batch."""
     if generator is None:
         return x
-    keep = torch.empty(x.shape, device=x.device).bernoulli_(
+    world = dp.world_size()
+    b = x.shape[0]
+    keep = torch.empty((b * world, *x.shape[1:]), device=x.device).bernoulli_(
         1.0 - p, generator=generator)
+    if world > 1:
+        keep = keep[dp.rank() * b:(dp.rank() + 1) * b]
     return torch.where(keep.bool(), x / (1.0 - p), torch.zeros_like(x))
 
 

@@ -16,7 +16,10 @@
   * ``BatchNorm`` is the affine batch norm of the DeepLab stacks, with
     the JAX package's ``TorchBatchNorm`` semantics (torch's);
     ``BatchSubNorm`` is the same norm after an encoder or discriminator
-    conv (``norm_E``/``norm_D = 'spectralbatch'``).
+    conv (``norm_E``/``norm_D = 'spectralbatch'``).  Under data
+    parallelism (``parallel.data_parallel.active``) both take their batch
+    statistics over the global batch, as the JAX package's do over a
+    sharded batch axis.
   * ``instance_norm`` is torch ``InstanceNorm2d(affine=False)``: biased
     statistics over (H, W), eps 1e-5, computed in at least float32.
   * ``FCStyle`` is the StyleGAN FC layer: linear in float32, LeakyReLU(0.2).
@@ -35,6 +38,8 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from seg2eye_tpu_torch.parallel import data_parallel as dp
 
 EPS = 1e-5
 
@@ -194,9 +199,29 @@ class BatchNorm(nn.BatchNorm2d):
     def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
         if train:
             self.num_batches_tracked.add_(1)
+            if dp.active():
+                return self._synced(x, update=True)
         return F.batch_norm(x, self.running_mean, self.running_var,
                             self.weight, self.bias, train, self.momentum,
                             self.eps)
+
+    def _synced(self, x: torch.Tensor, update: bool) -> torch.Tensor:
+        """Batch statistics of the global batch (every rank's samples,
+        ``parallel.data_parallel.synced_var_mean``), the running ones
+        updated with them when ``update``; in at least float32, returned
+        in x's dtype."""
+        x32 = at_least_f32(x)
+        var, mean, count = dp.synced_var_mean(x32, (0, 2, 3))
+        if update:
+            with torch.no_grad():
+                m = self.momentum
+                unbiased = var * (count / (count - 1).clamp(min=1))
+                self.running_mean.mul_(1 - m).add_(m * mean)
+                self.running_var.mul_(1 - m).add_(m * unbiased)
+        scale = torch.rsqrt(var + self.eps) * self.weight
+        shift = self.bias - mean * scale
+        return (x32 * scale[:, None, None]
+                + shift[:, None, None]).to(x.dtype)
 
 
 class Bottleneck(nn.Module):
@@ -236,15 +261,35 @@ class BatchSubNorm(BatchNorm):
     with ``use_running_average``.  The preceding conv has no bias; the
     scale is initialised N(1, init_variance) (``utils.weights``)."""
 
+    stats_log: Optional[list] = None
+
     def forward(self, x: torch.Tensor, use_running_average: bool = False,
                 update_stats: bool = False) -> torch.Tensor:
         update = update_stats and not use_running_average
+        if update and self.stats_log is not None:
+            return self._logged(x)
         if update:
             self.num_batches_tracked.add_(1)
+        if not use_running_average and dp.active():
+            return self._synced(x, update)
         stats = (self.running_mean, self.running_var) \
             if update or use_running_average else (None, None)
         y = F.batch_norm(at_least_f32(x), *stats, self.weight, self.bias,
                          not use_running_average, self.momentum, self.eps)
+        return y.to(x.dtype)
+
+    def _logged(self, x: torch.Tensor) -> torch.Tensor:
+        """A training forward with this rank's batch statistics whose
+        running update is deferred: (mean, unbiased variance) go to
+        ``stats_log`` and the running statistics stay (per-sample encoding
+        under data parallelism replays every sample's update in global
+        order, ``Pix2Pix.encode_w``)."""
+        x32 = at_least_f32(x)
+        var, mean = torch.var_mean(x32.detach(), dim=(0, 2, 3), correction=0)
+        n = x.numel() // x.shape[1]
+        self.stats_log.append((mean, var * (n / max(n - 1, 1))))
+        y = F.batch_norm(x32, None, None, self.weight, self.bias, True,
+                         self.momentum, self.eps)
         return y.to(x.dtype)
 
 

@@ -10,7 +10,10 @@
     (``use_running_average``, from ``opt.eval_use_running_stats``).  A
     training forward (``update_stats=True``) updates them as torch's
     BatchNorm does: momentum 0.1, the unbiased variance into
-    ``running_var``, ``num_batches_tracked`` counted.
+    ``running_var``, ``num_batches_tracked`` counted.  Under data
+    parallelism they are the global batch's (``parallel.data_parallel.
+    synced_var_mean``), and the kernel normalises each rank's samples with
+    them; instance statistics stay per sample.
 """
 from __future__ import annotations
 
@@ -23,6 +26,7 @@ from torch.utils.checkpoint import checkpoint
 
 from seg2eye_tpu_torch.models.layers import FCStyle, SpectralConv, at_least_f32
 from seg2eye_tpu_torch.ops.spade_style import NHIDDEN, spade_style
+from seg2eye_tpu_torch.parallel import data_parallel as dp
 
 
 def parse_norm_g(norm_g: str) -> Tuple[bool, str, int]:
@@ -77,6 +81,11 @@ class SpadeStyleBlock(nn.Module):
             pfn = self.spade.param_free_norm
             if use_running_average:
                 mean, var = pfn.running_mean, pfn.running_var
+            elif dp.active():
+                var, mean, count = dp.synced_var_mean(at_least_f32(x),
+                                                      (0, 2, 3))
+                if update_stats:
+                    self._update_running_stats(mean, var, count)
             else:
                 var, mean = torch.var_mean(at_least_f32(x), dim=(0, 2, 3),
                                            correction=0)
@@ -96,9 +105,14 @@ class SpadeStyleBlock(nn.Module):
         return out.permute(0, 3, 1, 2)
 
     @torch.no_grad()
-    def _update_running_stats(self, mean, var, count: int) -> None:
+    def _update_running_stats(self, mean, var, count) -> None:
+        """``count``: the elements behind each statistic, an int or (data
+        parallel, the global count) a 0-d tensor."""
         pfn = self.spade.param_free_norm
-        unbiased = var * (count / max(count - 1, 1))
+        if torch.is_tensor(count):
+            unbiased = var * (count / (count - 1).clamp(min=1))
+        else:
+            unbiased = var * (count / max(count - 1, 1))
         pfn.running_mean.mul_(0.9).add_(0.1 * mean)
         pfn.running_var.mul_(0.9).add_(0.1 * unbiased)
         pfn.num_batches_tracked += 1

@@ -11,7 +11,10 @@ of ``seg2eye_tpu/models/pix2pix.py``).
     per sample over its own k references, in order, as the reference's
     loop does: in training each run advances u/v and the running
     statistics, so sample b sees a u iterated b + 1 times; a batch sub-norm
-    normalises over that sample's k references.
+    normalises over that sample's k references.  Under data parallelism
+    each rank encodes its samples of the global batch so (see
+    ``_encode_samples_replayed``): the run matches the one-process run of
+    the global batch.
   * ``generate``: the generator with batch statistics, as the reference's
     Tester runs it (train mode); running statistics only under
     ``opt.eval_use_running_stats``.  A training forward uses batch
@@ -50,11 +53,13 @@ import torch
 from seg2eye_tpu_torch.models.discriminator import MultiscaleDiscriminator
 from seg2eye_tpu_torch.models.encoder import ConvEncoder
 from seg2eye_tpu_torch.models.generator import SpadeStyleGenerator
-from seg2eye_tpu_torch.models.layers import at_least_f32
+from seg2eye_tpu_torch.models.layers import (BatchSubNorm, SpectralConv,
+                                             at_least_f32)
 from seg2eye_tpu_torch.models.vgg import VGG19Features, to_rgb
 from seg2eye_tpu_torch.ops import losses as L
 from seg2eye_tpu_torch.ops import metrics
 from seg2eye_tpu_torch.ops.image import one_hot_label
+from seg2eye_tpu_torch.parallel import data_parallel as dp
 from seg2eye_tpu_torch.utils.precision import full_float32
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
@@ -135,9 +140,15 @@ class Pix2Pix:
         nothing."""
         b, k = style.shape[:2]
         running = self.opt.eval_use_running_stats and not update_stats
-        if self.opt.per_sample_encode_enabled and b > 1:
-            outs = [self.netE(style[i].permute(0, 3, 1, 2), update_stats,
-                              running) for i in range(b)]
+        world = dp.world_size()
+        if self.opt.per_sample_encode_enabled and b * world > 1:
+            if update_stats and world > 1:
+                outs = self._encode_samples_replayed(style, world)
+            else:
+                with dp.local():     # statistics of each sample's own k
+                    outs = [self.netE(style[i].permute(0, 3, 1, 2),
+                                      update_stats, running)
+                            for i in range(b)]
             mu = torch.stack([out[0] for out in outs])
             feats = [torch.stack(f) for f in zip(*(out[2] for out in outs))]
         else:
@@ -147,6 +158,50 @@ class Pix2Pix:
             feats = [f.reshape(b, k, *f.shape[1:]) for f in feats]
         return (self._aggregate(mu, 1),
                 [self._aggregate(f, 1) for f in feats])
+
+    def _encode_samples_replayed(self, style: torch.Tensor, world: int):
+        """Training per-sample encoding of this rank's samples of a global
+        batch, as the one-process run encodes the whole batch in order:
+        global sample j runs with every spectral u iterated j + 1 times,
+        so rank r first iterates them r b times and, after its b samples,
+        on to N b; each sample's batch sub-norms use its own statistics,
+        and every sample's running update is replayed on every rank in
+        global order (each rank's (mean, variance) rows gathered)."""
+        b = style.shape[0]
+        r = dp.rank()
+        convs = [m for m in self.netE.modules()
+                 if isinstance(m, SpectralConv) and m.spectral]
+        norms = [m for m in self.netE.modules()
+                 if isinstance(m, BatchSubNorm)]
+
+        @torch.no_grad()
+        def power_iterations(n):
+            for _ in range(n):
+                for conv in convs:
+                    conv.kernel(update_stats=True)
+
+        power_iterations(r * b)
+        for norm in norms:
+            norm.stats_log = []
+        try:
+            with dp.local():
+                outs = [self.netE(style[i].permute(0, 3, 1, 2), True)
+                        for i in range(b)]
+            logs = [norm.stats_log for norm in norms]
+        finally:
+            for norm in norms:
+                norm.stats_log = None
+        power_iterations((world - 1 - r) * b)
+        with torch.no_grad():
+            for norm, log in zip(norms, logs):
+                means = dp.gather_rows(torch.stack([m for m, _ in log]))
+                variances = dp.gather_rows(torch.stack([v for _, v in log]))
+                m = norm.momentum
+                for mean, var in zip(means, variances):
+                    norm.running_mean.mul_(1 - m).add_(m * mean)
+                    norm.running_var.mul_(1 - m).add_(m * var)
+                norm.num_batches_tracked.add_(len(means))
+        return outs
 
     def generate(self, seg: torch.Tensor, w: torch.Tensor,
                  update_stats: bool = False) -> torch.Tensor:

@@ -25,6 +25,7 @@ from typing import List, Sequence
 import torch
 
 from seg2eye_tpu_torch.models.layers import at_least_f32
+from seg2eye_tpu_torch.parallel import data_parallel as dp
 
 
 def _single_gan_loss(logits: torch.Tensor, target_is_real: bool,
@@ -95,7 +96,13 @@ def gram_matrix(feat: torch.Tensor) -> torch.Tensor:
 
 def style_gram_loss(feat_fake: torch.Tensor,
                     feat_real: torch.Tensor) -> torch.Tensor:
-    """MSE between Gram matrices, the target detached."""
+    """MSE between Gram matrices, the target detached.  The Gram matrix
+    spans the batch (samples times channels), so under data parallelism
+    it is taken over every rank's samples, as the JAX package's over a
+    sharded batch."""
+    if dp.active():
+        feat_fake = dp.gather_rows(feat_fake)
+        feat_real = dp.gather_rows(feat_real.detach())
     return torch.mean((gram_matrix(feat_fake)
                        - gram_matrix(feat_real).detach()) ** 2)
 

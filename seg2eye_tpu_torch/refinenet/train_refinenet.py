@@ -8,7 +8,9 @@
         --segmentations_sequence SEGS_SEQ.h5 [--device cuda]
 
 The flags and JSON overlays of ``RefineNetConfig``, plus ``--device``
-(default ``cuda``; a missing card is an error).  The periodic tests run on
+(default ``cuda``; a missing card is an error).  Data parallelism:
+``torchrun --nproc_per_node N -m`` this module with the same flags;
+``batch_size`` is the global batch.  The periodic tests run on
 the validation split subsampled to ``test_num_samples``, with a random and
 with the top-1 neighbour.
 """
@@ -17,6 +19,7 @@ from __future__ import annotations
 import logging
 
 from seg2eye_tpu_torch.data.openeds import DataLoader, subsample
+from seg2eye_tpu_torch.parallel import data_parallel as dp
 from seg2eye_tpu_torch.refinenet.config import RefineNetConfig
 from seg2eye_tpu_torch.refinenet.dataset import RefineNetDataset
 from seg2eye_tpu_torch.refinenet.model import RefineNetModel
@@ -26,6 +29,7 @@ from seg2eye_tpu_torch.refinenet.training import main_loop, split_device_flag
 def main(argv=None) -> dict:
     logging.basicConfig(level=logging.INFO)
     device, rest = split_device_flag(argv)
+    device = dp.init_from_env(device)
     cfg = RefineNetConfig.from_args(rest)
     train_loader = DataLoader(RefineNetDataset(cfg, "train"),
                               batch_size=cfg.batch_size, shuffle=True,

@@ -5,13 +5,16 @@
         [refinenet/configs/segnet.json ...] --dataroot DATA.h5 [--device cuda]
 
 The flags and JSON overlays of ``RefineNetConfig``, plus ``--device``
-(default ``cuda``; a missing card is an error).  Momentum 0.9.
+(default ``cuda``; a missing card is an error).  Data parallelism:
+``torchrun --nproc_per_node N -m`` this module with the same flags;
+``batch_size`` is the global batch.  Momentum 0.9.
 """
 from __future__ import annotations
 
 import logging
 
 from seg2eye_tpu_torch.data.openeds import DataLoader, subsample
+from seg2eye_tpu_torch.parallel import data_parallel as dp
 from seg2eye_tpu_torch.refinenet.config import RefineNetConfig
 from seg2eye_tpu_torch.refinenet.model import SegNetModel
 from seg2eye_tpu_torch.refinenet.segnet_dataset import SegNetDataset
@@ -21,6 +24,7 @@ from seg2eye_tpu_torch.refinenet.training import main_loop, split_device_flag
 def main(argv=None) -> dict:
     logging.basicConfig(level=logging.INFO)
     device, rest = split_device_flag(argv)
+    device = dp.init_from_env(device)
     cfg = RefineNetConfig.from_args(rest)
     train_loader = DataLoader(SegNetDataset(cfg, "train"),
                               batch_size=cfg.batch_size, shuffle=True,

@@ -27,9 +27,17 @@ training.py).
 The train state lives in the model (weights, running statistics) and the
 optimizer, and steps change it in place.  ``resume_from`` also resumes a
 JAX package's run from its ``%07d.ckpt`` (``checkpoint_manager``); the run
-then writes the port's format beside them.  Training is single-device:
-the JAX package's data-parallel mesh is not ported (ROADMAP,
-"Multi-GPU").
+then writes the port's format beside them.
+
+Data parallelism (``torchrun``, ``parallel.data_parallel``), the
+counterpart of the JAX package's data mesh over all devices: every rank
+loads the same global batch of ``cfg.batch_size`` from the same seed and
+trains on its contiguous B/N rows; the DeepLab's batch statistics are the
+global batch's, the gradients are averaged over the ranks before the
+clip, so every rank clips the same global gradient, dropout masks are
+drawn at the global batch's shape, and the step's scalars are the means
+over the ranks.  Rank 0 alone tests, logs and writes checkpoints; every
+rank reads a resumed one.
 """
 from __future__ import annotations
 
@@ -43,6 +51,7 @@ import numpy as np
 import torch
 
 from seg2eye_tpu_torch.data.openeds import device_prefetch
+from seg2eye_tpu_torch.parallel import data_parallel as dp
 from seg2eye_tpu_torch.refinenet.checkpoint_manager import CheckpointManager
 from seg2eye_tpu_torch.refinenet.config import RefineNetConfig
 from seg2eye_tpu_torch.refinenet.loggers import GoogleSheetLogger, Tensorboard
@@ -149,6 +158,7 @@ class Trainer:
             out[self.loss_key].backward()
             params = [p for group in opt.param_groups
                       for p in group["params"] if p.grad is not None]
+            dp.all_reduce_grads(params)
             if self.cfg.gradient_norm_clip > 0.0:
                 clip_by_global_norm_([p.grad for p in params],
                                      self.cfg.gradient_norm_clip)
@@ -157,7 +167,10 @@ class Trainer:
             opt.step()
         state.step += 1
         out = {k: v.detach() for k, v in out.items()}
-        return {k: v for k, v in out.items() if v.dim() == 0}, out
+        scalars = {k: v for k, v in out.items() if v.dim() == 0}
+        if dp.active():
+            scalars = dp.mean_over_ranks(scalars)
+        return scalars, out
 
     @torch.no_grad()
     def eval_step(self, state: TrainState, batch: Dict) -> Dict:
@@ -243,17 +256,22 @@ def main_loop(model, cfg: RefineNetConfig, train_loader, test_data: Dict,
     ``set_epoch``/``skip_next_batches`` (the port's ``DataLoader``) a
     resumed run starts where the checkpoint left the data stream."""
     model_name = model_name or type(model).__name__
+    primary, world = dp.is_primary(), dp.world_size()
+    dp.check_batch(cfg.batch_size, world)
     if cfg.resume_from:
         identifier = cfg.resume_from.rstrip("/").split("/")[-1]
         output_dir = cfg.resume_from
     else:
         identifier = cfg.identifier(model_name)
         output_dir = os.path.join(cfg.output_dir_base, identifier)
-    os.makedirs(output_dir, exist_ok=True)
-    with open(os.path.join(output_dir, "config.json"), "w") as f:
-        f.write(cfg.full_json())
-    tensorboard = Tensorboard(output_dir)
-    gsheet = GoogleSheetLogger(identifier, cfg.full_json(), output_dir)
+    if primary:
+        os.makedirs(output_dir, exist_ok=True)
+        with open(os.path.join(output_dir, "config.json"), "w") as f:
+            f.write(cfg.full_json())
+        gsheet = GoogleSheetLogger(identifier, cfg.full_json(), output_dir)
+    else:
+        gsheet = None
+    tensorboard = Tensorboard(output_dir if primary else None)
     ckpt_mgr = CheckpointManager(output_dir, cfg.checkpoints_keep_n)
 
     trainer = Trainer(model, cfg, loss_key, momentum=momentum)
@@ -266,6 +284,8 @@ def main_loop(model, cfg: RefineNetConfig, train_loader, test_data: Dict,
         if step0 is not None:
             start_step = step0
             logger.info("Resumed from step %d", start_step)
+    dp.check_replicated(dp.module_tensors({"net": model.net}),
+                        "the initial state:")
 
     num_steps = int(cfg.num_epochs * steps_per_epoch)
     if cfg.max_steps:
@@ -276,21 +296,24 @@ def main_loop(model, cfg: RefineNetConfig, train_loader, test_data: Dict,
         train_loader.skip_next_batches(skip)
 
     def host_batches():
-        """exactly the step budget, restarting epochs as needed"""
+        """exactly the step budget, restarting epochs as needed; this
+        rank's rows of each global batch"""
         it = iter(train_loader)
         for _ in range(start_step, num_steps):
             try:
-                yield next(it)
+                batch = next(it)
             except StopIteration:
                 it = iter(train_loader)
                 try:
-                    yield next(it)
+                    batch = next(it)
                 except StopIteration:
                     raise RuntimeError(
                         f"train loader yields no batches: dataset has "
                         f"{len(train_loader.dataset)} samples, batch_size "
                         f"{cfg.batch_size} with drop_last — reduce "
                         f"batch_size") from None
+            yield batch if world == 1 else dp.local_rows(batch, dp.rank(),
+                                                         world)
 
     # the copy of the next batch to the device overlaps the running step
     prefetched = device_prefetch(host_batches(), model.device, MODEL_KEYS)
@@ -309,18 +332,23 @@ def main_loop(model, cfg: RefineNetConfig, train_loader, test_data: Dict,
             else type(e).__name__
         logger.warning("%s — saving checkpoint at step %d and stopping",
                        name, step + 1)
-        ckpt_mgr.save_at_step(step + 1, state)
+        if primary:
+            ckpt_mgr.save_at_step(step + 1, state)
         tensorboard.close()
         return {"state": state, "output_dir": output_dir, "steps": step + 1,
                 "final": {}, "trainer": trainer, "interrupted": True}
 
-    ckpt_mgr.save_at_step(step + 1, state)
-    final = test_model_on_all(trainer, test_data, step + 1, tensorboard,
-                              log_key_prefix="final_test")
-    gsheet.update_or_append_row(
-        {"Step": step + 1,
-         **{f"final/{t}/{k}": v for t, d in final.items()
-            for k, v in d.items()}})
+    final = {}
+    if primary:
+        ckpt_mgr.save_at_step(step + 1, state)
+        with dp.local():
+            final = test_model_on_all(trainer, test_data, step + 1,
+                                      tensorboard,
+                                      log_key_prefix="final_test")
+        gsheet.update_or_append_row(
+            {"Step": step + 1,
+             **{f"final/{t}/{k}": v for t, d in final.items()
+                for k, v in d.items()}})
     tensorboard.close()
     return {"state": state, "output_dir": output_dir, "steps": step + 1,
             "final": final, "trainer": trainer}
@@ -334,6 +362,7 @@ def _run_steps(trainer, cfg, state, prefetched, start_step, num_steps,
     step = start_step
     trainer.last_state, trainer.last_step = state, step
     device = state.model.device
+    primary = dp.is_primary()
     for step in range(start_step, num_steps):
         batch, db = next(prefetched)
         lr = learning_rate_schedule(cfg, steps_per_epoch, step)
@@ -344,7 +373,8 @@ def _run_steps(trainer, cfg, state, prefetched, start_step, num_steps,
         if step_callback is not None:
             step_callback(step, scalars, out, batch)
 
-        if step % cfg.log_every_n_steps == cfg.log_every_n_steps - 1:
+        if step % cfg.log_every_n_steps == cfg.log_every_n_steps - 1 \
+                and primary:
             host = {k: float(v) for k, v in scalars.items()}
             dt = (time.time() - t_last) / cfg.log_every_n_steps
             t_last = time.time()
@@ -359,14 +389,16 @@ def _run_steps(trainer, cfg, state, prefetched, start_step, num_steps,
                 tensorboard.add_scalar(f"train/{k}", v)
             tensorboard.add_scalar("lr/optim_0", lr)
 
-        if cfg.tensorboard_images_every_n_steps and \
+        if cfg.tensorboard_images_every_n_steps and primary and \
                 step % cfg.tensorboard_images_every_n_steps == \
                 cfg.tensorboard_images_every_n_steps - 1:
             do_visualizations(out, tensorboard, step + 1)
 
-        if step % cfg.test_every_n_steps == cfg.test_every_n_steps - 1:
-            results = test_model_on_all(trainer, test_data, step + 1,
-                                        tensorboard)
+        if step % cfg.test_every_n_steps == cfg.test_every_n_steps - 1 \
+                and primary:
+            with dp.local():
+                results = test_model_on_all(trainer, test_data, step + 1,
+                                            tensorboard)
             row = {"Step": step + 1}
             for tag, d in results.items():
                 for k, v in d.items():

@@ -41,6 +41,7 @@ from typing import Dict, List, Optional, Sequence, Union
 import numpy as np
 
 from seg2eye_tpu_torch.data.openeds import DataLoader
+from seg2eye_tpu_torch.parallel import data_parallel as dp
 from seg2eye_tpu_torch.segtrain import transforms as tr
 
 _SUBDIR = {"pascal": os.path.join("VOCdevkit", "VOC2012"),
@@ -411,11 +412,24 @@ class CombineDBs:
 def make_data_loader(args, seed: int = 0):
     """dataloaders/__init__.py:4-41 -> (train, val, test, nclass): the train
     loader shuffled with its last short batch dropped, the others in order
-    and whole (the reference's drop_last=False)."""
+    and whole (the reference's drop_last=False).  ``batch_size`` is the
+    global batch: under data parallelism every loader loads this
+    process's share of each batch, and the eval loaders drop a tail batch
+    too (it could not be shared evenly), as the JAX package's do over
+    several processes."""
+    world = dp.world_size()
+
     def loader(ds, shuffle):
+        drop = shuffle or world > 1
+        tail = len(ds) % args.batch_size
+        if drop and not shuffle and tail:
+            print(f"[multi-process DP] dropping the {tail}"
+                  f"-sample eval tail of {ds.__class__.__name__} "
+                  f"({len(ds)} % batch {args.batch_size})")
         return DataLoader(ds, batch_size=args.batch_size, shuffle=shuffle,
-                          drop_last=shuffle, seed=seed,
-                          prefetch=min(2, args.workers))
+                          drop_last=drop, seed=seed,
+                          prefetch=min(2, args.workers),
+                          process_index=dp.rank(), process_count=world)
 
     if args.dataset == "pascal":
         train_set = VOCSegmentation(args, split="train")

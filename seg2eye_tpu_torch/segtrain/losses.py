@@ -16,6 +16,11 @@ loss.py).
     least float32: bfloat16 logits are widened, float64 ones kept (the
     JAX package casts to float32 also in a float64 run; the port's float64
     runs, which check it card against CPU, stay float64 throughout).
+
+Both normalise by counts of the whole batch (its valid pixels' weights,
+its size), so under data parallelism every rank computes the loss of the
+global batch: the sums and counts of all ranks (``parallel.data_parallel.
+global_sum``), over the global batch size.
 """
 from __future__ import annotations
 
@@ -24,6 +29,7 @@ from typing import Callable, Optional
 import torch
 
 from seg2eye_tpu_torch.models.layers import at_least_f32
+from seg2eye_tpu_torch.parallel import data_parallel as dp
 
 
 class SegmentationLosses:
@@ -56,16 +62,17 @@ class SegmentationLosses:
         w = valid.to(logp.dtype)
         if self.weight is not None:
             w = self.weight.to(logp.device, logp.dtype)[tc] * w
-        total = torch.sum(nll * w)
+        total = dp.global_sum(torch.sum(nll * w))
         if self.size_average:
-            return total / torch.clamp(torch.sum(w), min=1e-12)
+            return total / torch.clamp(dp.global_sum(torch.sum(w)),
+                                       min=1e-12)
         return total
 
     def cross_entropy(self, logit: torch.Tensor, target: torch.Tensor
                       ) -> torch.Tensor:
         loss = self._aggregate_ce(logit, target)
         if self.batch_average:
-            loss = loss / logit.shape[0]
+            loss = loss / _batch(logit)
         return loss
 
     def focal(self, logit: torch.Tensor, target: torch.Tensor,
@@ -77,5 +84,11 @@ class SegmentationLosses:
             logpt = logpt * alpha
         loss = -((1 - pt) ** gamma) * logpt
         if self.batch_average:
-            loss = loss / logit.shape[0]
+            loss = loss / _batch(logit)
         return loss
+
+
+def _batch(logit: torch.Tensor) -> int:
+    """The size of the global batch of which ``logit`` holds this rank's
+    share."""
+    return logit.shape[0] * dp.world_size()

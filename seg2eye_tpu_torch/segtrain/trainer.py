@@ -31,12 +31,23 @@ refinenet/deeplab/train.py).
     model_best.ckpt (``_load_jax_checkpoint``); the run writes the
     port's format.
   * ``build_argparser``/``finalize_args``/``main``: the reference's CLI
-    and its per-dataset defaults, counted for one device.
+    and its per-dataset defaults, counted over the data-parallel
+    processes (the JAX package counts its devices).
 
 ``SegTrainer(args, loaders=(train, val, test, nclass))`` takes loaders in
 place of ``make_data_loader(args)``.  The trainer runs on the card unless
-``--no-cuda``, and refuses to start without one.  One card: the JAX
-package's data-parallel mesh and process-sharded loaders are not ported.
+``--no-cuda``, and refuses to start without one.
+
+Data parallelism (``torchrun --nproc_per_node N``, ``parallel.
+data_parallel``), the JAX package's data mesh: ``--batch-size`` is the
+global batch, the loaders give each rank its share, BN is synchronised
+whatever ``--sync-bn`` says (as the JAX mesh synchronises it), gradients
+are averaged over the ranks, every rank's loss is the global batch's
+(``segtrain.losses``), and validation sums the confusion matrices of all
+ranks, so every rank computes the same mIoU and best-checkpoint
+decision.  Rank 0 alone makes the run directory, ``parameters.txt``, the
+checkpoints and the event files; the image dump is skipped with more
+than one rank.
 """
 from __future__ import annotations
 
@@ -51,6 +62,7 @@ from seg2eye_tpu_torch.data.openeds import DataLoader, device_prefetch, \
     to_device
 from seg2eye_tpu_torch.models.deeplab import RESNET_LAYERS, DeepLab, \
     kaiming_init_
+from seg2eye_tpu_torch.parallel import data_parallel as dp
 from seg2eye_tpu_torch.refinenet.training import dropout_generator
 from seg2eye_tpu_torch.segtrain.datasets import db_root_dir, make_data_loader
 from seg2eye_tpu_torch.segtrain.losses import SegmentationLosses
@@ -118,9 +130,17 @@ class SegTrainer:
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("no CUDA device is available (pass --no-cuda "
                                "to train on the CPU)")
-        self.saver = Saver(args)
-        self.saver.save_experiment_config()
-        self.summary = TensorboardSummary(self.saver.experiment_dir)
+        dp.check_batch(args.batch_size, dp.world_size())
+        # only rank 0 makes a run directory (the Saver numbers its runs by
+        # the directories it finds) and an event file
+        self._primary = dp.is_primary()
+        if self._primary:
+            self.saver = Saver(args)
+            self.saver.save_experiment_config()
+            self.summary = TensorboardSummary(self.saver.experiment_dir)
+        else:
+            self.saver = None
+            self.summary = TensorboardSummary(None)
         self.writer = self.summary.create_summary()
 
         (self.train_loader, self.val_loader, self.test_loader,
@@ -145,7 +165,8 @@ class SegTrainer:
                 full = DataLoader(self.train_loader.dataset,
                                   batch_size=args.batch_size)
                 weight = calculate_weights_labels(root, args.dataset, full,
-                                                  self.nclass)
+                                                  self.nclass,
+                                                  save=self._primary)
             weight = torch.as_tensor(weight, dtype=torch.float32,
                                      device=self.device)
         self.criterion = SegmentationLosses(
@@ -173,6 +194,8 @@ class SegTrainer:
                   f"(epoch {ckpt['epoch']})")
         if args.ft:
             args.start_epoch = 0
+        dp.check_replicated(dp.module_tensors({"net": self.net}),
+                            "the initial state:")
 
     # ------------------------------------------------------------------ #
     def _input(self, image: torch.Tensor) -> torch.Tensor:
@@ -192,6 +215,7 @@ class SegTrainer:
                               not self.args.freeze_bn, generator)
             loss = self.criterion(logits, target)
             loss.backward()
+            dp.all_reduce_grads(self.net.parameters())
             self.optimizer.step()
         return loss.detach(), logits.detach()
 
@@ -257,8 +281,9 @@ class SegTrainer:
             self.writer.update_current_step(step)
             self.writer.add_scalar("train/total_loss_iter", loss)
 
-            # 10 x 3 inference results each epoch (train.py:112-115)
-            if i % max(1, num_img_tr // 10) == 0:
+            # 10 x 3 inference results each epoch (train.py:112-115); a
+            # rank's share is not the batch's first three
+            if i % max(1, num_img_tr // 10) == 0 and dp.world_size() == 1:
                 self.summary.visualize_image(
                     self.writer, self.args.dataset, sample["image"],
                     sample["label"], logits, step)
@@ -269,7 +294,7 @@ class SegTrainer:
               % (epoch, i * self.args.batch_size + len(sample["image"])))
         print("Loss: %.3f" % train_loss)
 
-        if self.args.no_val:
+        if self.args.no_val and self._primary:
             self.saver.save_checkpoint(self.checkpoint_state(epoch),
                                        is_best=False)
         return train_loss
@@ -284,8 +309,10 @@ class SegTrainer:
         for i, sample in enumerate(self.val_loader):
             batch = to_device(sample, self.device, BATCH_KEYS)
             loss, conf = self.eval_step(batch["image"], batch["label"])
-            # one copy to the host: the counts (exact in float64) and loss
-            host = torch.cat([conf.reshape(-1).double(),
+            # one copy to the host: the counts (exact in float64), summed
+            # over the ranks, and the loss (every rank's is the global
+            # batch's)
+            host = torch.cat([dp.sum_over_ranks(conf.reshape(-1).double()),
                               loss.double().reshape(1)]).cpu().numpy()
             test_loss += float(host[n2])
             self.evaluator.add_matrix(host[:n2].reshape(self.nclass,
@@ -309,16 +336,16 @@ class SegTrainer:
         print("Loss: %.3f" % test_loss)
 
         if miou > self.best_pred:
-            self.best_pred = miou
-            self.saver.save_checkpoint(self.checkpoint_state(epoch),
-                                       is_best=True)
+            self.best_pred = miou              # tracked on every rank
+            if self._primary:
+                self.saver.save_checkpoint(self.checkpoint_state(epoch),
+                                           is_best=True)
         return miou
 
 
 # --------------------------------------------------------------------- #
 EPOCHS = {"coco": 30, "cityscapes": 200, "pascal": 50}
 LRS = {"coco": 0.1, "cityscapes": 0.01, "pascal": 0.007}
-DEVICES = 1          # the port trains on one card
 
 
 def build_argparser() -> argparse.ArgumentParser:
@@ -335,7 +362,8 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--base-size", type=int, default=513)
     p.add_argument("--crop-size", type=int, default=513)
     p.add_argument("--sync-bn", type=bool, default=None,
-                   help="accepted and ignored: the port trains on one card")
+                   help="accepted and ignored: BN is synchronised whenever "
+                        "more than one process trains")
     p.add_argument("--freeze-bn", type=bool, default=False)
     p.add_argument("--loss-type", type=str, default="ce",
                    choices=["ce", "focal"])
@@ -355,7 +383,8 @@ def build_argparser() -> argparse.ArgumentParser:
                    help="train on the CPU; otherwise on the card, and "
                         "without one the trainer refuses to start")
     p.add_argument("--gpu-ids", type=str, default="0",
-                   help="accepted and ignored: the port trains on one card")
+                   help="accepted and ignored: each process of torchrun "
+                        "takes the card of its LOCAL_RANK")
     p.add_argument("--seed", type=int, default=1, metavar="S")
     p.add_argument("--resume", type=str, default=None)
     p.add_argument("--checkname", type=str, default=None)
@@ -375,24 +404,29 @@ def build_argparser() -> argparse.ArgumentParser:
 
 
 def finalize_args(args) -> argparse.Namespace:
-    """The per-dataset defaults (train.py:250-290), for one device."""
+    """The per-dataset defaults (train.py:250-290), over the data-parallel
+    processes (one without torchrun)."""
+    devices = dp.world_size()
     if args.sync_bn is None:
-        args.sync_bn = DEVICES > 1
+        args.sync_bn = devices > 1
     if args.epochs is None:
         args.epochs = EPOCHS[args.dataset.lower()]
     if args.batch_size is None:
-        args.batch_size = 4 * DEVICES
+        args.batch_size = 4 * devices
     if args.test_batch_size is None:
         args.test_batch_size = args.batch_size
     if args.lr is None:
-        args.lr = LRS[args.dataset.lower()] / (4 * DEVICES) * args.batch_size
+        args.lr = LRS[args.dataset.lower()] / (4 * devices) * args.batch_size
     if args.checkname is None:
         args.checkname = "deeplab-" + str(args.backbone)
     return args
 
 
 def main(argv: Optional[list] = None) -> SegTrainer:
-    args = finalize_args(build_argparser().parse_args(argv))
+    """The CLI; under torchrun, one data-parallel process of it."""
+    args = build_argparser().parse_args(argv)
+    dp.init_from_env("cpu" if args.no_cuda else "cuda")
+    args = finalize_args(args)
     print(args)
     trainer = SegTrainer(args)
     print("Starting Epoch:", trainer.args.start_epoch)

@@ -12,10 +12,12 @@ import numpy as np
 
 
 def calculate_weights_labels(db_root: str, dataset: str, dataloader,
-                             num_classes: int) -> np.ndarray:
+                             num_classes: int, save: bool = True
+                             ) -> np.ndarray:
     """``dataloader`` covers the whole dataset (the reference's
     semantics).  The cache is written to a temporary name and renamed, so
-    a reader never sees a partial file."""
+    a reader never sees a partial file; ``save=False`` writes none (the
+    ranks but 0 under data parallelism)."""
     z = np.zeros((num_classes,), np.float64)
     print("Calculating classes weights")
     for sample in dataloader:
@@ -25,9 +27,10 @@ def calculate_weights_labels(db_root: str, dataset: str, dataloader,
     total_frequency = z.sum()
     class_weights = 1.0 / np.log(1.02 + z / total_frequency)
     ret = class_weights.astype(np.float64)
-    os.makedirs(db_root, exist_ok=True)
-    path = os.path.join(db_root, dataset + "_classes_weights.npy")
-    tmp = path + ".tmp.npy"              # .npy suffix: np.save appends none
-    np.save(tmp, ret)
-    os.replace(tmp, path)
+    if save:
+        os.makedirs(db_root, exist_ok=True)
+        path = os.path.join(db_root, dataset + "_classes_weights.npy")
+        tmp = path + ".tmp.npy"          # .npy suffix: np.save appends none
+        np.save(tmp, ret)
+        os.replace(tmp, path)
     return ret

@@ -25,9 +25,17 @@ iterations 3 to N + 2 with ``torch.profiler`` into
 losses, validation statistics and panels to TensorBoard, and
 ``--write_error_log`` writes the full validation's error-log H5.  The VGG
 loss (``--no_vgg_loss False``) loads torchvision VGG19 weights from
-``--vgg_weights`` and refuses to train without them.  The multi-device
-options (``--spatial_shard``, ``--model_axis > 1``) are not ported, and
-raise.
+``--vgg_weights`` and refuses to train without them.
+
+Data parallelism (``torchrun --nproc_per_node N``, ``parallel.
+data_parallel``): ``--batchSize`` is the global batch, each rank loads
+its share and takes the same synchronised steps, every rank reads a
+resumed checkpoint, and only rank 0 writes (``src.zip``, checkpoints,
+``iter.txt``, the loss log, TensorBoard, the profile) and runs the
+Testers, alone, on its own parameters.  Printed losses are the means over
+the ranks.  ``--data_axis`` must be 0 or the world size.  The
+tensor-parallel and H-band options (``--model_axis > 1``,
+``--spatial_shard``) are not ported, and raise.
 """
 from __future__ import annotations
 
@@ -41,6 +49,7 @@ import torch
 from seg2eye_tpu_torch.data.openeds import create_dataloader, device_prefetch
 from seg2eye_tpu_torch.eval.tester import Tester
 from seg2eye_tpu_torch.models.pix2pix import Pix2Pix
+from seg2eye_tpu_torch.parallel import data_parallel as dp
 from seg2eye_tpu_torch.train import state as state_lib
 from seg2eye_tpu_torch.train import steps
 from seg2eye_tpu_torch.utils import checkpoint
@@ -59,6 +68,11 @@ def _check_ported(opt, device: torch.device) -> None:
     for what, asked in missing.items():
         if asked:
             raise NotImplementedError(f"{what} is not ported")
+    world = dp.world_size()
+    if opt.data_axis not in (0, world):
+        raise ValueError(f"--data_axis {opt.data_axis}: the data-parallel "
+                         f"degree is the world size, {world} process(es)")
+    dp.check_batch(opt.batchSize, world)
 
 
 def _testers(opt, visualizer: Visualizer):
@@ -108,20 +122,23 @@ class _ProfileWindow:
 
 
 def _host_losses(losses: Dict) -> Dict[str, float]:
-    return {k: float(torch.mean(v.float())) for k, v in losses.items()}
+    """Each loss's mean over the ranks, as floats."""
+    return {k: float(v) for k, v in dp.mean_over_ranks(losses).items()}
 
 
 def train(opt, max_steps: Optional[int] = None, step_hook=None,
           dataloader=None, device="cuda") -> Dict:
-    """-> {"losses": the last iteration's losses as floats, "steps": the
-    iterations run, "state": the TrainState}.
+    """-> {"losses": the last iteration's losses as floats (means over
+    the ranks), "steps": the iterations run, "state": the TrainState}.
 
     ``step_hook(step, losses)`` fires after every iteration with its
     1-based index and the loss dict (tensors on the device)."""
     device = torch.device(device)
     _check_ported(opt, device)
-    copy_src(project_root(), opt.expr_dir)
-    visualizer = Visualizer(opt)
+    primary = dp.is_primary()
+    if primary:
+        copy_src(project_root(), opt.expr_dir)
+    visualizer = Visualizer(opt) if primary else None
     if dataloader is None:
         dataloader = create_dataloader(opt)
     nets = init_networks(opt, torch.Generator().manual_seed(opt.seed), device)
@@ -129,7 +146,8 @@ def train(opt, max_steps: Optional[int] = None, step_hook=None,
         checkpoint.load_vgg(nets["VGG"], opt)
     state = state_lib.create_state(Pix2Pix(opt, nets, device))
     model = state.model
-    iter_counter = IterationCounter(opt, len(dataloader) * opt.batchSize)
+    iter_counter = IterationCounter(opt, len(dataloader) * opt.batchSize,
+                                    write_records=primary)
     resume_skip = 0
     # a run resumed from the JAX package's files goes on writing them
     fmt = "torch"
@@ -138,6 +156,7 @@ def train(opt, max_steps: Optional[int] = None, step_hook=None,
         checkpoint.load_state(state, opt, opt.which_epoch)
         print(f"Resumed networks from '{opt.which_epoch}' checkpoint")
         resume_skip = iter_counter.epoch_iter // opt.batchSize
+    dp.check_replicated(dp.module_tensors(nets), "the initial state:")
     testers = None
 
     max_steps = max_steps or (opt.max_steps or None)
@@ -145,7 +164,8 @@ def train(opt, max_steps: Optional[int] = None, step_hook=None,
     g_losses: Dict = {}
     n_iters = 0
     stop = False
-    profile = _ProfileWindow(opt, device)
+    profile = _ProfileWindow(opt if primary else opt.replace(
+        profile_steps=0), device)
     exit_stack = contextlib.ExitStack()
     exit_stack.enter_context(sigterm_raises())
     try:
@@ -175,38 +195,41 @@ def train(opt, max_steps: Optional[int] = None, step_hook=None,
 
                 if iter_counter.needs_printing():
                     host_losses = _host_losses(losses)
-                    visualizer.print_current_errors(
-                        epoch, iter_counter.total_steps_so_far,
-                        host_losses, iter_counter.time_per_iter)
-                    visualizer.plot_current_errors(
-                        host_losses, iter_counter.total_steps_so_far)
-                if iter_counter.needs_displaying():
+                    if primary:
+                        visualizer.print_current_errors(
+                            epoch, iter_counter.total_steps_so_far,
+                            host_losses, iter_counter.time_per_iter)
+                        visualizer.plot_current_errors(
+                            host_losses, iter_counter.total_steps_so_far)
+                if iter_counter.needs_displaying() and primary:
                     testers = testers or _testers(opt, visualizer)
-                    for tester in testers:
-                        tester.run_partial_modes(
-                            model, epoch=epoch,
-                            n_steps=iter_counter.total_steps_so_far,
-                            limit=min(opt.validation_limit, tester.N),
-                            log=True, visualize_images=opt.tf_log)
-                if iter_counter.needs_saving():
+                    with dp.local():
+                        for tester in testers:
+                            tester.run_partial_modes(
+                                model, epoch=epoch,
+                                n_steps=iter_counter.total_steps_so_far,
+                                limit=min(opt.validation_limit, tester.N),
+                                log=True, visualize_images=opt.tf_log)
+                if iter_counter.needs_saving() and primary:
                     print("saving the latest model (epoch %d, total_steps %d)"
                           % (epoch, iter_counter.total_steps_so_far))
                     checkpoint.save_state(state, opt, "latest", fmt)
                     iter_counter.record_current_iter()
-                if iter_counter.needs_full_validation():
+                if iter_counter.needs_full_validation() and primary:
                     testers = testers or _testers(opt, visualizer)
-                    for tester in testers:
-                        tester.run(model, mode="full", epoch=epoch,
-                                   n_steps=iter_counter.total_steps_so_far,
-                                   write_error_log=opt.write_error_log,
-                                   log=True)
+                    with dp.local():
+                        for tester in testers:
+                            tester.run(model, mode="full", epoch=epoch,
+                                       n_steps=iter_counter.total_steps_so_far,
+                                       write_error_log=opt.write_error_log,
+                                       log=True)
                 if max_steps and n_iters >= max_steps:
                     stop = True
                     break
 
             iter_counter.record_epoch_end()
             if (epoch % opt.save_epoch_freq == 0
-                    or epoch == iter_counter.total_epochs):
+                    or epoch == iter_counter.total_epochs) and primary:
                 print("saving the model at the end of epoch %d, iters %d"
                       % (epoch, iter_counter.total_steps_so_far))
                 checkpoint.save_state(state, opt, "latest", fmt)
@@ -224,9 +247,10 @@ def train(opt, max_steps: Optional[int] = None, step_hook=None,
     finally:
         exit_stack.close()
         profile.stop()
-        visualizer.close()
-        print("saving the model before quitting")
-        checkpoint.save_state(state, opt, "latest", fmt)
-        iter_counter.record_current_iter()
+        if primary:
+            visualizer.close()
+            print("saving the model before quitting")
+            checkpoint.save_state(state, opt, "latest", fmt)
+            iter_counter.record_current_iter()
     return {"losses": _host_losses(last_losses), "steps": n_iters,
             "state": state}

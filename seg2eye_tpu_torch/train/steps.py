@@ -14,6 +14,11 @@ running statistics of each net it runs advance.  A float32 model runs the
 whole step, backward and update included, under ``full_float32``: cuDNN
 reads the TF32 flags when each backward convolution runs.  Steps change
 the state in place; the loss dicts and the fake come back detached.
+
+Under data parallelism (``parallel.data_parallel``) the batch is this
+rank's share of the global one; the batch statistics inside are global,
+and each step averages its gradients over the ranks before the update,
+so every rank takes the same step.  The loss dicts are this rank's.
 """
 from __future__ import annotations
 
@@ -22,8 +27,13 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
+from seg2eye_tpu_torch.parallel import data_parallel as dp
 from seg2eye_tpu_torch.utils.precision import full_float32
 from seg2eye_tpu_torch.train.state import TrainState
+
+
+def _params(optimizer: torch.optim.Optimizer):
+    return [p for group in optimizer.param_groups for p in group["params"]]
 
 
 def _detached(losses: Dict) -> Dict:
@@ -48,6 +58,7 @@ def _g_update(state: TrainState, batch: Dict) -> Tuple[Dict, torch.Tensor]:
     with _frozen(model.netD):
         total, losses, fake = model.generator_loss(batch)
         total.backward()
+    dp.all_reduce_grads(_params(state.opt_g))
     state.opt_g.step()
     return _detached(losses), fake.detach()
 
@@ -63,6 +74,7 @@ def _d_update(state: TrainState, batch: Dict,
     state.opt_d.zero_grad(set_to_none=True)
     total, losses = model.discriminator_loss(batch, fake)
     total.backward()
+    dp.all_reduce_grads(_params(state.opt_d))
     state.opt_d.step()
     return _detached(losses)
 

@@ -13,9 +13,12 @@ import numpy as np
 
 
 class IterationCounter:
-    def __init__(self, opt, dataset_size: int):
+    def __init__(self, opt, dataset_size: int, write_records: bool = True):
+        """``write_records=False``: no iter.txt writes, counting as ever
+        (the ranks but 0 under data parallelism, which write nothing)."""
         self.opt = opt
         self.dataset_size = dataset_size
+        self.write_records = write_records
         self.first_epoch = 1
         self.total_epochs = opt.niter + opt.niter_decay
         self.epoch_iter = 0
@@ -58,14 +61,16 @@ class IterationCounter:
         self.time_per_epoch = now - self.epoch_start_time
         print("End of epoch %d / %d \t Time Taken: %d sec"
               % (self.current_epoch, self.total_epochs, self.time_per_epoch))
-        if self.current_epoch % self.opt.save_epoch_freq == 0:
+        if (self.current_epoch % self.opt.save_epoch_freq == 0
+                and self.write_records):
             np.savetxt(self.iter_record_path,
                        (self.current_epoch + 1, 0), delimiter=",", fmt="%d")
 
     def record_current_iter(self):
-        np.savetxt(self.iter_record_path,
-                   (self.current_epoch, self.epoch_iter),
-                   delimiter=",", fmt="%d")
+        if self.write_records:
+            np.savetxt(self.iter_record_path,
+                       (self.current_epoch, self.epoch_iter),
+                       delimiter=",", fmt="%d")
 
     def needs_saving(self) -> bool:
         return (self.total_steps_so_far % self.opt.save_latest_freq) \

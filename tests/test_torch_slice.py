@@ -348,12 +348,13 @@ def test_port_imports_no_jax():
     """Every module of the port imports with PIL, h5py, cv2 and imageio
     blocked, as on the card's machine, which has none of them, and with
     jax, flax, msgpack and optax importable imports none of them nor
-    anything of the JAX package; all 78 of them (the flax msgpack codec,
-    the optimizer-state mapping, the host data modules, the style ranking
-    and the native batch assembly included)."""
+    anything of the JAX package; all 80 of them (the flax msgpack codec,
+    the optimizer-state mapping, the host data modules, the style ranking,
+    the native batch assembly and the data-parallel ``parallel`` package
+    included)."""
     bad, count = port_import_run(("PIL", "h5py", "cv2", "imageio"))
     assert not bad, bad
-    assert count >= 78
+    assert count >= 80
 
 
 def test_port_imports_on_a_machine_without_jax():
@@ -362,7 +363,7 @@ def test_port_imports_on_a_machine_without_jax():
     bad, count = port_import_run(("jax", "flax", "optax", "msgpack", "PIL",
                                   "h5py", "cv2", "imageio"))
     assert not bad, bad
-    assert count >= 78
+    assert count >= 80
 
 
 def imports_of_jax_package(path):
