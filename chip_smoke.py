@@ -159,6 +159,25 @@ Phases; any failure raises and the script exits non-zero:
      iteration; then segtrain (ResNet-101 os16, crop 513) at global bs4,
      2 float64 steps against the one-process step, 0 launches.  The gloo
      times are a correctness run's, not a speed figure;
+  13. model and spatial parallel (after phase 12): two ranks on gloo with
+     CUDA tensors on the one card, children of this script as in phase 12.
+     (a) Tensor parallelism (``parallel.tensor_parallel``) on a data 1 x
+     model 2 grid at full width (ngf 64, ndf 64, crop 256, k = 4), bs4: 2
+     float32 iterations and 1 bfloat16 one, each step (G, then D) taken
+     by the grid and, on rank 0, by the one-process route from a gathered
+     copy of the same state (float32: losses and gradients to F32_ROUTE,
+     the updated state to the card-vs-CPU limits; bfloat16: within the
+     plain bfloat16 route's distance from float32), 36 K1 launches per
+     rank per iteration (14 of the 18 sites on a channel slice), 18 weight
+     packings in the first forward and in each forward after a G update
+     (the D step's regeneration) and none in any other, and each rank's
+     bytes of parameters and Adam moments
+     against one process's.  (b) H-band scoring (``parallel.spatial``,
+     ``--spatial_shard``): ``Tester.score_batch`` at bs1 and bs2 in 2
+     bands of 160 rows, float32 and bfloat16, 18 launches per rank per
+     forward, fakes and per-image errors against the one-process Tester
+     within SLICE_TOL.  The times are a correctness run's through the
+     host;
 Nothing of JAX, flax, optax, msgpack or the JAX package may have been
 imported.
 The port keeps float32 in full float32 by itself (its float32 forward and
@@ -812,8 +831,12 @@ def compare_losses(where, lk, lp, lr, rtol=F32_ROUTE["loss_rtol"]):
 
 
 def compare_grads(where, gk, gp, gr, what="kernel - plain",
-                  nets=("G", "E", "D")):
-    """-> failures; the gradients of ``nets``, as compare_losses."""
+                  nets=("G", "E", "D"), net_floor=False):
+    """-> failures; the gradients of ``nets``, as compare_losses.
+    ``net_floor`` (bfloat16): a tensor's own bfloat16 distance is at
+    least the net's relative one times its norm; a tensor of one element
+    (conv_img's bias) may have a bfloat16-vs-float32 distance near zero by
+    chance, which its ratio then divides by."""
     failures = [f"{where}: gradient of {k} is None on one side only"
                 for k in gp if k.split(".")[0] in nets
                 and (gk[k] is None) != (gp[k] is None)]
@@ -830,12 +853,17 @@ def compare_grads(where, gk, gp, gr, what="kernel - plain",
             ok = ratios[worst] <= 1.0
         else:
             (ref, _), ref_per = net_gaps(gp, gr, net)
-            ratios = {k: per[k][0] / max(ref_per[k][0], 1e-30) for k in per}
+            floor = {k: ref / g * per[k][1] if net_floor else 0.0
+                     for k in per}
+            ratios = {k: per[k][0] / max(ref_per[k][0], floor[k], 1e-30)
+                      for k in per}
             worst = max(ratios, key=ratios.get)
-            log(f"    gradients of {net}: ||kernel - plain|| {d:.4e} "
+            log(f"    gradients of {net}: ||{what}|| {d:.4e} "
                 f"(relative {d / g:.3e}), plain bf16 vs plain f32 {ref:.4e}; "
                 f"largest per-tensor ratio of the two: {worst} "
-                f"{ratios[worst]:.3f}")
+                f"{ratios[worst]:.3f} ({per[worst][0]:.3e} against "
+                f"{ref_per[worst][0]:.3e}, floor {floor[worst]:.3e}, "
+                f"||g|| {per[worst][1]:.3e})")
             ok = d <= ref and ratios[worst] <= BF16_TENSOR_RATIO
         if not ok:
             failures.append(f"{where}: gradients of {net} differ")
@@ -3319,28 +3347,31 @@ def dp_child(form, rank, world, tmp, config):
         dist.destroy_process_group()
 
 
-def dp_children(tmp, form, world):
-    """Runs the ``world`` ranks of ``form``; any rank that fails or
-    outlives DP_CHILD_TIMEOUT fails the phase, and every child is stopped
-    on the way out.  -> the ranks' results."""
+def dp_children(tmp, form, world, child="dp_child", config=None,
+                timeout=DP_CHILD_TIMEOUT):
+    """Runs the ``world`` ranks of ``form`` (``child`` of this module with
+    ``config``, by default phase 12's); any rank that fails or outlives
+    ``timeout`` fails the phase, and every child is stopped on the way
+    out.  -> the ranks' results."""
     import os
 
-    config = {"device": DP_DEVICE, "batch": TRAIN_BATCH,
-              "seg2eye": DP_OVERRIDES, "segtrain": SEG_OVERRIDES,
-              "launches": TRAIN_LAUNCHES}
+    if config is None:
+        config = {"device": DP_DEVICE, "batch": TRAIN_BATCH,
+                  "seg2eye": DP_OVERRIDES, "segtrain": SEG_OVERRIDES,
+                  "launches": TRAIN_LAUNCHES}
     root = os.path.dirname(os.path.abspath(__file__))
     env = {**os.environ, "PYTHONPATH": root}
     for k in ("WORLD_SIZE", "RANK", "LOCAL_RANK", "MASTER_ADDR",
               "MASTER_PORT"):
         env.pop(k, None)
     code = ("import json, sys; import chip_smoke as cs; "
-            "cs.dp_child(*json.loads(sys.argv[1]))")
+            f"cs.{child}(*json.loads(sys.argv[1]))")
     procs = [subprocess.Popen(
         [sys.executable, "-c", code,
          json.dumps([form, r, world, tmp, config])], cwd=tmp, env=env,
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         for r in range(world)]
-    deadline = time.monotonic() + DP_CHILD_TIMEOUT
+    deadline = time.monotonic() + timeout
     try:
         for r, p in enumerate(procs):
             try:
@@ -3348,7 +3379,7 @@ def dp_children(tmp, form, world):
                     timeout=max(1.0, deadline - time.monotonic()))
             except subprocess.TimeoutExpired:
                 raise AssertionError(f"{form} rank {r} of {world} outlived "
-                                     f"{DP_CHILD_TIMEOUT} s") from None
+                                     f"{timeout} s") from None
             for line in output.splitlines():
                 log(f"  [{form} rank {r}] {line}")
             if p.returncode:
@@ -3403,6 +3434,267 @@ def phase_parallel():
             "gloo": b[0]["launches"][0]}
 
 
+# --------------------------------------------------------------- phase 13
+MP_DEVICE = "cuda"
+MP_BATCH = 4
+MP_ITERS = {"float32": 2, "bfloat16": 1}
+MP_CP_BATCHES = (1, 2)
+MP_CHILD_TIMEOUT = 150
+# a CPU rehearsal shrinks the model here (Options fields)
+MP_OVERRIDES = {}
+
+
+def mp_grads(model):
+    """grads_of with every slice's gradient gathered (every model rank)."""
+    from seg2eye_tpu_torch.parallel import tensor_parallel as tp
+
+    return {f"{n}.{k}": p.grad if p.grad is None or not tp.is_sharded(p)
+            else tp.gather(p.grad, 0)
+            for n, net in nets_of(model).items()
+            for k, p in net.named_parameters()}
+
+
+def mp_state_bytes(nets):
+    """Bytes of the parameters and their two Adam moments, as this rank
+    holds them."""
+    return sum(3 * p.numel() * p.element_size() for net in nets.values()
+               for p in net.parameters() if p.requires_grad)
+
+
+def mp_tensor(opt, nets_cpu, batches, device, failures):
+    """MP_ITERS[dtype] grid iterations from the seeded state, each step
+    also taken by rank 0 in one process from a gathered copy of the state
+    before it.  -> {"launches": per iteration, "packings": (in the G
+    step, in the D step's regeneration) per iteration, "after":
+    packings in a forward without an update, "ms": host ms per grid
+    iteration}."""
+    from seg2eye_tpu_torch.ops import spade_style as K
+    from seg2eye_tpu_torch.parallel import data_parallel as dp
+    from seg2eye_tpu_torch.parallel import tensor_parallel as tp
+    from seg2eye_tpu_torch.train import steps
+    from seg2eye_tpu_torch.train.state import ttur_betas, ttur_lrs
+    from seg2eye_tpu_torch.utils import checkpoint
+
+    rank, dname = torch.distributed.get_rank(), opt.compute_dtype
+    state = train_state(opt, nets_cpu, device)
+    tp.shard_(nets_of(state.model), (state.opt_g, state.opt_d),
+              opt.tp_min_channels)
+    dp.check_replicated(dp.module_tensors(nets_of(state.model)),
+                        "the seeded state:")
+    lrs, beta2 = ttur_lrs(opt, opt.lr), ttur_betas(opt)[1]
+    out = {"launches": [], "packings": [], "ms": []}
+    f32 = opt.replace(compute_dtype="float32")
+    for it, batch in enumerate(batches[:MP_ITERS[dname]]):
+        launches, packings, ms = 0, [], 0.0
+        for half, step, nets, lr in (("G step", steps.g_step, ("G", "E"),
+                                      lrs[0]),
+                                     ("D step", steps.d_step, ("D",),
+                                      lrs[1])):
+            ref = checkpoint.whole_state(state, device)
+            if rank:
+                del ref
+                ref = None
+            before = (K.spade_style.launches, K.packed_weights.packings)
+            dp_sync(device)
+            t0 = time.perf_counter()
+            result = step(state, batch)
+            dp_sync(device)
+            ms += (time.perf_counter() - t0) * 1e3
+            launches += K.spade_style.launches - before[0]
+            packings.append(K.packed_weights.packings - before[1])
+            losses = result[0] if half == "G step" else result
+            losses = {k: float(torch.mean(v.float()))
+                      for k, v in losses.items()}
+            dp.check_replicated(dp.module_tensors(nets_of(state.model)),
+                                f"after {half} {it + 1}:")
+            grads = mp_grads(state.model)
+            after = checkpoint.whole_state(state, device)
+            if rank:
+                del after
+                continue
+            ref32 = None if dname == "float32" else clone_state(ref, f32)
+            with dp.local():
+                out_ref = step(ref, batch)
+                out32 = None if ref32 is None else step(ref32, batch)
+            at = f"TP model 2 {dname}, iteration {it + 1} {half}"
+
+            def host(o):
+                o = o[0] if half == "G step" else o
+                return {k: float(torch.mean(v.float())) for k, v in o.items()}
+
+            failures += compare_losses(at, losses, host(out_ref),
+                                       None if out32 is None else host(out32))
+            failures += compare_grads(at, grads, grads_of(ref.model),
+                                      None if ref32 is None else
+                                      grads_of(ref32.model),
+                                      "TP - one process", nets,
+                                      net_floor=True)
+            if dname == "float32":
+                failures += compare_state(at, after, ref,
+                                          adam_reach(lr, beta2, it + 1))
+            del ref, ref32, after
+            torch.cuda.empty_cache()
+        out["launches"].append(launches)
+        out["packings"].append(packings)
+        out["ms"].append(ms)
+    before = K.packed_weights.packings
+    with dp.local():
+        state.model.inference(batches[0])
+    out["after"] = K.packed_weights.packings - before
+    out["bytes"] = mp_state_bytes(nets_of(state.model))
+    return out
+
+
+def mp_spatial(opt, nets_cpu, device, failures):
+    """``Tester.score_batch`` in H bands over the ranks against the
+    one-process Tester (rank 0), at MP_CP_BATCHES; -> {bs: (K1 launches
+    of the banded forward, host ms)}."""
+    from seg2eye_tpu_torch.eval.tester import Tester
+    from seg2eye_tpu_torch.models.pix2pix import Pix2Pix
+    from seg2eye_tpu_torch.ops import spade_style as K
+    from seg2eye_tpu_torch.parallel import data_parallel as dp
+    from seg2eye_tpu_torch.parallel import spatial
+
+    import copy
+
+    rank, dname = torch.distributed.get_rank(), opt.compute_dtype
+    model = Pix2Pix(opt, {k: copy.deepcopy(nets_cpu[k]) for k in ("G", "E")},
+                    device)
+    banded = Tester(opt, bands=spatial.Bands())
+    alone = Tester(opt)
+    out = {}
+    with dp.local():
+        for bs in MP_CP_BATCHES:
+            batch = make_batch(opt, bs, seed=50 + bs)
+            banded.score_batch(model, batch, need_fake=False)    # warm-up
+            K.spade_style.launches = 0
+            dp_sync(device)
+            t0 = time.perf_counter()
+            errors, fake = banded.score_batch(model, batch)
+            ms = (time.perf_counter() - t0) * 1e3
+            out[bs] = (K.spade_style.launches, ms)
+            if rank:
+                continue
+            want_errors, want = alone.score_batch(model, batch)
+            fake_tol, err_rtol = SLICE_TOL[dname]
+            fdiff = float(np.abs(fake - want).max())
+            ediff = float(np.abs(errors / want_errors - 1).max())
+            log(f"  CP {dname} bs{bs}, 2 bands of "
+                f"{opt.image_height // 2} rows vs one process: fakes max abs "
+                f"diff {fdiff:.3e} (tolerance {fake_tol}), errors max rel "
+                f"diff {ediff:.3e} (tolerance {err_rtol})")
+            if not (fake.shape == want.shape and fdiff <= fake_tol
+                    and ediff <= err_rtol):
+                failures.append(f"CP {dname} bs{bs}: the banded score "
+                                "differs from one process's")
+    return out
+
+
+def mp_child(form, rank, world, tmp, config):
+    """One rank of phase 13, in a process of its own: a data 1 x model 2
+    grid on gloo.  Writes ``{tmp}/{form}{rank}.json``; any failure
+    raises."""
+    import os
+
+    import torch.distributed as dist
+
+    from seg2eye_tpu_torch.options import Options
+    from seg2eye_tpu_torch.parallel import mesh
+    from seg2eye_tpu_torch.utils.weights import init_networks
+
+    device = torch.device(config["device"])
+    if device.type == "cuda":
+        device = torch.device("cuda", 0)
+        torch.cuda.set_device(device)
+    store = dist.FileStore(os.path.join(tmp, f"{form}.store"), world)
+    dist.init_process_group("gloo", store=store, rank=rank,
+                            world_size=world)
+    try:
+        mesh.make_grid(world)
+        opt = Options(batchSize=MP_BATCH, compute_dtype="float32",
+                      model_axis=world, **config["seg2eye"]).finalize()
+        nets_cpu = init_networks(opt, torch.Generator().manual_seed(0), "cpu")
+        batches = [make_train_batch(opt, MP_BATCH, seed=60 + i)
+                   for i in range(max(MP_ITERS.values()))]
+        one = mp_state_bytes(nets_cpu)
+        failures, out = [], {"tp": {}, "cp": {}}
+        for dname in MP_ITERS:
+            out["tp"][dname] = mp_tensor(opt.replace(compute_dtype=dname),
+                                         nets_cpu, batches, device, failures)
+        out["bytes"] = (out["tp"]["float32"]["bytes"], one)
+        for dname in MP_ITERS:
+            out["cp"][dname] = mp_spatial(
+                opt.replace(compute_dtype=dname, isTrain=False), nets_cpu,
+                device, failures)
+        want = config["launches"]
+        bad = [f"TP {d}: {n}" for d, r in out["tp"].items()
+               for n in r["launches"] if n != 2 * want]
+        bad += [f"CP {d} bs{bs}: {n}" for d, r in out["cp"].items()
+                for bs, (n, _) in r.items() if n != want]
+        # G's weights change at the G step's update only: the D step's
+        # regeneration packs them anew, the next G step's forward not
+        bad += [f"TP {d}: {p} packings" for d, r in out["tp"].items()
+                for i, p in enumerate(r["packings"])
+                if p != [0 if i else want, want]]
+        bad += [f"TP {d}: {r['after']} packings without an update"
+                for d, r in out["tp"].items() if r["after"]]
+        if bad:
+            failures.append(f"K1 launches or packings {bad}; expected "
+                            f"{2 * want} launches per TP iteration, {want} "
+                            f"packings in the first forward and in each "
+                            f"forward after a G update only, {want} "
+                            "launches per banded forward")
+        if failures:
+            raise AssertionError(f"rank {rank}: " + "; ".join(failures))
+        with open(os.path.join(tmp, f"{form}{rank}.json"), "w") as f:
+            json.dump(out, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_model_parallel():
+    """Tensor and H-band parallelism on two gloo ranks of the one card;
+    -> K1 launches per rank, {"tp": per TP iteration, "cp": per banded
+    forward}, per dtype."""
+    import tempfile
+
+    t0 = time.perf_counter()
+    config = {"device": MP_DEVICE, "seg2eye": MP_OVERRIDES,
+              "launches": len(SITES) if TRAIN_LAUNCHES else 0}
+    with tempfile.TemporaryDirectory() as tmp:
+        log(f"model and spatial parallel: 2 ranks on gloo, CUDA tensors on "
+            f"the one card; (a) a data 1 x model 2 grid at full width, "
+            f"bs{MP_BATCH}, {MP_ITERS['float32']} float32 iterations and "
+            f"{MP_ITERS['bfloat16']} bfloat16, each step against the "
+            f"one-process route on rank 0; (b) scoring in 2 H bands at bs "
+            f"{MP_CP_BATCHES}")
+        ranks = dp_children(tmp, "mp", 2, child="mp_child", config=config,
+                            timeout=MP_CHILD_TIMEOUT)
+    a = ranks[0]
+    mine, one = a["bytes"]
+    for dname, r in a["tp"].items():
+        log(f"  TP {dname}: K1 launches per rank per iteration "
+            f"{[x['tp'][dname]['launches'] for x in ranks]} (predicted "
+            f"{2 * len(SITES)}), packings (G step, D step) "
+            f"{r['packings']}, in a forward without an update "
+            f"{r['after']}; host ms per iteration {r['ms']} (a correctness "
+            f"run through the host; {card_line()})")
+    log(f"  TP per-rank parameters + Adam moments {mine / 2 ** 20:.1f} MiB "
+        f"against one process's {one / 2 ** 20:.1f} MiB: {mine / one:.4f} "
+        f"(predicted 0.51-0.52; {card_line()})")
+    for dname, r in a["cp"].items():
+        log(f"  CP {dname}: K1 launches per rank per forward "
+            f"{[{bs: x['cp'][dname][bs][0] for bs in x['cp'][dname]} for x in ranks]}"
+            f" (predicted {len(SITES)}); host ms per scored batch "
+            f"{ {bs: round(v[1], 2) for bs, v in r.items()} } (a "
+            f"correctness run through the host; {card_line()})")
+    log(f"model and spatial parallel: phase 13 took "
+        f"{time.perf_counter() - t0:.1f} s")
+    return {"tp": {d: r["launches"][0] for d, r in a["tp"].items()},
+            "cp": {d: r[str(MP_CP_BATCHES[0])][0]
+                   for d, r in a["cp"].items()}}
+
+
 def main():
     kind = phase_device()
     phase_build()
@@ -3416,6 +3708,7 @@ def main():
     interop_launches = phase_interop()
     phase_data()
     dp_launches = phase_parallel()
+    mp_launches = phase_model_parallel()
     foreign = sorted(m for m in sys.modules if m.split(".")[0] in
                      ("jax", "jaxlib", "flax", "seg2eye_tpu", "msgpack",
                       "optax"))
@@ -3432,6 +3725,9 @@ def main():
         f"bs{BATCH} from a loaded .ckpt and one resumed iteration; "
         "dp_train_launches per rank in one data-parallel iteration at world "
         "1 on NCCL, dp_gloo_train_launches at world 2 on gloo (float32); "
+        "tp_launches per rank in one tensor-parallel iteration (model 2, "
+        "bs4), cp_launches per rank in one forward scored in 2 H bands "
+        "(bs1); "
         f"max_abs_err over the crop-256 and odd "
         f"site checks; ms, plain_ms, library_ms and bound_ms summed over the "
         f"18 sites at N={SITE_N}")
@@ -3449,6 +3745,8 @@ def main():
          "dp_train_launches": dp_launches["nccl"][d],
          "dp_gloo_train_launches": dp_launches["gloo"]
          if d == "float32" else None,
+         "tp_launches": mp_launches["tp"][d],
+         "cp_launches": mp_launches["cp"][d],
          **{k: summary[d][k] for k in keys}}
         for d in ("bfloat16", "float32")]}))
     print(json.dumps({"ok": True, "device": {

@@ -18,6 +18,12 @@
 The dataloader is passed in (the CLI builds it from the H5 file), so that
 scoring tensors already in memory needs no H5 stack; h5py is imported only
 to write the error log.
+
+With ``bands`` (``parallel.spatial.Bands``, ``--spatial_shard``) every
+rank of the bands' group runs the Tester on the same batches: inference
+computes H bands of each map and gathers the fake, the resize and the
+errors then run whole on every rank, and rank 0 alone writes (the error
+log, the .npy files and the manifest).
 """
 from __future__ import annotations
 
@@ -30,6 +36,7 @@ import torch
 
 from seg2eye_tpu_torch.ops import metrics
 from seg2eye_tpu_torch.ops.image import to_255resized
+from seg2eye_tpu_torch.parallel import data_parallel as dp
 from seg2eye_tpu_torch.utils.visualizer import (Visualizer,
                                                 visualize_sidebyside)
 
@@ -38,10 +45,12 @@ NATIVE_HW = (640, 400)      # OpenEDS native resolution (H, W)
 
 class Tester:
     def __init__(self, opt, dataset_key: str = "test", dataloader=None,
-                 visualizer: Optional[Visualizer] = None):
+                 visualizer: Optional[Visualizer] = None, bands=None):
         self.opt = opt.replace(serial_batches=True, no_flip=True,
                                isTrain=False, dataset_key=dataset_key)
         self.dataloader = dataloader
+        self.bands = bands
+        self.writes = dp.is_primary()
         self._visualizer = visualizer
         self.results_dir = os.path.join(
             opt.checkpoints_dir, opt.name, self.opt.results_dir, dataset_key)
@@ -70,7 +79,7 @@ class Tester:
     def infer_batch(self, model, batch: Dict):
         """-> (fake (B,H,W,1) float32, fake resized to native and truncated
         to [0,255]), both on the device."""
-        fake = model.inference(batch)
+        fake = model.inference(batch, bands=self.bands)
         h, w = self._native_hw(batch)
         return fake, to_255resized(fake, w=w, h=h)
 
@@ -131,7 +140,8 @@ class Tester:
 
     def run_validation(self, model, batches, limit: int = -1,
                        write_error_log: bool = False) -> List[float]:
-        log = self._prepare_error_log() if write_error_log else None
+        log = (self._prepare_error_log()
+               if write_error_log and self.writes else None)
         all_errors: List[float] = []
         counter = 0
         try:
@@ -166,7 +176,7 @@ class Tester:
         errors_dict = metrics.error_statistics(
             all_errors, mode=mode, dataset_key=self.opt.dataset_key)
         self.print_results(all_errors, errors_dict, epoch, n_steps)
-        if log:
+        if log and self.writes:
             self.visualizer.print_current_errors(epoch or 0, n_steps or 0,
                                                  errors_dict, t=0)
             self.visualizer.plot_current_errors(errors_dict, n_steps or 0)
@@ -220,7 +230,10 @@ class Tester:
 
     # ------------------------------------------------------------------ #
     def run_test(self, model, limit: int = -1) -> str:
-        os.makedirs(self.results_dir, exist_ok=True)
+        """One uint8 .npy per image and ``pred_npy_list.txt``, written by
+        rank 0 alone; -> the manifest's path."""
+        if self.writes:
+            os.makedirs(self.results_dir, exist_ok=True)
         filepaths = []
         bs = self.opt.batchSize
         for i, batch in enumerate(self.dataloader):
@@ -236,11 +249,13 @@ class Tester:
                 if arr.min() < 0 or arr.max() > 255:
                     raise ValueError(f"{name}: values outside [0, 255]")
                 path = os.path.join(self.results_dir, name + ".npy")
-                np.save(path, arr.astype(np.uint8)[..., 0])
+                if self.writes:
+                    np.save(path, arr.astype(np.uint8)[..., 0])
                 filepaths.append(path)
         manifest = os.path.join(self.results_dir, "pred_npy_list.txt")
-        with open(manifest, "w") as f:
-            for line in filepaths:
-                f.write(line + os.linesep)
+        if self.writes:
+            with open(manifest, "w") as f:
+                for line in filepaths:
+                    f.write(line + os.linesep)
         print(f"Written {len(filepaths)} files. Filepath: {manifest}")
         return manifest

@@ -20,6 +20,7 @@ from torch import nn
 from seg2eye_tpu_torch.models.layers import (SpectralConv, at_least_f32,
                                              parse_nonspade_norm, sub_norm)
 from seg2eye_tpu_torch.ops.image import resize_bilinear
+from seg2eye_tpu_torch.parallel import spatial
 
 ENC_SIZE = 256
 
@@ -46,19 +47,34 @@ class ConvEncoder(nn.Module):
         self.fc_var = nn.Linear(fin * grid * grid, w_dim)
 
     def forward(self, x: torch.Tensor, update_stats: bool = False,
-                use_running_average: bool = False
+                use_running_average: bool = False, bands=None
                 ) -> Tuple[torch.Tensor, torch.Tensor, List[torch.Tensor]]:
         """x: (N,1,H,W) in [-1,1], channels_last.  ``update_stats``: a
         training forward, which power-iterates every spectral conv and
         updates a batch sub-norm's running statistics;
-        ``use_running_average``: a batch sub-norm normalises with them."""
+        ``use_running_average``: a batch sub-norm normalises with them.
+        ``bands`` (``parallel.spatial.Bands``): after the resize, every
+        map whose height the ranks divide is computed in H bands (a
+        stride-2 conv reads one row above its band), the others whole;
+        the features are then this rank's bands, and the final map is
+        gathered for fc_mu/fc_var."""
         if x.shape[2:] != (ENC_SIZE, ENC_SIZE):
             x = resize_bilinear(x.permute(0, 2, 3, 1), ENC_SIZE, ENC_SIZE)
             x = x.permute(0, 3, 1, 2)
+        h = ENC_SIZE
+        band = spatial.at(bands, h)
+        x = spatial.place(x, None, band)
         features = []
         for i in range(self.n_layers):
             conv, norm = getattr(self, f"layer{i}")
-            x = norm(conv(x, update_stats), use_running_average, update_stats)
+            h //= 2
+            new = spatial.at(bands, h)
+            if band is not None and (new is None or band.rows % 2):
+                x, band = band.gather(x), None
+            x = spatial.place(conv(x, update_stats, band=band), band, new)
+            band = new
+            x = norm(x, use_running_average, update_stats, band=band)
             features.append(x)
+        x = spatial.place(x, band, None)
         out = at_least_f32(F.leaky_relu(x, 0.2)).reshape(x.shape[0], -1)
         return self.fc_mu(out), self.fc_var(out), features

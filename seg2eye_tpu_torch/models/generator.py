@@ -23,6 +23,7 @@ from seg2eye_tpu_torch.models.layers import SpectralConv
 from seg2eye_tpu_torch.models.normalization import (SpadeStyleResnetBlock,
                                                     parse_norm_g)
 from seg2eye_tpu_torch.ops.image import resize_nearest
+from seg2eye_tpu_torch.parallel import spatial
 
 _N_UP = {"normal": 5, "more": 6, "most": 7}
 
@@ -70,34 +71,45 @@ class SpadeStyleGenerator(nn.Module):
     def forward(self, seg: torch.Tensor, w: torch.Tensor,
                 use_running_average: bool = False,
                 update_stats: bool = False,
-                remat: bool = False) -> torch.Tensor:
+                remat: bool = False, bands=None) -> torch.Tensor:
         """seg: (B,H,W,semantic_nc) one-hot, NHWC; w: (B,w_dim).
         -> (B,output_nc,H,W) in channels_last memory.  ``update_stats``:
         a training forward, which advances every spectral u/v and BN
-        running statistic; ``remat``: checkpoint each block."""
+        running statistic; ``remat``: checkpoint each block.  ``bands``
+        (``parallel.spatial.Bands``): every resolution that the ranks
+        divide is computed in H bands, the others whole on every rank; the
+        result is whole."""
         pyramid = {}
+        latent_h, latent_w = self.latent_size
+        band = spatial.at(bands, latent_h)
 
         def seg_at(h, w_):
             if (h, w_) not in pyramid:
                 pyramid[(h, w_)] = resize_nearest(seg, h, w_).permute(0, 3, 1, 2)
             return pyramid[(h, w_)]
 
-        def run(blk, x):
-            return blk(x, seg_at(x.shape[2], x.shape[3]), w,
-                       use_running_average, update_stats, remat)
+        def run(blk, x, h):
+            return blk(x, seg_at(h, x.shape[3]), w, use_running_average,
+                       update_stats, remat, band)
 
-        x = self.fc(seg_at(*self.latent_size))
-        x = run(self.head_0, x)
-        x = upsample2x(x)
-        x = run(self.G_middle_0, x)
+        def up(x, h):
+            new = spatial.at(bands, 2 * h)
+            return spatial.place(upsample2x(x), band, new), new, 2 * h
+
+        h = latent_h
+        x = self.fc(spatial.place(seg_at(latent_h, latent_w), None, band),
+                    band=band)
+        x = run(self.head_0, x, h)
+        x, band, h = up(x, h)
+        x = run(self.G_middle_0, x, h)
         if self.num_upsampling_layers in ("more", "most"):
-            x = upsample2x(x)
-        x = run(self.G_middle_1, x)
+            x, band, h = up(x, h)
+        x = run(self.G_middle_1, x, h)
         for blk in (self.up_0, self.up_1, self.up_2, self.up_3):
-            x = upsample2x(x)
-            x = run(blk, x)
+            x, band, h = up(x, h)
+            x = run(blk, x, h)
         if self.num_upsampling_layers == "most":
-            x = upsample2x(x)
-            x = run(self.up_4, x)
-        x = self.conv_img(F.leaky_relu(x, 0.2))
-        return torch.tanh(x)
+            x, band, h = up(x, h)
+            x = run(self.up_4, x, h)
+        x = self.conv_img(F.leaky_relu(x, 0.2), band=band)
+        return spatial.place(torch.tanh(x), band, None)

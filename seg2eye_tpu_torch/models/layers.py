@@ -40,6 +40,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from seg2eye_tpu_torch.parallel import data_parallel as dp
+from seg2eye_tpu_torch.parallel import tensor_parallel as tp
 
 EPS = 1e-5
 
@@ -146,10 +147,16 @@ def _l2_normalize(v: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
     return v / (torch.linalg.vector_norm(v) + eps)
 
 
-def instance_norm(x: torch.Tensor, eps: float = EPS) -> torch.Tensor:
-    """Param-free instance norm over (H, W) of an NCHW tensor."""
+def instance_norm(x: torch.Tensor, eps: float = EPS,
+                  band=None) -> torch.Tensor:
+    """Param-free instance norm over (H, W) of an NCHW tensor; of an H band
+    (``parallel.spatial.Band``) with the whole map's statistics."""
     x32 = at_least_f32(x)
-    var, mean = torch.var_mean(x32, dim=(2, 3), keepdim=True, correction=0)
+    if band is None:
+        var, mean = torch.var_mean(x32, dim=(2, 3), keepdim=True,
+                                   correction=0)
+    else:
+        var, mean = (t[:, :, None, None] for t in band.var_mean(x32, (2, 3)))
     return ((x32 - mean) * torch.rsqrt(var + eps)).to(x.dtype)
 
 
@@ -173,8 +180,8 @@ class SubNorm(nn.Module):
         self.sub = sub
 
     def forward(self, x: torch.Tensor, use_running_average: bool = False,
-                update_stats: bool = False) -> torch.Tensor:
-        return instance_norm(x) if self.sub == "instance" else x
+                update_stats: bool = False, band=None) -> torch.Tensor:
+        return instance_norm(x, band=band) if self.sub == "instance" else x
 
 
 def sub_norm(sub: str, num_features: int) -> nn.Module:
@@ -205,13 +212,15 @@ class BatchNorm(nn.BatchNorm2d):
                             self.weight, self.bias, train, self.momentum,
                             self.eps)
 
-    def _synced(self, x: torch.Tensor, update: bool) -> torch.Tensor:
+    def _synced(self, x: torch.Tensor, update: bool,
+                band=None) -> torch.Tensor:
         """Batch statistics of the global batch (every rank's samples,
-        ``parallel.data_parallel.synced_var_mean``), the running ones
-        updated with them when ``update``; in at least float32, returned
-        in x's dtype."""
+        ``parallel.data_parallel.synced_var_mean``), or of the whole map
+        of an H ``band``, the running ones updated with them when
+        ``update``; in at least float32, returned in x's dtype."""
         x32 = at_least_f32(x)
-        var, mean, count = dp.synced_var_mean(x32, (0, 2, 3))
+        var, mean, count = dp.synced_var_mean(
+            x32, (0, 2, 3), over=None if band is None else band.group)
         if update:
             with torch.no_grad():
                 m = self.momentum
@@ -264,14 +273,14 @@ class BatchSubNorm(BatchNorm):
     stats_log: Optional[list] = None
 
     def forward(self, x: torch.Tensor, use_running_average: bool = False,
-                update_stats: bool = False) -> torch.Tensor:
+                update_stats: bool = False, band=None) -> torch.Tensor:
         update = update_stats and not use_running_average
         if update and self.stats_log is not None:
             return self._logged(x)
         if update:
             self.num_batches_tracked.add_(1)
-        if not use_running_average and dp.active():
-            return self._synced(x, update)
+        if not use_running_average and (band is not None or dp.active()):
+            return self._synced(x, update, band)
         stats = (self.running_mean, self.running_var) \
             if update or use_running_average else (None, None)
         y = F.batch_norm(at_least_f32(x), *stats, self.weight, self.bias,
@@ -313,16 +322,31 @@ class SpectralConv(nn.Module):
         self.bias = nn.Parameter(torch.zeros(out_ch)) if bias else None
 
     def kernel(self, update_stats: bool = False) -> torch.Tensor:
+        """The normalised weight.  Of a tensor-parallel slice of the weight
+        (``parallel.tensor_parallel``) it is this rank's rows of the whole
+        matrix's W / sigma: v = normalize(sum over the model ranks of
+        W_m^T u_m), u = normalize(W v) from the rows gathered (u stays
+        whole), sigma = sum of u_m . (W_m v), all over the model group."""
         if not self.spectral:
             return self.weight
         w = self.weight_orig
         mat = w.reshape(w.shape[0], -1)
+        if not tp.is_sharded(w):
+            if update_stats:
+                with torch.no_grad():
+                    v = _l2_normalize(mat.T @ self.weight_u)
+                    self.weight_u = _l2_normalize(mat @ v)
+                    self.weight_v = v
+            sigma = torch.dot(self.weight_u, mat @ self.weight_v)
+            return w / sigma
+        mine = tp.rows(self.weight_u.shape[0])
         if update_stats:
             with torch.no_grad():
-                v = _l2_normalize(mat.T @ self.weight_u)
-                self.weight_u = _l2_normalize(mat @ v)
+                v = _l2_normalize(tp.model_sum(mat.T @ self.weight_u[mine]))
+                self.weight_u = _l2_normalize(tp.gather(mat @ v, 0))
                 self.weight_v = v
-        sigma = torch.dot(self.weight_u, mat @ self.weight_v)
+        sigma = tp.model_sum(torch.dot(self.weight_u[mine],
+                                       mat @ self.weight_v))
         return w / sigma
 
     @torch.no_grad()
@@ -338,14 +362,24 @@ class SpectralConv(nn.Module):
             self.weight_v.copy_(_l2_normalize(w.reshape(w.shape[0], -1).T @ u))
 
     def forward(self, x: torch.Tensor, update_stats: bool = False,
-                kernel: torch.Tensor | None = None) -> torch.Tensor:
+                kernel: torch.Tensor | None = None,
+                band=None) -> torch.Tensor:
         """``kernel``: the normalised weight, computed by the caller with
-        ``self.kernel`` (a recomputed forward reuses the first one's)."""
+        ``self.kernel`` (a recomputed forward reuses the first one's).
+        ``band``: x is an H band (``parallel.spatial.Band``) whose rows
+        divide by the stride; the output is the band of the output map,
+        the rows beyond the band's edges read from its neighbours."""
         if kernel is None:
             kernel = self.kernel(update_stats)
-        bias = None if self.bias is None else self.bias.to(x.dtype)
-        return F.conv2d(x, kernel.to(x.dtype), bias, self.stride,
-                        self.padding)
+        padding = self.padding
+        if band is not None:
+            k = kernel.shape[2]
+            x = band.pad_rows(x, padding, k - self.stride - padding)
+            padding = (0, padding)
+        if self.spectral and tp.is_sharded(self.weight_orig):
+            # w / sigma of a slice is a slice too: mark it for conv2d
+            setattr(kernel, tp.ROWS, self.weight_u.shape[0])
+        return tp.conv2d(x, kernel, self.bias, self.stride, padding)
 
 
 class FCStyle(nn.Module):

@@ -14,6 +14,12 @@
     parallelism they are the global batch's (``parallel.data_parallel.
     synced_var_mean``), and the kernel normalises each rank's samples with
     them; instance statistics stay per sample.
+  * Under tensor parallelism (``parallel.tensor_parallel``) a site whose
+    ``mlp_gamma``/``mlp_beta`` are sharded runs the kernel on this model
+    rank's channel slice: the kernel is separable by channel, so x, the
+    statistics, [s0|s1], the gamma/beta biases and weights are sliced,
+    the seg MLP is whole, and the output channels are gathered.  The
+    other sites run whole on every rank.
 """
 from __future__ import annotations
 
@@ -27,6 +33,7 @@ from torch.utils.checkpoint import checkpoint
 from seg2eye_tpu_torch.models.layers import FCStyle, SpectralConv, at_least_f32
 from seg2eye_tpu_torch.ops.spade_style import NHIDDEN, spade_style
 from seg2eye_tpu_torch.parallel import data_parallel as dp
+from seg2eye_tpu_torch.parallel import tensor_parallel as tp
 
 
 def parse_norm_g(norm_g: str) -> Tuple[bool, str, int]:
@@ -73,14 +80,20 @@ class SpadeStyleBlock(nn.Module):
 
     def forward(self, x: torch.Tensor, seg: torch.Tensor, w: torch.Tensor,
                 use_running_average: bool = False,
-                update_stats: bool = False) -> torch.Tensor:
-        """x: (N,C,H,W) channels_last; seg: (N,S,H,W); w: (N,w_dim)."""
+                update_stats: bool = False, band=None) -> torch.Tensor:
+        """x: (N,C,H,W) channels_last; seg: (N,S,H,W); w: (N,w_dim).
+        ``band`` (``parallel.spatial.Band``): x is an H band of the map,
+        seg the whole map; the statistics are the whole map's, and the
+        kernel runs on the band with two neighbouring rows of x and seg
+        beyond each interior edge."""
         n, c = x.shape[:2]
         style = self.adain(at_least_f32(w))                       # (N, 2C)
         if self.param_free == "batch":
             pfn = self.spade.param_free_norm
             if use_running_average:
                 mean, var = pfn.running_mean, pfn.running_var
+            elif band is not None:
+                var, mean = band.var_mean(at_least_f32(x), (0, 2, 3))
             elif dp.active():
                 var, mean, count = dp.synced_var_mean(at_least_f32(x),
                                                       (0, 2, 3))
@@ -92,17 +105,36 @@ class SpadeStyleBlock(nn.Module):
                 if update_stats:
                     self._update_running_stats(mean, var, x.numel() // c)
             mean_nc, var_nc = mean.expand(n, c), var.expand(n, c)
+        elif band is not None:
+            var_nc, mean_nc = band.var_mean(at_least_f32(x), (2, 3))
         else:
             var_nc, mean_nc = torch.var_mean(at_least_f32(x), dim=(2, 3),
                                              correction=0)
+        rows = x.shape[2]
+        if band is not None:
+            x, top = band.extend(x, 2)
+            seg = band.take(seg, 2)
         s = self.spade
+        ws, bs = s.mlp_shared[0].weight, s.mlp_shared[0].bias
+        bg, bb = s.mlp_gamma.bias, s.mlp_beta.bias
+        sliced = tp.is_sharded(s.mlp_gamma.weight)
+        if sliced:
+            # each model rank's gradient of what it reads whole covers its
+            # slice only: the backward sums them over the model group
+            x, mean_nc, var_nc, bg, bb = (tp.my_block(t, d) for t, d in (
+                (x, 1), (mean_nc, 1), (var_nc, 1), (bg, 0), (bb, 0)))
+            style = tp.my_block(style.reshape(n, 2, c), 2).reshape(n, -1)
+            ws, bs = tp.partial(ws), tp.partial(bs)
+        else:
+            ws = tp.replicated(ws)
         out = spade_style(
             x.permute(0, 2, 3, 1), seg.permute(0, 2, 3, 1).to(x.dtype), style,
-            mean_nc, var_nc,
-            s.mlp_shared[0].weight, s.mlp_shared[0].bias,
-            s.mlp_gamma.weight, s.mlp_gamma.bias,
-            s.mlp_beta.weight, s.mlp_beta.bias)
-        return out.permute(0, 3, 1, 2)
+            mean_nc, var_nc, ws, bs, s.mlp_gamma.weight, bg,
+            s.mlp_beta.weight, bb)
+        out = out.permute(0, 3, 1, 2)
+        if band is not None:
+            out = out[:, :, top:top + rows]
+        return tp.gather(out) if sliced else out
 
     @torch.no_grad()
     def _update_running_stats(self, mean, var, count) -> None:
@@ -153,24 +185,29 @@ class SpadeStyleResnetBlock(nn.Module):
         return [self.conv_0, self.conv_1] + (
             [self.conv_s] if self.learned_shortcut else [])
 
-    def _body(self, x, seg, w, kernels, use_running_average, update_stats):
+    def _body(self, x, seg, w, kernels, use_running_average, update_stats,
+              band=None):
         k0, k1, *ks = kernels
 
         def norm(layer, t):
-            return layer(t, seg, w, use_running_average, update_stats)
+            return layer(t, seg, w, use_running_average, update_stats, band)
 
-        x_s = (self.conv_s(norm(self.norm_s, x), kernel=ks[0])
+        x_s = (self.conv_s(norm(self.norm_s, x), kernel=ks[0], band=band)
                if self.learned_shortcut else x)
-        dx = self.conv_0(F.leaky_relu(norm(self.norm_0, x), 0.2), kernel=k0)
-        dx = self.conv_1(F.leaky_relu(norm(self.norm_1, dx), 0.2), kernel=k1)
+        dx = self.conv_0(F.leaky_relu(norm(self.norm_0, x), 0.2), kernel=k0,
+                         band=band)
+        dx = self.conv_1(F.leaky_relu(norm(self.norm_1, dx), 0.2), kernel=k1,
+                         band=band)
         return x_s + dx
 
     def forward(self, x, seg, w, use_running_average: bool = False,
-                update_stats: bool = False, remat: bool = False):
+                update_stats: bool = False, remat: bool = False, band=None):
+        """``band``: x is an H band (``parallel.spatial.Band``), seg the
+        whole map at x's resolution; the result is the band."""
         kernels = [c.kernel(update_stats) for c in self._convs()]
         if not (remat and torch.is_grad_enabled()):
             return self._body(x, seg, w, kernels, use_running_average,
-                              update_stats)
+                              update_stats, band)
         first = [True]
 
         def body(x, seg, w, *kernels):

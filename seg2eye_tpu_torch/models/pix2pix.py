@@ -132,12 +132,13 @@ class Pix2Pix:
             return t.amax(dim)
         raise ValueError(self.opt.style_aggr_method)
 
-    def encode_w(self, style: torch.Tensor, update_stats: bool = False
-                 ) -> Tuple[torch.Tensor, List[torch.Tensor]]:
+    def encode_w(self, style: torch.Tensor, update_stats: bool = False,
+                 bands=None) -> Tuple[torch.Tensor, List[torch.Tensor]]:
         """style (B,k,H,W,1) -> (w (B,w_dim), aggregated NCHW features).
         Outside training a batch sub-norm uses batch statistics, or the
         running ones under ``opt.eval_use_running_stats``, and updates
-        nothing."""
+        nothing.  ``bands``: the encoder computes in H bands
+        (``ConvEncoder.forward``; the features are then bands)."""
         b, k = style.shape[:2]
         running = self.opt.eval_use_running_stats and not update_stats
         world = dp.world_size()
@@ -147,13 +148,13 @@ class Pix2Pix:
             else:
                 with dp.local():     # statistics of each sample's own k
                     outs = [self.netE(style[i].permute(0, 3, 1, 2),
-                                      update_stats, running)
+                                      update_stats, running, bands)
                             for i in range(b)]
             mu = torch.stack([out[0] for out in outs])
             feats = [torch.stack(f) for f in zip(*(out[2] for out in outs))]
         else:
             flat = style.reshape(b * k, *style.shape[2:]).permute(0, 3, 1, 2)
-            mu, _, feats = self.netE(flat, update_stats, running)
+            mu, _, feats = self.netE(flat, update_stats, running, bands)
             mu = mu.reshape(b, k, -1)
             feats = [f.reshape(b, k, *f.shape[1:]) for f in feats]
         return (self._aggregate(mu, 1),
@@ -204,12 +205,15 @@ class Pix2Pix:
         return outs
 
     def generate(self, seg: torch.Tensor, w: torch.Tensor,
-                 update_stats: bool = False) -> torch.Tensor:
+                 update_stats: bool = False, bands=None) -> torch.Tensor:
         """-> fake (B,H,W,output_nc) in the compute dtype.  A training
-        forward (``update_stats``) always uses batch statistics."""
+        forward (``update_stats``) always uses batch statistics.
+        ``bands``: the generator computes in H bands and gathers the
+        fake."""
         running = self.opt.eval_use_running_stats and not update_stats
         fake = self.netG(seg, at_least_f32(w), use_running_average=running,
-                         update_stats=update_stats, remat=self.opt.remat)
+                         update_stats=update_stats, remat=self.opt.remat,
+                         bands=bands)
         return fake.permute(0, 2, 3, 1)
 
     def discriminate(self, seg: torch.Tensor, fake: torch.Tensor,
@@ -311,15 +315,20 @@ class Pix2Pix:
     # ------------------------------------------------------------------ #
     @torch.no_grad()
     def inference(self, batch: Dict,
-                  latent_style: Optional[torch.Tensor] = None) -> torch.Tensor:
+                  latent_style: Optional[torch.Tensor] = None,
+                  bands=None) -> torch.Tensor:
         """Encode the style references (unless ``latent_style`` is given)
-        and generate -> (B,H,W,1) float32."""
+        and generate -> (B,H,W,1) float32.  ``bands``
+        (``parallel.spatial.Bands``, ``--spatial_shard``): every rank of
+        its group holds the whole batch and computes H bands of each map;
+        the fake is whole on every rank (JAX's ``constrain=``)."""
         with full_float32(self.dtype == torch.float32):
             seg, style, _ = self.preprocess(batch)
             if latent_style is None:
-                latent_style, _ = self.encode_w(style)
+                latent_style, _ = self.encode_w(style, bands=bands)
             latent_style = torch.as_tensor(latent_style, device=self.device)
-            return self.generate(seg, latent_style).to(torch.float32)
+            return self.generate(seg, latent_style,
+                                 bands=bands).to(torch.float32)
 
     @torch.no_grad()
     def encode_only(self, batch: Dict) -> torch.Tensor:

@@ -10,7 +10,8 @@
   * ``to_rgb``: grayscale repeated to 3 channels, float32.
 
 The net is frozen: its parameters never require a gradient and are in no
-optimizer.  Convolutions run in the input's dtype (float32 parameters cast
+optimizer.  Under tensor parallelism its wide convs are sharded by the
+rule of G's, E's and D's (``parallel.tensor_parallel.conv2d``).  Convolutions run in the input's dtype (float32 parameters cast
 at the call).  Pretrained weights come only from ``--vgg_weights``
 (``utils.checkpoint.load_vgg``); ``utils.weights.init_networks`` seeds
 torchvision's own init for runs without them.
@@ -22,6 +23,8 @@ from typing import List
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from seg2eye_tpu_torch.parallel import tensor_parallel as tp
 
 # torchvision vgg19.features: (index, in, out) of each conv, "M" a 2x2
 # max pool; each slice ends after the ReLU of conv{1..5}_1
@@ -58,8 +61,8 @@ class VGG19Features(nn.Module):
                     x = F.max_pool2d(x, 2, 2)
                 else:
                     conv = self.features[step[0]]
-                    x = F.relu(F.conv2d(x, conv.weight.to(x.dtype),
-                                        conv.bias.to(x.dtype), padding=1))
+                    x = F.relu(tp.conv2d(x, conv.weight, conv.bias,
+                                         padding=1))
             outs.append(x)
         return outs
 

@@ -162,7 +162,9 @@ class PackedWeights:
     tensors and not the norm site they belong to, so one cache,
     ``packed_weights``, serves every site: an entry is found by the
     identity of the four weight tensors and holds them weakly, and it goes
-    when any of them is freed.  An in-place update that leaves
+    when any of them is freed.  A view (a tensor-parallel rank's block of
+    a whole bias, made anew at every call) is found by its base tensor,
+    offset and shape, so that it too is packed once.  An in-place update that leaves
     ``_version`` alone (``torch.optim.Adam(fused=True)`` does) is not
     seen, so the port's optimizers are never fused (``train.state``).
     ``packings`` counts the packings made."""
@@ -173,17 +175,19 @@ class PackedWeights:
 
     def __call__(self, wg, bg, wb, bb, dtype: torch.dtype):
         weights = (wg, bg, wb, bb)
-        key = (tuple(map(id, weights)), dtype)
+        bases = tuple(t if t._base is None else t._base for t in weights)
+        key = (tuple((id(b), t.storage_offset(), tuple(t.shape))
+                     for b, t in zip(bases, weights)), dtype)
         stamp = tuple((t.data_ptr(), t._version) for t in weights)
         hit = self._cache.get(key)
         if hit is not None and hit[0] == stamp and all(
-                ref() is t for ref, t in zip(hit[1], weights)):
+                ref() is b for ref, b in zip(hit[1], bases)):
             return hit[2]
         if hit is None:
-            for t in weights:
-                weakref.finalize(t, self._cache.pop, key, None)
+            for b in bases:
+                weakref.finalize(b, self._cache.pop, key, None)
         packed = pack_weights(*weights, dtype)
-        self._cache[key] = (stamp, tuple(map(weakref.ref, weights)), packed)
+        self._cache[key] = (stamp, tuple(map(weakref.ref, bases)), packed)
         self.packings += 1
         return packed
 

@@ -1,4 +1,5 @@
-"""Multi-GPU training: data parallelism over processes, one per GPU
-(``data_parallel``), the counterpart of ``seg2eye_tpu/parallel``.  The
-JAX package's tensor-parallel (``--model_axis > 1``) and H-band
-(``--spatial_shard``) forms are not ported."""
+"""Multi-GPU training and scoring, one process per GPU, the counterpart
+of ``seg2eye_tpu/parallel``: the process grid (``mesh``), data
+parallelism over its data axis (``data_parallel``), tensor parallelism
+over its model axis (``tensor_parallel``, ``--model_axis``) and H-band
+context parallelism of scoring (``spatial``, ``--spatial_shard``)."""

@@ -28,6 +28,13 @@ Collectives run while a process group is initialised (``active``), at
 world size 1 too; ``local()`` turns them off inside, for work that one
 rank does alone (rank 0's Testers).  Without a process group nothing here
 communicates and the trainers take their single-process path.
+
+Under a process grid (``parallel.mesh``, ``--model_axis`` > 1) every
+collective here acts over this rank's data group, the ranks that share
+the batch: the model ranks of one data index hold the same samples, so
+the statistics, gathers and means see each sample once.  ``rank`` and
+``world_size`` are then the data index and degree; the model ranks'
+collectives are ``parallel.tensor_parallel``'s.
 """
 from __future__ import annotations
 
@@ -38,6 +45,9 @@ from typing import Dict, Iterable, Tuple
 
 import torch
 import torch.distributed as dist
+
+from seg2eye_tpu_torch.parallel import mesh
+from seg2eye_tpu_torch.parallel import tensor_parallel as tp
 
 _local_depth = 0
 
@@ -68,19 +78,27 @@ def init_from_env(device: str | torch.device) -> torch.device:
 
 
 def rank() -> int:
-    """This process's rank (``jax.process_index``), 0 without a group."""
-    return dist.get_rank() if dist.is_initialized() else 0
+    """This process's index on the data axis (``jax.process_index`` of a
+    data mesh): its rank without a grid, 0 without a group."""
+    return mesh.current().data_index
 
 
 def world_size() -> int:
-    """The number of processes that share each batch here
-    (``jax.process_count``): 1 without a group or inside ``local()``."""
-    return dist.get_world_size() if active() else 1
+    """The number of processes that share each batch here (the data
+    degree, ``jax.process_count`` of a data mesh): 1 without a group or
+    inside ``local()``."""
+    return mesh.current().data if active() else 1
+
+
+def group():
+    """The data group of this rank (None: the default group)."""
+    return mesh.current().data_group
 
 
 def is_primary() -> bool:
-    """Whether this process writes the run's files."""
-    return rank() == 0
+    """Whether this process writes the run's files: rank 0 of the world,
+    the first model rank of data index 0."""
+    return rank() == 0 and mesh.current().model_index == 0
 
 
 def active() -> bool:
@@ -130,17 +148,18 @@ class _SyncedVarMean(torch.autograd.Function):
     them, as each rank's loss reaches every rank's statistics."""
 
     @staticmethod
-    def forward(ctx, x, dims):
+    def forward(ctx, x, dims, group):
+        ctx.group = group
         kept = [s for d, s in enumerate(x.shape) if d not in dims]
         count = torch.full((1,), x.numel() // math.prod(kept),
                            dtype=x.dtype, device=x.device)
         buf = torch.cat([x.sum(dims).reshape(-1), count])
-        dist.all_reduce(buf)
+        dist.all_reduce(buf, group=ctx.group)
         total = buf[-1]
         mean = (buf[:-1] / total).reshape(kept)
         shape = [1 if d in dims else s for d, s in enumerate(x.shape)]
         sq = (x - mean.reshape(shape)).square().sum(dims)
-        dist.all_reduce(sq)
+        dist.all_reduce(sq, group=ctx.group)
         var = sq / total
         ctx.shape = shape
         ctx.mark_non_differentiable(total)
@@ -154,38 +173,51 @@ class _SyncedVarMean(torch.autograd.Function):
         grad_mean = torch.zeros_like(mean) if grad_mean is None \
             else grad_mean
         buf = torch.cat([grad_var.reshape(-1), grad_mean.reshape(-1)])
-        dist.all_reduce(buf)
+        dist.all_reduce(buf, group=ctx.group)
         g_var, g_mean = (t.reshape(ctx.shape) for t in buf.chunk(2))
         dx = (g_mean + 2.0 * g_var * (x - mean.reshape(ctx.shape))) / total
-        return dx, None
+        return dx, None, None
 
 
-def synced_var_mean(x: torch.Tensor, dims: Tuple[int, ...]
+def synced_var_mean(x: torch.Tensor, dims: Tuple[int, ...], over=None
                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """-> (biased variance, mean, count): over ``dims`` of the global
     batch, every rank's x together (``torch.var_mean(x, dims,
     correction=0)`` of the concatenated batch, up to summation order), and
     the global number of elements behind each statistic (a 0-d tensor),
-    for the unbiased running variance.  Differentiable."""
-    return _SyncedVarMean.apply(x, tuple(dims))
+    for the unbiased running variance.  Differentiable.  ``over``: the
+    process group whose x's are parts of one tensor (the data group by
+    default; the H bands' group in ``parallel.spatial``)."""
+    return _SyncedVarMean.apply(x, tuple(dims),
+                                group() if over is None else over)
 
 
 def all_reduce_grads(params: Iterable[torch.nn.Parameter]) -> None:
-    """Every gradient replaced by its mean over the ranks: one all-reduce
-    of one flat buffer per dtype.  Parameters without a gradient have none
-    on every rank (every rank runs the same graph).  No-op unless
+    """Every gradient replaced by its mean over the data ranks: one
+    all-reduce of one flat buffer per dtype.  Under a process grid a whole
+    parameter's gradient is averaged over every rank, the model ranks
+    too: each model rank computes it alike, but the card's kernels may
+    sum in another order on each (cuDNN's nondeterministic algorithms),
+    and the ranks' copies must stay bit for bit equal.  A model slice's is
+    averaged over its data group.  Parameters without a gradient have
+    none on every rank (every rank runs the same graph).  No-op unless
     ``active()``."""
     if not active():
         return
-    by_dtype: Dict[torch.dtype, list] = {}
+    grid = mesh.current()
+    by_kind: Dict[Tuple[torch.dtype, bool], list] = {}
     for p in params:
         if p.grad is not None:
-            by_dtype.setdefault(p.grad.dtype, []).append(p.grad)
-    world = world_size()
-    for grads in by_dtype.values():
+            by_kind.setdefault((p.grad.dtype, tp.is_sharded(p)),
+                               []).append(p.grad)
+    for (_, sharded), grads in by_kind.items():
         flat = torch.cat([g.reshape(-1) for g in grads])
-        dist.all_reduce(flat)
-        flat.div_(world)
+        if sharded:
+            dist.all_reduce(flat, group=grid.data_group)
+            flat.div_(grid.data)
+        else:
+            dist.all_reduce(flat)
+            flat.div_(grid.data * grid.model)
         for g, part in zip(grads, flat.split([g.numel() for g in grads])):
             g.copy_(part.view(g.shape))
 
@@ -200,7 +232,7 @@ def mean_over_ranks(values: Dict[str, torch.Tensor]
         return {}
     means = torch.stack([values[k].detach().double().mean() for k in keys])
     if active():
-        dist.all_reduce(means)
+        dist.all_reduce(means, group=group())
         means = means / world_size()
     return dict(zip(keys, means.unbind()))
 
@@ -209,7 +241,7 @@ def sum_over_ranks(t: torch.Tensor) -> torch.Tensor:
     """t summed over the ranks, in place (confusion matrices); t without
     ``active()``."""
     if active():
-        dist.all_reduce(t)
+        dist.all_reduce(t, group=group())
     return t
 
 
@@ -224,13 +256,13 @@ class _GatherRows(torch.autograd.Function):
         b = ctx.b = local.shape[0]
         out = local.new_zeros((b * world_size(), *local.shape[1:]))
         out[rank() * b:(rank() + 1) * b] = local
-        dist.all_reduce(out)
+        dist.all_reduce(out, group=group())
         return out
 
     @staticmethod
     def backward(ctx, grad):
         grad = grad.contiguous().clone()
-        dist.all_reduce(grad)
+        dist.all_reduce(grad, group=group())
         return grad[rank() * ctx.b:(rank() + 1) * ctx.b]
 
 
@@ -257,17 +289,30 @@ def global_sum(t: torch.Tensor) -> torch.Tensor:
 def check_replicated(tensors: Dict[str, torch.Tensor], what: str) -> None:
     """Rank 0's ``tensors`` broadcast to every rank, which must hold the
     same values already (each rank builds its state from the same seed or
-    checkpoint); a rank that differs raises, naming the first tensor.
-    No-op unless ``active()``."""
+    checkpoint); a rank that differs raises, naming the first tensor.  A
+    tensor-parallel slice (``tensor_parallel.is_sharded``) is held to the
+    first rank of this rank's data group instead, which holds the same
+    slice.  No-op unless ``active()``."""
     if not active():
         return
+    grid = mesh.current()
+    sharded = {k: t for k, t in tensors.items() if tp.is_sharded(t)}
+    whole = {k: t for k, t in tensors.items() if k not in sharded}
+    _check_equal(whole, what, src=0, group=None)
+    _check_equal(sharded, what, src=grid.model_index, group=grid.data_group)
+
+
+def _check_equal(tensors: Dict[str, torch.Tensor], what: str, src: int,
+                 group) -> None:
+    """The ``tensors`` of global rank ``src`` broadcast over ``group``;
+    a rank whose own differ raises."""
     by_dtype: Dict[Tuple[torch.dtype, torch.device], list] = {}
     for name, t in tensors.items():
         by_dtype.setdefault((t.dtype, t.device), []).append((name, t))
     for items in by_dtype.values():
         mine = torch.cat([t.reshape(-1) for _, t in items])
         theirs = mine.clone()
-        dist.broadcast(theirs, src=0)
+        dist.broadcast(theirs, src=src, group=group)
         if torch.equal(mine, theirs):
             continue
         sizes = [t.numel() for _, t in items]
@@ -275,8 +320,9 @@ def check_replicated(tensors: Dict[str, torch.Tensor], what: str) -> None:
                                    theirs.split(sizes)):
             if not torch.equal(a, b):
                 raise RuntimeError(
-                    f"rank {rank()}: {what} {name} differs from rank 0's; "
-                    "every rank must start from the same state")
+                    f"rank {dist.get_rank()}: {what} {name} differs from "
+                    f"rank {src}'s; every rank must start from the same "
+                    "state")
 
 
 def module_tensors(modules: Dict[str, torch.nn.Module]

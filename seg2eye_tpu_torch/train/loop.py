@@ -27,15 +27,21 @@ losses, validation statistics and panels to TensorBoard, and
 loss (``--no_vgg_loss False``) loads torchvision VGG19 weights from
 ``--vgg_weights`` and refuses to train without them.
 
-Data parallelism (``torchrun --nproc_per_node N``, ``parallel.
-data_parallel``): ``--batchSize`` is the global batch, each rank loads
-its share and takes the same synchronised steps, every rank reads a
-resumed checkpoint, and only rank 0 writes (``src.zip``, checkpoints,
-``iter.txt``, the loss log, TensorBoard, the profile) and runs the
-Testers, alone, on its own parameters.  Printed losses are the means over
-the ranks.  ``--data_axis`` must be 0 or the world size.  The
-tensor-parallel and H-band options (``--model_axis > 1``,
-``--spatial_shard``) are not ported, and raise.
+Data and tensor parallelism (``torchrun --nproc_per_node N``,
+``parallel``): the N processes form a grid of data x model ranks
+(``--model_axis`` M, default 1; ``--data_axis`` 0 or N / M).
+``--batchSize`` is the global batch; each data index loads its share and
+takes the same synchronised steps.  At M > 1 the wide convs are sharded
+over the model ranks (``parallel.tensor_parallel``): every rank builds
+(or resumes) the whole state and then keeps its slice.  Only rank 0
+writes (``src.zip``, ``iter.txt``, the loss log, TensorBoard, the
+profile) and runs the Testers, alone, on whole networks (gathered from
+the slices at M > 1); checkpoints gather the slices on every rank and
+rank 0 writes the files of a one-process run.  Printed losses are the
+means over the data ranks.  ``--spatial_shard`` bands the scoring of
+``python -m seg2eye_tpu_torch.test`` (``parallel.spatial``); the
+training Testers run on rank 0 alone with or without it, with the same
+numbers.  Per-sample encoding under M > 1 is not ported, and raises.
 """
 from __future__ import annotations
 
@@ -45,11 +51,14 @@ import traceback
 from typing import Dict, Optional
 
 import torch
+import torch.distributed as dist
 
 from seg2eye_tpu_torch.data.openeds import create_dataloader, device_prefetch
 from seg2eye_tpu_torch.eval.tester import Tester
 from seg2eye_tpu_torch.models.pix2pix import Pix2Pix
 from seg2eye_tpu_torch.parallel import data_parallel as dp
+from seg2eye_tpu_torch.parallel import mesh
+from seg2eye_tpu_torch.parallel import tensor_parallel as tp
 from seg2eye_tpu_torch.train import state as state_lib
 from seg2eye_tpu_torch.train import steps
 from seg2eye_tpu_torch.utils import checkpoint
@@ -61,18 +70,29 @@ from seg2eye_tpu_torch.utils.weights import init_networks
 
 
 def _check_ported(opt, device: torch.device) -> None:
+    """Refuses what ``make_mesh`` refuses (``mesh.grid_shape``), a global
+    batch that the data degree does not divide, and per-sample encoding
+    under tensor parallelism."""
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("training on 'cuda': no CUDA device is available")
-    missing = {"--spatial_shard": opt.spatial_shard,
-               "--model_axis > 1": opt.model_axis > 1}
-    for what, asked in missing.items():
-        if asked:
-            raise NotImplementedError(f"{what} is not ported")
-    world = dp.world_size()
-    if opt.data_axis not in (0, world):
-        raise ValueError(f"--data_axis {opt.data_axis}: the data-parallel "
-                         f"degree is the world size, {world} process(es)")
-    dp.check_batch(opt.batchSize, world)
+    world = dp.world_size() * mesh.current().model
+    data, model = mesh.grid_shape(opt.model_axis, opt.data_axis, world)
+    dp.check_batch(opt.batchSize, data)
+    if model > 1 and opt.per_sample_encode_enabled:
+        raise NotImplementedError(
+            "per-sample encoding (--per_sample_encode, or 'auto' with "
+            "norm_E = spectralbatch) under --model_axis > 1 is not ported")
+
+
+def _scoring_model(model: Pix2Pix) -> Pix2Pix:
+    """The model the Testers score: ``model`` itself, or under tensor
+    parallelism a copy with whole networks, gathered on every rank (a
+    collective over each model group) and used by rank 0."""
+    if not any(tp.is_sharded(p) for p in model.netG.parameters()):
+        return model
+    nets = checkpoint.whole_networks({"G": model.netG, "E": model.netE},
+                                     model.opt, model.device)
+    return Pix2Pix(model.opt, nets, model.device)
 
 
 def _testers(opt, visualizer: Visualizer):
@@ -135,6 +155,8 @@ def train(opt, max_steps: Optional[int] = None, step_hook=None,
     1-based index and the loss dict (tensors on the device)."""
     device = torch.device(device)
     _check_ported(opt, device)
+    if dist.is_initialized():
+        mesh.make_grid(opt.model_axis, opt.data_axis)
     primary = dp.is_primary()
     if primary:
         copy_src(project_root(), opt.expr_dir)
@@ -156,6 +178,7 @@ def train(opt, max_steps: Optional[int] = None, step_hook=None,
         checkpoint.load_state(state, opt, opt.which_epoch)
         print(f"Resumed networks from '{opt.which_epoch}' checkpoint")
         resume_skip = iter_counter.epoch_iter // opt.batchSize
+    tp.shard_(nets, (state.opt_g, state.opt_d), opt.tp_min_channels)
     dp.check_replicated(dp.module_tensors(nets), "the initial state:")
     testers = None
 
@@ -201,25 +224,32 @@ def train(opt, max_steps: Optional[int] = None, step_hook=None,
                             host_losses, iter_counter.time_per_iter)
                         visualizer.plot_current_errors(
                             host_losses, iter_counter.total_steps_so_far)
+                if iter_counter.needs_displaying():
+                    scoring = _scoring_model(model)
                 if iter_counter.needs_displaying() and primary:
                     testers = testers or _testers(opt, visualizer)
                     with dp.local():
                         for tester in testers:
                             tester.run_partial_modes(
-                                model, epoch=epoch,
+                                scoring, epoch=epoch,
                                 n_steps=iter_counter.total_steps_so_far,
                                 limit=min(opt.validation_limit, tester.N),
                                 log=True, visualize_images=opt.tf_log)
-                if iter_counter.needs_saving() and primary:
-                    print("saving the latest model (epoch %d, total_steps %d)"
-                          % (epoch, iter_counter.total_steps_so_far))
+                if iter_counter.needs_saving():
+                    if primary:
+                        print("saving the latest model (epoch %d, "
+                              "total_steps %d)" % (
+                                  epoch, iter_counter.total_steps_so_far))
                     checkpoint.save_state(state, opt, "latest", fmt)
-                    iter_counter.record_current_iter()
+                    if primary:
+                        iter_counter.record_current_iter()
+                if iter_counter.needs_full_validation():
+                    scoring = _scoring_model(model)
                 if iter_counter.needs_full_validation() and primary:
                     testers = testers or _testers(opt, visualizer)
                     with dp.local():
                         for tester in testers:
-                            tester.run(model, mode="full", epoch=epoch,
+                            tester.run(scoring, mode="full", epoch=epoch,
                                        n_steps=iter_counter.total_steps_so_far,
                                        write_error_log=opt.write_error_log,
                                        log=True)
@@ -229,9 +259,10 @@ def train(opt, max_steps: Optional[int] = None, step_hook=None,
 
             iter_counter.record_epoch_end()
             if (epoch % opt.save_epoch_freq == 0
-                    or epoch == iter_counter.total_epochs) and primary:
-                print("saving the model at the end of epoch %d, iters %d"
-                      % (epoch, iter_counter.total_steps_so_far))
+                    or epoch == iter_counter.total_epochs):
+                if primary:
+                    print("saving the model at the end of epoch %d, iters %d"
+                          % (epoch, iter_counter.total_steps_so_far))
                 checkpoint.save_state(state, opt, "latest", fmt)
                 checkpoint.save_state(state, opt, epoch, fmt)
             if stop:
@@ -250,7 +281,8 @@ def train(opt, max_steps: Optional[int] = None, step_hook=None,
         if primary:
             visualizer.close()
             print("saving the model before quitting")
-            checkpoint.save_state(state, opt, "latest", fmt)
+        checkpoint.save_state(state, opt, "latest", fmt)
+        if primary:
             iter_counter.record_current_iter()
     return {"losses": _host_losses(last_losses), "steps": n_iters,
             "state": state}

@@ -15,6 +15,10 @@
     the fused one: a fused step changes the weights in place without
     moving their ``_version``, on which the kernel's packed copies of G's
     norm-site weights are keyed (``ops.spade_style.packed_weights``).
+  * Under tensor parallelism the optimizers hold each model rank's slices
+    (``parallel.tensor_parallel.shard_`` narrows the parameters in place
+    after ``create_state``), so the moments of a sharded weight are its
+    rows only.
 """
 from __future__ import annotations
 

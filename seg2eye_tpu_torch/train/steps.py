@@ -17,8 +17,11 @@ the state in place; the loss dicts and the fake come back detached.
 
 Under data parallelism (``parallel.data_parallel``) the batch is this
 rank's share of the global one; the batch statistics inside are global,
-and each step averages its gradients over the ranks before the update,
-so every rank takes the same step.  The loss dicts are this rank's.
+and each step averages its gradients over the data ranks before the
+update, so every rank takes the same step.  Under tensor parallelism the
+gradients of the model ranks' slices and of the whole parameters come
+out of the backward complete (``parallel.tensor_parallel``), so the
+average is over the data group only.  The loss dicts are this rank's.
 """
 from __future__ import annotations
 

@@ -20,6 +20,13 @@ learning rates must be the port's schedule's at some epoch of the run.
 ``load_state(strict=True)`` restores; ``num_batches_tracked``, a counter
 that no forward reads, is not in that format and comes back as 0.
 
+Under tensor parallelism (``parallel.tensor_parallel``) ``save_state``
+gathers the slices of the networks and of the Adam moments on every rank
+(a collective over each model group) and rank 0 writes the files of a
+one-process run, in either format; a run loads them whole and then keeps
+its slices (``train.loop``), so a tensor-parallel run and a one-process
+run resume from each other's files.
+
 ``load_vgg`` reads the frozen VGG19 of the VGG loss from
 ``--vgg_weights``: a torchvision ``vgg19`` or ``vgg19.features``
 state_dict, never part of a checkpoint.
@@ -33,6 +40,8 @@ import numpy as np
 import torch
 from torch import nn
 
+from seg2eye_tpu_torch.parallel import data_parallel as dp
+from seg2eye_tpu_torch.parallel import tensor_parallel as tp
 from seg2eye_tpu_torch.utils import flax_msgpack, optim_state, weights
 
 TORCH, JAX = ".pth", ".ckpt"
@@ -110,11 +119,52 @@ def _nets(state) -> Dict[str, nn.Module]:
     return {"G": model.netG, "D": model.netD, "E": model.netE}
 
 
+def whole_networks(nets: Dict[str, nn.Module], opt,
+                   device: str | torch.device = "cpu"
+                   ) -> Dict[str, nn.Module]:
+    """Copies of ``nets`` ("G", "E", "D") on ``device`` with every
+    tensor-parallel slice gathered: every rank of each model group must
+    call it."""
+    from seg2eye_tpu_torch.models.pix2pix import build_networks
+
+    built = build_networks(opt.replace(isTrain="D" in nets))
+    out = {}
+    for name, net in nets.items():
+        sd = {k: tp.whole(v) for k, v in
+              net.state_dict(keep_vars=True).items()}
+        out[name] = built[name].to(device)
+        out[name].load_state_dict(sd, strict=True)
+    return out
+
+
+def whole_state(state, device: str | torch.device = "cpu"):
+    """``state`` itself, or under tensor parallelism a copy of it on
+    ``device`` with whole networks and Adam moments (``whole_networks``;
+    every model rank must call it), sharing no tensor with it."""
+    from seg2eye_tpu_torch.models.pix2pix import Pix2Pix
+    from seg2eye_tpu_torch.train import state as state_lib
+
+    if not any(tp.is_sharded(p) for net in _nets(state).values()
+               for p in net.parameters()):
+        return state
+    opt = state.model.opt
+    whole = state_lib.create_state(Pix2Pix(
+        opt, whole_networks(_nets(state), opt, device), device))
+    whole.opt_g.load_state_dict(tp.whole_optimizer_state(state.opt_g))
+    whole.opt_d.load_state_dict(tp.whole_optimizer_state(state.opt_d))
+    whole.step = state.step
+    return whole
+
+
 def save_state(state, opt, which_epoch, fmt: str = "torch",
                optim: bool = True) -> None:
     """The networks of a ``train.state.TrainState`` (as CPU tensors) and,
     with ``optim``, its optimizers, in the port's format or
-    (``fmt="flax"``) the JAX package's."""
+    (``fmt="flax"``) the JAX package's.  Every rank calls it (the slices
+    of a tensor-parallel state are gathered); rank 0 writes."""
+    state = whole_state(state)
+    if not dp.is_primary():
+        return
     if fmt == "flax":
         save_state_jax(state, opt, which_epoch, optim)
         return

@@ -238,9 +238,11 @@ def test_segtrain_eval_tail_drop_at_world_2(tmp_path, monkeypatch, capsys):
 
 # --------------------------------------------------------------- refusals
 def test_refusals(h5, monkeypatch):
-    """An explicit --data_axis that is not the world size, a global batch
-    that the world does not divide, and the tensor-parallel and H-band
-    options raise in the loop; a process-group start that cannot happen
+    """An explicit --data_axis that is not the world size over the model
+    axis, a global batch that the data degree does not divide, a model
+    axis that the world does not hold or divide, and per-sample encoding
+    under a model axis raise in the loop (``--spatial_shard`` does not);
+    a process-group start that cannot happen
     (two processes asked for on a card that is absent) raises and leaves
     no group."""
     from seg2eye_tpu_torch.train import loop
@@ -250,13 +252,26 @@ def test_refusals(h5, monkeypatch):
     loop._check_ported(opt.replace(data_axis=1), cpu)
     with pytest.raises(ValueError, match="--data_axis 2"):
         loop._check_ported(opt.replace(data_axis=2), cpu)
-    for flag in ({"spatial_shard": True}, {"model_axis": 2}):
-        with pytest.raises(NotImplementedError):
+    loop._check_ported(opt.replace(spatial_shard=True), cpu)
+    for flag, match in (({"model_axis": 2}, "needs 2 devices, have 1"),
+                        ({"model_axis": 2, "data_axis": 1},
+                         "needs 2 devices")):
+        with pytest.raises(ValueError, match=match):
             loop._check_ported(opt.replace(**flag), cpu)
     monkeypatch.setattr(dp, "world_size", lambda: 3)
     with pytest.raises(ValueError, match="not divisible"):
         loop._check_ported(opt, cpu)
     loop._check_ported(opt.replace(batchSize=6, data_axis=3), cpu)
+    monkeypatch.setattr(dp, "world_size", lambda: 4)
+    loop._check_ported(opt.replace(model_axis=2, data_axis=2), cpu)
+    for flag, match in (({"model_axis": 3}, "does not divide"),
+                        ({"model_axis": 2, "data_axis": 4}, "--data_axis 4"),
+                        ({"model_axis": 2, "batchSize": 5}, "not divisible")):
+        with pytest.raises(ValueError, match=match):
+            loop._check_ported(opt.replace(**flag), cpu)
+    with pytest.raises(NotImplementedError, match="per-sample encoding"):
+        loop._check_ported(opt.replace(model_axis=2,
+                                       norm_E="spectralbatch"), cpu)
     monkeypatch.undo()
 
     for k, v in (("WORLD_SIZE", "2"), ("RANK", "0"), ("LOCAL_RANK", "0")):

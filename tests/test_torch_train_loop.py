@@ -277,9 +277,21 @@ def test_loop_in_memory_batches_and_step_hook(h5):
                                   {"model_axis": 2}],
                          ids=["spatial_shard", "model_axis"])
 def test_loop_refuses_what_is_not_ported(h5, flag):
-    """Only the multi-device options still raise."""
-    with pytest.raises(NotImplementedError):
-        train(loop_opt(h5, "refused", **flag), device="cpu")
+    """The multi-device options at one process: a model axis of 2 needs
+    two processes and raises, as ``make_mesh`` does; ``--spatial_shard``
+    bands nothing at one process (JAX's ``device_count() > 1``), and the
+    run is bit for bit the run without it."""
+    if "model_axis" in flag:
+        with pytest.raises(ValueError, match="needs 2 devices, have 1"):
+            train(loop_opt(h5, "refused", **flag), device="cpu")
+        return
+    runs = [train(loop_opt(h5, f"spatial{i}", **extra), max_steps=2,
+                  device="cpu") for i, extra in enumerate((flag, {}))]
+    assert [r["steps"] for r in runs] == [2, 2]
+    assert runs[0]["losses"] == runs[1]["losses"]
+    for a, b in zip(*(r["state"].model.netG.state_dict().values()
+                      for r in runs)):
+        assert torch.equal(a, b)
 
 
 def test_no_fallback_without_a_card(h5, monkeypatch, tmp_path):

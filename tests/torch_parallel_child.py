@@ -1,5 +1,6 @@
-"""One rank of a data-parallel run of the port, for
-``tests/test_torch_parallel.py``: run as
+"""One rank of a multi-process run of the port, for
+``tests/test_torch_parallel.py`` and ``tests/test_torch_model_parallel.py``:
+run as
 
     python tests/torch_parallel_child.py TASK RANK WORLD DIR
 
@@ -10,6 +11,7 @@ check between themselves that their final networks (and optimizer
 buffers) are bit for bit equal; only rank 0 writes its tensors.
 """
 import os
+import shutil
 import sys
 
 import torch
@@ -44,7 +46,7 @@ def seg2eye(inputs, rank, world):
     a shuffled loader of the arrays, this rank loading its share; the
     losses of every iteration as means over the ranks, then G, E and D."""
     from seg2eye_tpu_torch.data.openeds import DataLoader
-    from seg2eye_tpu_torch.train.loop import train
+    from seg2eye_tpu_torch.train.loop import _scoring_model, train
 
     out = {}
     for name, (opt, arrays, steps) in inputs.items():
@@ -107,8 +109,127 @@ def refinenet(inputs, rank, world):
             "grads": {n: p.grad.clone() for n, p in net.named_parameters()}}
 
 
-TASKS = {"seg2eye": seg2eye, "segtrain": segtrain, "refinenet": refinenet}
-TENSOR_KEYS = ("nets", "net", "momentum", "grads")
+def local_tensors(nets):
+    """Every parameter and buffer of ``nets`` as this rank holds it, with
+    whether it is a model slice."""
+    from seg2eye_tpu_torch.parallel import tensor_parallel as tp
+
+    return {f"{k}.{n}": (t.detach().clone(), tp.is_sharded(t))
+            for k, net in nets.items()
+            for n, t in net.state_dict(keep_vars=True).items()}
+
+
+def spectral(rank):
+    """A spectral conv (8 -> 32, 3x3) whole and as this model rank's
+    slice: u, v, the normalised weight's rows and the weight's gradient
+    rows after one power iteration and a backward of the same loss."""
+    from seg2eye_tpu_torch.models.layers import SpectralConv, weight_init
+    from seg2eye_tpu_torch.parallel import tensor_parallel as tp
+
+    g = torch.Generator().manual_seed(3)
+    convs = [SpectralConv(8, 32, 3) for _ in range(2)]
+    convs[0].reset_parameters(weight_init("xavier", 0.02), g)
+    convs[1].load_state_dict(convs[0].state_dict())
+    tp.shard_({"c": convs[1]}, (), 16)
+    mine = tp.rows(32)
+    r = torch.randn(32, 8, 3, 3, generator=g)
+    out = {}
+    for name, conv in zip(("whole", "slice"), convs):
+        k = conv.kernel(update_stats=True)
+        (k * (r[mine] if name == "slice" else r)).sum().backward()
+        out[name] = {"u": conv.weight_u.clone(), "v": conv.weight_v.clone(),
+                     "sigma": (conv.weight_orig / k).detach().mean(),
+                     "kernel": k.detach()[mine] if name == "whole"
+                     else k.detach(),
+                     "grad": conv.weight_orig.grad[mine] if name == "whole"
+                     else conv.weight_orig.grad.clone()}
+    return out
+
+
+def model_parallel(inputs, rank, world):
+    """``train.loop.train`` on a data x model grid: one iteration, then a
+    resumed run of one more from its checkpoint; the losses of each as
+    means over the data ranks, the final networks gathered and as this
+    rank holds them, inference on a fixed batch (the grid's, and the
+    whole copy's that rank 0's Testers score with), the sharded spectral
+    norm against the whole one, and a one-process checkpoint resumed
+    here and saved again."""
+    from seg2eye_tpu_torch.data.openeds import DataLoader
+    from seg2eye_tpu_torch.models.pix2pix import Pix2Pix
+    from seg2eye_tpu_torch.parallel import tensor_parallel as tp
+    from seg2eye_tpu_torch.train import state as state_lib
+    from seg2eye_tpu_torch.train.loop import _scoring_model, train
+    from seg2eye_tpu_torch.utils import checkpoint
+    from seg2eye_tpu_torch.utils.weights import init_networks
+
+    opt, arrays = inputs["opt"], inputs["arrays"]
+    losses, runs = [], []
+    for cont in (False, True):
+        loader = DataLoader(ArrayDataset(arrays), batch_size=opt.batchSize,
+                            shuffle=True, drop_last=True, seed=opt.seed,
+                            process_index=rank // opt.model_axis,
+                            process_count=world // opt.model_axis)
+        runs.append(train(
+            opt.replace(continue_train=cont), max_steps=1,
+            dataloader=loader, device="cpu",
+            step_hook=lambda n, l: losses.append(
+                {k: float(v) for k, v in dp.mean_over_ranks(l).items()})))
+        if not cont:        # keep the first iteration's files
+            if rank == 0:
+                for f in os.listdir(opt.expr_dir):
+                    if f.startswith("latest_"):
+                        shutil.copy(os.path.join(opt.expr_dir, f),
+                                    os.path.join(opt.expr_dir,
+                                                 "step1" + f[6:]))
+            dist.barrier()
+    model = runs[-1]["state"].model
+    nets = {"G": model.netG, "E": model.netE, "D": model.netD}
+    dp.check_replicated(dp.module_tensors(nets), "trained")
+    scoring = _scoring_model(model)          # the Testers' whole copy
+    with dp.local():
+        fake = model.inference(inputs["infer"])
+        scored = scoring.inference(inputs["infer"])
+    whole = checkpoint.whole_networks(nets, opt)
+    # one-process files -> a grid state -> files again
+    single = opt.replace(name=inputs["single"], continue_train=True)
+    state = state_lib.create_state(Pix2Pix(single, init_networks(
+        single, torch.Generator().manual_seed(1), "cpu"), "cpu"))
+    checkpoint.load_state(state, single, "latest")
+    tp.shard_({"G": state.model.netG, "E": state.model.netE,
+               "D": state.model.netD}, (state.opt_g, state.opt_d),
+              opt.tp_min_channels)
+    checkpoint.save_state(state, opt.replace(name=inputs["single"] + "_tp"),
+                          "latest")
+    return {"losses": losses, "fake": fake, "scored": scored,
+            "spectral": spectral(rank),
+            "local": local_tensors(nets),
+            "nets": {k: numpy_of(v) for k, v in whole.items()}}
+
+
+def spatial_scoring(inputs, rank, world):
+    """H-band inference of a fixed batch over the 4 ranks and over the
+    pairs {0, 1} and {2, 3}, and the Tester's 'fix' mode over the 4."""
+    from seg2eye_tpu_torch.eval.tester import Tester
+    from seg2eye_tpu_torch.models.pix2pix import Pix2Pix
+    from seg2eye_tpu_torch.parallel import spatial
+    from seg2eye_tpu_torch.test import make_dataloader
+
+    opt = inputs["opt"]
+    model = Pix2Pix(opt, inputs["nets"], "cpu")
+    pairs = [dist.new_group([0, 1]), dist.new_group([2, 3])]
+    with dp.local():
+        out = {n: model.inference(inputs["infer"], bands=spatial.Bands(g))
+               for n, g in ((4, None), (2, pairs[rank // 2]))}
+        tester = Tester(opt, "validation", make_dataloader(
+            opt.replace(serial_batches=True, no_flip=True), "validation"),
+                        bands=spatial.Bands())
+        out["tester"] = tester.run(model, mode="fix", limit=2)
+    return out
+
+
+TASKS = {"seg2eye": seg2eye, "segtrain": segtrain, "refinenet": refinenet,
+         "model_parallel": model_parallel, "spatial": spatial_scoring}
+TENSOR_KEYS = ("nets", "net", "momentum", "grads", "fake", "scored")
 
 
 def without_tensors(out):
