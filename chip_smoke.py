@@ -176,8 +176,16 @@ Phases; any failure raises and the script exits non-zero:
      ``--spatial_shard``): ``Tester.score_batch`` at bs1 and bs2 in 2
      bands of 160 rows, float32 and bfloat16, 18 launches per rank per
      forward, fakes and per-image errors against the one-process Tester
-     within SLICE_TOL.  The times are a correctness run's through the
-     host;
+     within SLICE_TOL.  (c) Per-sample encoding under tensor parallelism:
+     four ranks on a data 2 x model 2 grid, the default model at full
+     width with ``norm_E = spectralbatch`` (per-sample encoding through
+     'auto'), global bs4, 2 samples per data index; one float32
+     iteration, each step against rank 0's one-process route from a
+     gathered copy of the same state as in (a) (losses and gradients to
+     F32_ROUTE, spectral u/v, E's running statistics and the parameters to
+     the card-vs-CPU limits, ``num_batches_tracked`` equal), every replica
+     checked after each step, 36 K1 launches per rank.  The times are a
+     correctness run's through the host;
 Nothing of JAX, flax, optax, msgpack or the JAX package may have been
 imported.
 The port keeps float32 in full float32 by itself (its float32 forward and
@@ -230,14 +238,11 @@ SITES = ([(10, 8, 1024)] * 2 + [(20, 16, 1024)] * 4
          + [(320, 256, 128)] * 2 + [(320, 256, 64)])
 ODD_SITES = [(1, 10, 8, 16), (2, 13, 7, 72)]  # (N, H, W, C), ragged tiles
 CROP512_N = 2
-# the H100 SXM's published dense peaks (NVIDIA's data sheet, at 700 W):
 # the tensor cores' rate for the type each kernel feeds them (float32 runs
-# on the TF32 rate, three passes per product), and the FP32 pipes' rate,
-# printed beside the float32 bound
-PEAK_FLOPS = {"bfloat16": 989e12, "float32": 495e12}
-PASSES = {"bfloat16": 1, "float32": 3}
-FP32_PIPE_FLOPS = 67e12
-PEAK_BYTES = 3.35e12
+# on the TF32 rate, three passes per product), from the card's published
+# peaks in ``utils.roofline``; the FP32 pipes' rate is printed beside the
+# float32 bound
+KERNEL_RATES = {"bfloat16": (torch.bfloat16, 1), "float32": ("tf32", 3)}
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 # the kernel symbols of the library, per dtype
 KERNEL_SYMBOLS = {"bfloat16": "spade_style_sm90_kernel",
@@ -374,18 +379,21 @@ def time_turns(fns, warmup=WARMUP, repeats=REPEATS):
     return [statistics.median(t) for t in times]
 
 
-def site_bound(shape, dname):
-    """(ms of the operations, ms of the bytes) at the card's peaks for the
-    kernel's work at this site: the gamma|beta products at the tensor-core
-    rate of the type (float32: TF32, three passes), and x read, out
-    written, actv and the weights read once, at the memory rate.  The bound
-    is the larger of the two."""
+def site_bound(shape, flops, dname):
+    """(ms of the operations, ms of the bytes) at the card's peaks
+    (``utils.roofline``) for the kernel's work at this site: its
+    ``flops`` (the gamma|beta products) at the tensor-core rate of the
+    type (float32: TF32, three passes), and x read, out written, actv and
+    the weights read once, at the memory rate.  The bound is the larger of
+    the two."""
+    from seg2eye_tpu_torch.utils import roofline
+
     n, h, w, c = shape
     item = DTYPES[dname].itemsize
-    flops = 2 * n * h * w * 9 * 128 * 2 * c
     nbytes = n * h * w * (2 * c + 128) * item + 9 * 128 * 2 * c * item
-    return (PASSES[dname] * flops / PEAK_FLOPS[dname] * 1e3,
-            nbytes / PEAK_BYTES * 1e3)
+    rate, passes = KERNEL_RATES[dname]
+    return (roofline.compute_ms(flops, rate, passes),
+            roofline.memory_ms(nbytes))
 
 
 def tf32_contrast(args, want, rtol, atol):
@@ -408,6 +416,7 @@ def tf32_contrast(args, want, rtol, atol):
 
 def phase_kernel():
     from seg2eye_tpu_torch.ops import spade_style as K
+    from seg2eye_tpu_torch.utils import roofline
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     summary = {}
@@ -419,8 +428,10 @@ def phase_kernel():
             "(library), the bound; site = seg conv + kernel, as the slice "
             "runs it, against spade_style_reference")
         if dname == "float32":
-            log("  float32: the bound is 3 TF32 passes at 495 TFLOP/s; "
-                "fp32_pipe is the same products at the FP32 pipes' 67 "
+            log(f"  float32: the bound is 3 TF32 passes at "
+                f"{roofline.peak_flops(dtype='tf32') / 1e12:.0f} TFLOP/s; "
+                f"fp32_pipe is the same products at the FP32 pipes' "
+                f"{roofline.peak_flops(dtype=torch.float32) / 1e12:.0f} "
                 "TFLOP/s; tf32_err, tf32_e/t: a single-pass TF32 cuDNN conv "
                 "of the same product against the plain version")
         log("  site  (N, H, W, C)         max_abs_err  err/tol    kernel   "
@@ -459,12 +470,13 @@ def phase_kernel():
                     lambda: F.conv2d(actv_nchw, w_lib, b_lib, padding=1),
                     lambda: K.spade_style(*args),
                     lambda: K.spade_style_reference(*args)])
-            ops_ms, bytes_ms = site_bound(shape, dname)
+            # the gamma|beta products: the library conv's
+            flops = roofline.flops_of(F.conv2d, actv_nchw, w_lib, b_lib, 1,
+                                      1)
+            ops_ms, bytes_ms = site_bound(shape, flops, dname)
             bms = max(ops_ms, bytes_ms)
             by = "operations" if ops_ms >= bytes_ms else "bytes"
-            n, h, w, c = shape
-            flops = 2 * n * h * w * 9 * 128 * 2 * c
-            fp32_ms = flops / FP32_PIPE_FLOPS * 1e3
+            fp32_ms = roofline.compute_ms(flops, torch.float32)
             if dname == "float32":
                 contrast = f" {fp32_ms:10.4f} {t_err:9.3e} {t_worst:9.3f}"
             label = "odd" if i < len(ODD_SITES) else f"{i - 1:4d}"
@@ -1491,47 +1503,36 @@ def rn_batch(name, cfg, b, seed=0, device=None):
     return {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
 
 
-def conv_backward_flops(grad_out_shape, x_shape, w_shape, _bias, _stride,
-                        _padding, _dilation, transposed, _output_padding,
-                        _groups, output_mask, out_shape=None, **kwargs):
-    """A (non-transposed) conv's backward: each of the input and weight
-    gradients costs its forward's 2 N C_out H_out W_out (C_in / groups)
-    kh kw.  torch.utils.flop_counter's own formula leaves out the groups,
-    which counts a depthwise conv's backward as a dense one (66 times its
-    forward at 64 channels)."""
-    if transposed:
-        raise NotImplementedError("transposed conv")
-    fwd = 2 * math.prod(grad_out_shape) * math.prod(w_shape[1:])
-    return fwd * (int(output_mask[0]) + int(output_mask[1]))
-
-
 def rn_flops(name, model):
     """(forward FLOPs of one image in eval, of one image's training step:
     forward and backward) at the model's input size, counted by
-    torch.utils.flop_counter (convolutions, their backward as
-    ``conv_backward_flops``; the rest is noise)."""
-    from torch.utils.flop_counter import FlopCounterMode
+    ``utils.roofline.flops_of`` (convolutions, their backward with their
+    groups; the rest is noise)."""
+    from seg2eye_tpu_torch.utils import roofline
 
     cfg = model.cfg
-    with FlopCounterMode(display=False) as fc, torch.no_grad():
-        model.forward(rn_batch(name, cfg, 1), train=False)
-    fwd = fc.get_total_flops()
-    state = {k: v.clone() for k, v in model.net.state_dict().items()}
-    mapping = {torch.ops.aten.convolution_backward: conv_backward_flops}
-    with FlopCounterMode(display=False, custom_mapping=mapping) as fc:
+
+    def step():
         out = model.forward(rn_batch(name, cfg, 2), train=True)
         out["ce_loss" if name == "SegNet" else "eds_loss"].backward()
+
+    with torch.no_grad():
+        fwd = roofline.flops_of(model.forward, rn_batch(name, cfg, 1),
+                                train=False)
+    state = {k: v.clone() for k, v in model.net.state_dict().items()}
+    train = roofline.flops_of(step)
     model.net.load_state_dict(state)
     model.net.zero_grad(set_to_none=True)
-    return fwd, fc.get_total_flops() / 2
+    return fwd, train / 2
 
 
 def rn_bound_ms(flops, dname):
     """The least time of ``flops`` at the card's peak for the compute
-    dtype: the tensor cores' bf16 rate, or the FP32 pipes' (the port
-    keeps float32 out of TF32)."""
-    return flops / (PEAK_FLOPS["bfloat16"] if dname == "bfloat16"
-                    else FP32_PIPE_FLOPS) * 1e3
+    dtype (``utils.roofline``): the tensor cores' bf16 rate, or the FP32
+    pipes' (the port keeps float32 out of TF32)."""
+    from seg2eye_tpu_torch.utils import roofline
+
+    return roofline.compute_ms(flops, DTYPES[dname])
 
 
 def rn_serve(name, trainer, state, dname, flops):
@@ -2344,21 +2345,19 @@ def seg_batch(data, index, n, device):
 def seg_flops(t):
     """(forward FLOPs of one image in eval, of one image's training step)
     at the crop size, counted as ``rn_flops`` counts them."""
-    from torch.utils.flop_counter import FlopCounterMode
+    from seg2eye_tpu_torch.utils import roofline
 
     crop = t.args.crop_size
     x = torch.zeros(2, crop, crop, 3, device=t.device)
     y = torch.zeros(2, crop, crop, device=t.device)
-    with FlopCounterMode(display=False) as fc, torch.no_grad():
-        t.net(t._input(x[:1]), False)
-    fwd = fc.get_total_flops()
+    with torch.no_grad():
+        fwd = roofline.flops_of(t.net, t._input(x[:1]), False)
     state = {k: v.clone() for k, v in t.net.state_dict().items()}
-    mapping = {torch.ops.aten.convolution_backward: conv_backward_flops}
-    with FlopCounterMode(display=False, custom_mapping=mapping) as fc:
-        t.criterion(t.net(t._input(x), True), y).backward()
+    train = roofline.flops_of(
+        lambda: t.criterion(t.net(t._input(x), True), y).backward())
     t.net.load_state_dict(state)
     t.net.zero_grad(set_to_none=True)
-    return fwd, fc.get_total_flops() / 2
+    return fwd, train / 2
 
 
 def seg_moved(where, net, before, nonzero):
@@ -3350,9 +3349,11 @@ def dp_child(form, rank, world, tmp, config):
 def dp_children(tmp, form, world, child="dp_child", config=None,
                 timeout=DP_CHILD_TIMEOUT):
     """Runs the ``world`` ranks of ``form`` (``child`` of this module with
-    ``config``, by default phase 12's); any rank that fails or outlives
-    ``timeout`` fails the phase, and every child is stopped on the way
-    out.  -> the ranks' results."""
+    ``config``, by default phase 12's) after this process has handed its
+    cached card memory back (the ranks share the one card: with phase 3's
+    16.5 GiB still held, phase 13 (c)'s four ranks ran out of memory);
+    any rank that fails or outlives ``timeout`` fails the phase, and every
+    child is stopped on the way out.  -> the ranks' results."""
     import os
 
     if config is None:
@@ -3366,6 +3367,8 @@ def dp_children(tmp, form, world, child="dp_child", config=None,
         env.pop(k, None)
     code = ("import json, sys; import chip_smoke as cs; "
             f"cs.{child}(*json.loads(sys.argv[1]))")
+    if torch.cuda.is_available():
+        torch.cuda.empty_cache()
     procs = [subprocess.Popen(
         [sys.executable, "-c", code,
          json.dumps([form, r, world, tmp, config])], cwd=tmp, env=env,
@@ -3373,18 +3376,23 @@ def dp_children(tmp, form, world, child="dp_child", config=None,
         for r in range(world)]
     deadline = time.monotonic() + timeout
     try:
-        for r, p in enumerate(procs):
+        failed = []
+        for r, p in enumerate(procs):       # every rank's output, then fail
             try:
                 output, _ = p.communicate(
                     timeout=max(1.0, deadline - time.monotonic()))
+                if p.returncode:
+                    failed.append(f"{form} rank {r} of {world} exited with "
+                                  f"{p.returncode}")
             except subprocess.TimeoutExpired:
-                raise AssertionError(f"{form} rank {r} of {world} outlived "
-                                     f"{timeout} s") from None
+                p.kill()
+                output, _ = p.communicate()
+                failed.append(f"{form} rank {r} of {world} outlived "
+                              f"{timeout} s")
             for line in output.splitlines():
                 log(f"  [{form} rank {r}] {line}")
-            if p.returncode:
-                raise AssertionError(f"{form} rank {r} of {world} exited "
-                                     f"with {p.returncode}")
+        if failed:
+            raise AssertionError("; ".join(failed))
         results = []
         for r in range(world):
             with open(os.path.join(tmp, f"{form}{r}.json")) as f:
@@ -3440,6 +3448,8 @@ MP_BATCH = 4
 MP_ITERS = {"float32": 2, "bfloat16": 1}
 MP_CP_BATCHES = (1, 2)
 MP_CHILD_TIMEOUT = 150
+# (c): per-sample encoding on a data 2 x model 2 grid, 4 ranks
+MP_GRID = {"data": 2, "model": 2}
 # a CPU rehearsal shrinks the model here (Options fields)
 MP_OVERRIDES = {}
 
@@ -3454,6 +3464,13 @@ def mp_grads(model):
             for k, p in net.named_parameters()}
 
 
+def batches_tracked(model):
+    """Every BN's ``num_batches_tracked``, by '{net}.{name}'."""
+    return {f"{n}.{k}": int(t) for n, net in nets_of(model).items()
+            for k, t in net.state_dict().items()
+            if k.endswith("num_batches_tracked")}
+
+
 def mp_state_bytes(nets):
     """Bytes of the parameters and their two Adam moments, as this rank
     holds them."""
@@ -3461,13 +3478,15 @@ def mp_state_bytes(nets):
                for p in net.parameters() if p.requires_grad)
 
 
-def mp_tensor(opt, nets_cpu, batches, device, failures):
-    """MP_ITERS[dtype] grid iterations from the seeded state, each step
-    also taken by rank 0 in one process from a gathered copy of the state
-    before it.  -> {"launches": per iteration, "packings": (in the G
-    step, in the D step's regeneration) per iteration, "after":
-    packings in a forward without an update, "ms": host ms per grid
-    iteration}."""
+def mp_tensor(opt, nets_cpu, batches, device, failures, iters=None,
+              label="TP model 2"):
+    """``iters`` (MP_ITERS[dtype]) grid iterations from the seeded state,
+    each data index taking its rows of every global batch, each step also
+    taken by rank 0 in one process on the whole batch from a gathered copy
+    of the state before it; ``num_batches_tracked`` equal to its.  ->
+    {"launches": per iteration, "packings": (in the G step, in the D
+    step's regeneration) per iteration, "after": packings in a forward
+    without an update, "ms": host ms per grid iteration}."""
     from seg2eye_tpu_torch.ops import spade_style as K
     from seg2eye_tpu_torch.parallel import data_parallel as dp
     from seg2eye_tpu_torch.parallel import tensor_parallel as tp
@@ -3484,7 +3503,8 @@ def mp_tensor(opt, nets_cpu, batches, device, failures):
     lrs, beta2 = ttur_lrs(opt, opt.lr), ttur_betas(opt)[1]
     out = {"launches": [], "packings": [], "ms": []}
     f32 = opt.replace(compute_dtype="float32")
-    for it, batch in enumerate(batches[:MP_ITERS[dname]]):
+    for it, batch in enumerate(batches[:iters or MP_ITERS[dname]]):
+        local = dp.local_rows(batch, dp.rank(), dp.world_size())
         launches, packings, ms = 0, [], 0.0
         for half, step, nets, lr in (("G step", steps.g_step, ("G", "E"),
                                       lrs[0]),
@@ -3497,26 +3517,27 @@ def mp_tensor(opt, nets_cpu, batches, device, failures):
             before = (K.spade_style.launches, K.packed_weights.packings)
             dp_sync(device)
             t0 = time.perf_counter()
-            result = step(state, batch)
+            result = step(state, local)
             dp_sync(device)
             ms += (time.perf_counter() - t0) * 1e3
             launches += K.spade_style.launches - before[0]
             packings.append(K.packed_weights.packings - before[1])
             losses = result[0] if half == "G step" else result
-            losses = {k: float(torch.mean(v.float()))
-                      for k, v in losses.items()}
+            losses = {k: float(v)
+                      for k, v in dp.mean_over_ranks(losses).items()}
             dp.check_replicated(dp.module_tensors(nets_of(state.model)),
                                 f"after {half} {it + 1}:")
             grads = mp_grads(state.model)
             after = checkpoint.whole_state(state, device)
-            if rank:
-                del after
+            if rank:        # the card's room is rank 0's one-process step's
+                del after, grads
+                torch.cuda.empty_cache()
                 continue
             ref32 = None if dname == "float32" else clone_state(ref, f32)
             with dp.local():
                 out_ref = step(ref, batch)
                 out32 = None if ref32 is None else step(ref32, batch)
-            at = f"TP model 2 {dname}, iteration {it + 1} {half}"
+            at = f"{label} {dname}, iteration {it + 1} {half}"
 
             def host(o):
                 o = o[0] if half == "G step" else o
@@ -3532,6 +3553,9 @@ def mp_tensor(opt, nets_cpu, batches, device, failures):
             if dname == "float32":
                 failures += compare_state(at, after, ref,
                                           adam_reach(lr, beta2, it + 1))
+            if batches_tracked(after.model) != batches_tracked(ref.model):
+                failures.append(f"{at}: num_batches_tracked differs from "
+                                "one process's")
             del ref, ref32, after
             torch.cuda.empty_cache()
         out["launches"].append(launches)
@@ -3590,9 +3614,44 @@ def mp_spatial(opt, nets_cpu, device, failures):
     return out
 
 
+def mp_per_sample(rank, config, device):
+    """(c): one float32 iteration of the default model with per-sample
+    encoding (``norm_E = spectralbatch``, 'auto') on a data 2 x model 2
+    grid at global bs MP_BATCH, each step against rank 0's one-process
+    route (``mp_tensor``); K1 launches twice per norm site per rank.  ->
+    ``mp_tensor``'s result; any failure raises."""
+    from seg2eye_tpu_torch.options import Options
+    from seg2eye_tpu_torch.parallel import mesh
+    from seg2eye_tpu_torch.utils.weights import init_networks
+
+    grid = mesh.make_grid(MP_GRID["model"], MP_GRID["data"])
+    opt = Options(batchSize=MP_BATCH, compute_dtype="float32",
+                  model_axis=grid.model, data_axis=grid.data,
+                  norm_E="spectralbatch", **config["seg2eye"]).finalize()
+    if not opt.per_sample_encode_enabled:
+        raise AssertionError("(c) must run per-sample encoding")
+    nets_cpu = init_networks(opt, torch.Generator().manual_seed(0), "cpu")
+    failures = []
+    out = mp_tensor(opt, nets_cpu, [make_train_batch(opt, MP_BATCH,
+                                                     seed=70)],
+                    device, failures, iters=1,
+                    label=f"TP data {grid.data} x model {grid.model} "
+                          "per-sample")
+    out["peak_gib"] = (torch.cuda.max_memory_reserved(device) / 2 ** 30
+                       if device.type == "cuda" else 0.0)
+    want = 2 * config["launches"]
+    if out["launches"] != [want]:
+        failures.append(f"K1 launched {out['launches']} times in the "
+                        f"per-sample grid iteration; expected {want}")
+    if failures:
+        raise AssertionError(f"rank {rank}: " + "; ".join(failures))
+    return out
+
+
 def mp_child(form, rank, world, tmp, config):
-    """One rank of phase 13, in a process of its own: a data 1 x model 2
-    grid on gloo.  Writes ``{tmp}/{form}{rank}.json``; any failure
+    """One rank of phase 13, in a process of its own, on gloo: form 'mp'
+    a data 1 x model 2 grid ((a) and (b)), form 'grid' (c)
+    (``mp_per_sample``).  Writes ``{tmp}/{form}{rank}.json``; any failure
     raises."""
     import os
 
@@ -3610,6 +3669,11 @@ def mp_child(form, rank, world, tmp, config):
     dist.init_process_group("gloo", store=store, rank=rank,
                             world_size=world)
     try:
+        if form == "grid":
+            out = mp_per_sample(rank, config, device)
+            with open(os.path.join(tmp, f"{form}{rank}.json"), "w") as f:
+                json.dump(out, f)
+            return
         mesh.make_grid(world)
         opt = Options(batchSize=MP_BATCH, compute_dtype="float32",
                       model_axis=world, **config["seg2eye"]).finalize()
@@ -3670,6 +3734,16 @@ def phase_model_parallel():
             f"{MP_CP_BATCHES}")
         ranks = dp_children(tmp, "mp", 2, child="mp_child", config=config,
                             timeout=MP_CHILD_TIMEOUT)
+        world = MP_GRID["data"] * MP_GRID["model"]
+        log(f"model parallel (c): {world} ranks on gloo, CUDA tensors on "
+            f"the one card; a data {MP_GRID['data']} x model "
+            f"{MP_GRID['model']} grid at full width with norm_E = "
+            f"spectralbatch (per-sample encoding through 'auto'), global "
+            f"bs{MP_BATCH} ({MP_BATCH // MP_GRID['data']} per data index), "
+            "1 float32 iteration, each step against the one-process route "
+            "on rank 0")
+        grid = dp_children(tmp, "grid", world, child="mp_child",
+                           config=config, timeout=MP_CHILD_TIMEOUT)
     a = ranks[0]
     mine, one = a["bytes"]
     for dname, r in a["tp"].items():
@@ -3688,11 +3762,20 @@ def phase_model_parallel():
             f" (predicted {len(SITES)}); host ms per scored batch "
             f"{ {bs: round(v[1], 2) for bs, v in r.items()} } (a "
             f"correctness run through the host; {card_line()})")
+    log(f"  TP per-sample float32: K1 launches per rank per iteration "
+        f"{[x['launches'][0] for x in grid]} (predicted "
+        f"{2 * len(SITES)}), packings (G step, D step) "
+        f"{grid[0]['packings'][0]}; host ms per iteration "
+        f"{grid[0]['ms'][0]:.1f} (a correctness run through the host); "
+        f"peak reserved card memory per rank "
+        f"{[round(x['peak_gib'], 2) for x in grid]} GiB (rank 0 holds the "
+        f"one-process route too; {card_line()})")
     log(f"model and spatial parallel: phase 13 took "
         f"{time.perf_counter() - t0:.1f} s")
     return {"tp": {d: r["launches"][0] for d, r in a["tp"].items()},
             "cp": {d: r[str(MP_CP_BATCHES[0])][0]
-                   for d, r in a["cp"].items()}}
+                   for d, r in a["cp"].items()},
+            "tp_per_sample": grid[0]["launches"][0]}
 
 
 def main():
@@ -3727,7 +3810,8 @@ def main():
         "1 on NCCL, dp_gloo_train_launches at world 2 on gloo (float32); "
         "tp_launches per rank in one tensor-parallel iteration (model 2, "
         "bs4), cp_launches per rank in one forward scored in 2 H bands "
-        "(bs1); "
+        "(bs1), tp_per_sample_launches per rank in one iteration with "
+        "per-sample encoding on a data 2 x model 2 grid (float32, bs4); "
         f"max_abs_err over the crop-256 and odd "
         f"site checks; ms, plain_ms, library_ms and bound_ms summed over the "
         f"18 sites at N={SITE_N}")
@@ -3747,6 +3831,8 @@ def main():
          if d == "float32" else None,
          "tp_launches": mp_launches["tp"][d],
          "cp_launches": mp_launches["cp"][d],
+         "tp_per_sample_launches": mp_launches["tp_per_sample"]
+         if d == "float32" else None,
          **{k: summary[d][k] for k in keys}}
         for d in ("bfloat16", "float32")]}))
     print(json.dumps({"ok": True, "device": {

@@ -11,10 +11,10 @@ of ``seg2eye_tpu/models/pix2pix.py``).
     per sample over its own k references, in order, as the reference's
     loop does: in training each run advances u/v and the running
     statistics, so sample b sees a u iterated b + 1 times; a batch sub-norm
-    normalises over that sample's k references.  Under data parallelism
-    each rank encodes its samples of the global batch so (see
-    ``_encode_samples_replayed``): the run matches the one-process run of
-    the global batch.
+    normalises over that sample's k references.  Under data parallelism,
+    on a data x model grid too, each rank encodes its samples of the
+    global batch so (see ``_encode_samples_replayed``): the run matches the
+    one-process run of the global batch.
   * ``generate``: the generator with batch statistics, as the reference's
     Tester runs it (train mode); running statistics only under
     ``opt.eval_use_running_stats``.  A training forward uses batch
@@ -167,7 +167,12 @@ class Pix2Pix:
         so rank r first iterates them r b times and, after its b samples,
         on to N b; each sample's batch sub-norms use its own statistics,
         and every sample's running update is replayed on every rank in
-        global order (each rank's (mean, variance) rows gathered)."""
+        global order (each rank's (mean, variance) rows gathered).  On a
+        data x model grid r and N are the data index and degree: the model
+        ranks of one data index encode the same samples, whole and equal
+        on each, so their sharded spectral convs issue the same
+        model-group collectives in the same order and their logged
+        statistics are equal; the rows are gathered over the data group."""
         b = style.shape[0]
         r = dp.rank()
         convs = [m for m in self.netE.modules()

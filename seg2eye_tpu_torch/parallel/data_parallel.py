@@ -222,6 +222,31 @@ def all_reduce_grads(params: Iterable[torch.nn.Parameter]) -> None:
             g.copy_(part.view(g.shape))
 
 
+@torch.no_grad()
+def broadcast_buffers(modules: Iterable[torch.nn.Module]) -> None:
+    """Under a process grid, every buffer of ``modules`` (spectral u/v,
+    running statistics, ``num_batches_tracked``) set to the first model
+    rank's of this rank's model group: one broadcast per dtype.  The model
+    ranks compute them alike from whole activations, but the card's
+    kernels may take another algorithm on each (cuDNN falls back to
+    another one where a workspace cannot be allocated, and the ranks of
+    one card see different free memory), and the ranks' copies must stay
+    bit for bit equal.  No-op at model 1 and unless ``active()``."""
+    grid = mesh.current()
+    if grid.model == 1 or not active():
+        return
+    by_kind: Dict[Tuple[torch.dtype, torch.device], list] = {}
+    for m in modules:
+        for b in m.buffers():
+            by_kind.setdefault((b.dtype, b.device), []).append(b)
+    src = grid.data_index * grid.model
+    for bufs in by_kind.values():
+        flat = torch.cat([b.reshape(-1) for b in bufs])
+        dist.broadcast(flat, src=src, group=grid.model_group)
+        for b, part in zip(bufs, flat.split([b.numel() for b in bufs])):
+            b.copy_(part.view(b.shape))
+
+
 def mean_over_ranks(values: Dict[str, torch.Tensor]
                     ) -> Dict[str, torch.Tensor]:
     """The mean of each tensor's mean over the ranks, by one all-reduce

@@ -23,9 +23,11 @@ dataloaders/).
   * make_data_loader -> (train, val, test, nclass), built on the port's
     ``data.openeds.DataLoader``: sample i of pass e draws from the
     generator seeded (seed, e, i), as the JAX package's loader does, so
-    the batches are the JAX package's byte for byte.  One process: the JAX
-    package's process sharding and its multi-process eval-tail drop are
-    not ported.
+    the batches are the JAX package's byte for byte.  Under data
+    parallelism each process loads its share of every global batch
+    (``process_index``/``process_count``), and the eval loaders drop a
+    tail that the processes could not share evenly, as the JAX package's
+    do over several processes.
 
 Dataset roots come from --data-root or $SEG2EYE_DATA_ROOT (default
 ./datasets) with the reference's subdirectory names.  Every

@@ -41,7 +41,10 @@ rank 0 writes the files of a one-process run.  Printed losses are the
 means over the data ranks.  ``--spatial_shard`` bands the scoring of
 ``python -m seg2eye_tpu_torch.test`` (``parallel.spatial``); the
 training Testers run on rank 0 alone with or without it, with the same
-numbers.  Per-sample encoding under M > 1 is not ported, and raises.
+numbers.  Per-sample encoding runs on a grid as on the data axis alone
+(``models.pix2pix.Pix2Pix._encode_samples_replayed``): the model ranks of
+one data index encode the same samples, their sharded spectral convs
+power-iterating together.
 """
 from __future__ import annotations
 
@@ -70,18 +73,13 @@ from seg2eye_tpu_torch.utils.weights import init_networks
 
 
 def _check_ported(opt, device: torch.device) -> None:
-    """Refuses what ``make_mesh`` refuses (``mesh.grid_shape``), a global
-    batch that the data degree does not divide, and per-sample encoding
-    under tensor parallelism."""
+    """Refuses what ``make_mesh`` refuses (``mesh.grid_shape``) and a
+    global batch that the data degree does not divide."""
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("training on 'cuda': no CUDA device is available")
     world = dp.world_size() * mesh.current().model
-    data, model = mesh.grid_shape(opt.model_axis, opt.data_axis, world)
+    data, _ = mesh.grid_shape(opt.model_axis, opt.data_axis, world)
     dp.check_batch(opt.batchSize, data)
-    if model > 1 and opt.per_sample_encode_enabled:
-        raise NotImplementedError(
-            "per-sample encoding (--per_sample_encode, or 'auto' with "
-            "norm_E = spectralbatch) under --model_axis > 1 is not ported")
 
 
 def _scoring_model(model: Pix2Pix) -> Pix2Pix:

@@ -20,8 +20,9 @@ rank's share of the global one; the batch statistics inside are global,
 and each step averages its gradients over the data ranks before the
 update, so every rank takes the same step.  Under tensor parallelism the
 gradients of the model ranks' slices and of the whole parameters come
-out of the backward complete (``parallel.tensor_parallel``), so the
-average is over the data group only.  The loss dicts are this rank's.
+out of the backward complete (``parallel.tensor_parallel``), and after
+each update the buffers of G, E and D are the first model rank's
+(``broadcast_buffers``).  The loss dicts are this rank's.
 """
 from __future__ import annotations
 
@@ -37,6 +38,10 @@ from seg2eye_tpu_torch.train.state import TrainState
 
 def _params(optimizer: torch.optim.Optimizer):
     return [p for group in optimizer.param_groups for p in group["params"]]
+
+
+def _nets(model):
+    return [model.netG, model.netE, model.netD]
 
 
 def _detached(losses: Dict) -> Dict:
@@ -63,6 +68,7 @@ def _g_update(state: TrainState, batch: Dict) -> Tuple[Dict, torch.Tensor]:
         total.backward()
     dp.all_reduce_grads(_params(state.opt_g))
     state.opt_g.step()
+    dp.broadcast_buffers(_nets(model))
     return _detached(losses), fake.detach()
 
 
@@ -79,6 +85,7 @@ def _d_update(state: TrainState, batch: Dict,
     total.backward()
     dp.all_reduce_grads(_params(state.opt_d))
     state.opt_d.step()
+    dp.broadcast_buffers(_nets(model))
     return _detached(losses)
 
 

@@ -15,10 +15,15 @@ while this process computes the JAX side:
     ``param_shardings`` from the same state (the second from the files the
     first wrote); the networks after, inference, the slices and the
     replicated tensors on each rank, a sharded spectral norm against the
-    whole one, and the checkpoints both ways;
+    whole one, and the checkpoints both ways; then one iteration with
+    per-sample encoding (``spectralbatch`` E, 'auto') from the seeded
+    state, against JAX's mesh ``train_step`` (losses at LOSS_RTOL /
+    LOSS_ATOL, networks at STATE_ATOL / PARAM_ATOL through the port's
+    one-process run) with every buffer bit for bit on all four ranks;
   * H-band inference over 2 and 4 ranks against JAX's inference under
     ``spatial_constraint`` on 2- and 4-device data meshes, and the Tester
-    in mode 'fix' against JAX's Tester under ``--spatial_shard``.
+    in mode 'fix' against JAX's Tester under ``--spatial_shard`` (TESTER_RTOL
+    / TESTER_ATOL), over 4 bands and, with per-sample encoding, over 2.
 """
 import os
 import shutil
@@ -185,14 +190,15 @@ def jax_grid_step(state, fns, opt, batch):
     return {k: float(jnp.mean(v)) for k, v in out.items()}, state
 
 
-def port_step(state, batch):
-    """One one-process port iteration -> (its networks as numpy, per net
-    the elements whose gradient was round-off: below 1e-5 of its
-    tensor's largest, or 1e-7; G's and E's from the G step, D's from the
-    D step, as ``train_step`` leaves them)."""
+def port_step(state, batch, update=steps.train_step):
+    """One one-process port iteration (or the G or D step alone:
+    ``update``) -> (its networks as numpy, per net the elements whose
+    gradient was round-off: below 1e-5 of its tensor's largest, or 1e-7;
+    G's and E's from the G step, D's from the D step, as ``train_step``
+    leaves them)."""
     model = state.model
     nets = {"G": model.netG, "E": model.netE, "D": model.netD}
-    steps.train_step(state, batch)
+    update(state, batch)
     noise = {}
     for name, net in nets.items():
         noise[name] = {}
@@ -222,8 +228,11 @@ def grid_run(tmp_path_factory):
                                          "cpu"))
     steps.train_step(one, make_batch(opt, 7))
     checkpoint.save_state(one, single, "latest")
+    ps_opt = opt.replace(name="grid_ps", norm_E="spectralbatch")
+    assert ps_opt.per_sample_encode_enabled
     children = Children("model_parallel", {
         "opt": opt, "arrays": arrays, "single": "single",
+        "per_sample": ps_opt,
         "infer": {k: infer[k] for k in ("label", "style_image")}},
         tmp, world=WORLD)
     try:
@@ -240,16 +249,36 @@ def grid_run(tmp_path_factory):
         nets = seeded_nets(opt)
         first, _ = jax_grid_step(_jax_state(jm, fns, to_jax_variables(
             opt, nets)), fns, opt, batches[0])
+        jm = JPix2Pix(jax_opt(ps_opt))
+        ps_fns = jsteps.StepFunctions(jm, donate=False)
+        ps_losses, ps_jstate = jax_grid_step(_jax_state(
+            jm, ps_fns, to_jax_variables(ps_opt, seeded_nets(ps_opt))),
+            ps_fns, ps_opt, batches[0])
     finally:
         got = children.outputs()
     state1, fns = jax_state_from(opt, opt, "step1")
     second, jstate = jax_grid_step(state1, fns, opt, batches[1])
     single_nets, noise = port_step(port_state(opt, opt, "step1"),
                                    batches[1])
+    # the one-process G step from the seeded state, and D step from the
+    # grid's state after its G step
+    after_g, g_noise = port_step(state_lib.create_state(Pix2Pix(
+        ps_opt, seeded_nets(ps_opt), "cpu")), batches[0], steps.g_step)
+    nets = seeded_nets(ps_opt)
+    for k, net in nets.items():
+        net.load_state_dict({n: torch.from_numpy(v) for n, v in
+                             got[0]["per_sample"]["after_g"][k].items()})
+    ps_single, ps_noise = port_step(state_lib.create_state(Pix2Pix(
+        ps_opt, nets, "cpu")), batches[0], steps.d_step)
     yield {"opt": opt, "got": got, "jax_losses": [first, second],
            "jax_nets": exported(jax.device_get(jstate.variables), opt),
            "single": single_nets, "noise": noise, "infer": infer,
-           "tmp": tmp}
+           "tmp": tmp, "per_sample": {
+               "opt": ps_opt, "jax_losses": ps_losses,
+               "jax_nets": exported(jax.device_get(ps_jstate.variables),
+                                    ps_opt),
+               "after_g": after_g, "g_noise": g_noise,
+               "single": ps_single, "noise": ps_noise}}
     shutil.rmtree(tmp, ignore_errors=True)
 
 
@@ -274,20 +303,79 @@ def test_grid_training_matches_jax_mesh(grid_run):
                 np.testing.assert_allclose(
                     g[k], w[k], rtol=LOSS_RTOL, atol=LOSS_ATOL,
                     err_msg=f"rank {r}, iteration {it + 1}: {k}")
-    single, mesh = grid_run["single"], grid_run["jax_nets"]
-    for net, sd in got[0]["nets"].items():
+    assert_nets_close(got[0]["nets"], grid_run["single"],
+                      grid_run["jax_nets"], grid_run["noise"], lr_max,
+                      "iteration 2")
+
+
+def assert_nets_close(got, single, mesh, noise, lr_max, where):
+    """Each tensor of the gathered networks ``got`` against the port's
+    one-process run ``single`` to STATE_ATOL (buffers) and PARAM_ATOL, up
+    to 2 ``lr_max`` where Adam at beta1 = 0 may step an element with a
+    round-off gradient (``noise``) either way, and against JAX's ``mesh``
+    (where given) no further than the one-process run is, plus that
+    tolerance; ``num_batches_tracked`` exactly the one-process run's."""
+    for net, sd in got.items():
         for k, v in sd.items():
             if k.endswith("num_batches_tracked"):
-                assert v == single[net][k], (net, k)
+                assert v == single[net][k], (where, net, k)
                 continue
             tol = STATE_ATOL if is_buffer(k) else PARAM_ATOL
             diff = np.abs(v - single[net][k])
-            flip = grid_run["noise"][net].get(k, np.zeros(v.shape, bool))
-            assert np.all(diff[~flip] <= tol), (net, k, diff.max())
-            assert np.all(diff[flip] <= 2 * lr_max + tol), (net, k)
-            assert (np.abs(v - mesh[net][k]).max()
-                    <= np.abs(single[net][k] - mesh[net][k]).max()
-                    + tol), (net, k)
+            flip = noise[net].get(k, np.zeros(v.shape, bool))
+            assert np.all(diff[~flip] <= tol), (where, net, k, diff.max())
+            assert np.all(diff[flip] <= 2 * lr_max + tol), (where, net, k)
+            if mesh is not None:
+                assert (np.abs(v - mesh[net][k]).max()
+                        <= np.abs(single[net][k] - mesh[net][k]).max()
+                        + tol), (where, net, k)
+
+
+def test_grid_per_sample_encoding_matches_jax_mesh(grid_run):
+    """Per-sample encoding (``spectralbatch`` E, 'auto') on the data 2 x
+    model 2 grid, one ``train.loop.train`` iteration from the seeded
+    state: each data rank encodes its 2 samples with u iterated from their
+    global index, through E's convs sharded over its model group, and
+    replays every sample's running update in global order, in the G
+    step's two encodes and the D step's regeneration.  The losses (means
+    over the data ranks) against JAX's ``train_step`` on
+    ``make_mesh(data=2, model=2)`` with ``param_shardings`` (its
+    ``lax.scan`` over the global batch) at LOSS_RTOL / LOSS_ATOL.  Each
+    step from identical states, as ``assert_nets_close`` says (STATE_ATOL,
+    PARAM_ATOL): the networks after the G step against the port's
+    one-process G step, and at the end against its D step from the grid's
+    state after the G step, and against JAX's iteration.  (A whole
+    iteration is not comparable: the grid's Adam stepped one element of
+    G's up_0.conv_0 with a round-off gradient the other way, 1.9e-4, and
+    the D step's regeneration carried it into G's u/v and running
+    statistics, 1.2e-4 to 1.9e-4, measured.)  Every buffer (spectral u/v,
+    E's and D's running statistics, ``num_batches_tracked``) bit for bit
+    equal on all four ranks (and, in the children, buffers that the
+    second model rank was made to change are the first's again after
+    ``data_parallel.broadcast_buffers``); rank 0's whole scoring copy, run
+    with every collective refused, gives the grid's fake to WHOLE_TOL."""
+    ps, got = grid_run["per_sample"], [o["per_sample"] for o in
+                                       grid_run["got"]]
+    for r, out in enumerate(got):
+        assert len(out["losses"]) == 1
+        g, w = out["losses"][0], ps["jax_losses"]
+        assert sorted(g) == sorted(w)
+        for k in w:
+            np.testing.assert_allclose(g[k], w[k], rtol=LOSS_RTOL,
+                                       atol=LOSS_ATOL,
+                                       err_msg=f"rank {r}: {k}")
+        assert sorted(out["buffers"]) == sorted(got[0]["buffers"])
+        for k, t in out["buffers"].items():
+            assert torch.equal(t, got[0]["buffers"][k]), (r, k)
+    assert any(k.startswith("E.") and k.endswith("running_mean")
+               for k in got[0]["buffers"])
+    lr_max = 2 * ps["opt"].lr
+    assert_nets_close(got[0]["after_g"], ps["after_g"], None, ps["g_noise"],
+                      lr_max, "G step")
+    assert_nets_close(got[0]["nets"], ps["single"], ps["jax_nets"],
+                      ps["noise"], lr_max, "D step")
+    torch.testing.assert_close(got[0]["scored"], got[0]["fake"],
+                               rtol=WHOLE_TOL, atol=WHOLE_TOL)
 
 
 def test_grid_slices_and_inference(grid_run):
@@ -397,8 +485,12 @@ def band_run(tmp_path_factory):
     nets = seeded_nets(opt)
     infer = make_batch(opt.replace(batchSize=2), 5)
     infer = {k: infer[k] for k in ("label", "style_image")}
-    children = Children("spatial", {"opt": opt, "nets": nets,
-                                    "infer": infer}, tmp, world=WORLD)
+    ps_opt = opt.replace(name="bands_ps", norm_E="spectralbatch")
+    assert ps_opt.per_sample_encode_enabled and ps_opt.batchSize > 1
+    ps_nets = seeded_nets(ps_opt)
+    children = Children("spatial", {
+        "opt": opt, "nets": nets, "infer": infer,
+        "per_sample": {"opt": ps_opt, "nets": ps_nets}}, tmp, world=WORLD)
     try:
         jm = JPix2Pix(jax_opt(opt))
         variables = weights.to_jax_variables(nets)
@@ -409,9 +501,13 @@ def band_run(tmp_path_factory):
             want[n] = np.asarray(jax.jit(lambda v, b: jm.inference(
                 v, b, constrain=cs))(replicate_state(variables, mesh),
                                      shard_batch_spatial(infer, mesh)))
-        tester = JTester(jax_opt(opt).replace(spatial_shard=True),
-                         dataset_key="validation")
-        want["tester"] = tester.run(jm, variables, mode="fix", limit=2)
+        for key, o, n in (("tester", opt, nets),
+                          ("per_sample_tester", ps_opt, ps_nets)):
+            tester = JTester(jax_opt(o).replace(spatial_shard=True),
+                             dataset_key="validation")
+            want[key] = tester.run(JPix2Pix(jax_opt(o)),
+                                   weights.to_jax_variables(n), mode="fix",
+                                   limit=2)
     finally:
         got = children.outputs()
     yield got, want
@@ -431,13 +527,25 @@ def test_band_inference_matches_jax(band_run, n):
                                    atol=CP_ATOL, err_msg=f"rank {r}")
 
 
+def assert_tester_matches(got, want, key):
+    for r in range(WORLD):
+        assert sorted(got[r][key]) == sorted(want[key])
+        for k, v in want[key].items():
+            np.testing.assert_allclose(got[r][key][k], v,
+                                       rtol=TESTER_RTOL, atol=TESTER_ATOL,
+                                       err_msg=f"rank {r}: {k}")
+
+
 def test_band_tester_matches_jax(band_run):
     """``Tester.run`` in mode 'fix' (limit 2) over 4 H bands against the
     JAX Tester under ``--spatial_shard`` on its 8-device mesh."""
-    got, want = band_run
-    for r in range(WORLD):
-        assert sorted(got[r]["tester"]) == sorted(want["tester"])
-        for k, v in want["tester"].items():
-            np.testing.assert_allclose(got[r]["tester"][k], v,
-                                       rtol=TESTER_RTOL, atol=TESTER_ATOL,
-                                       err_msg=f"rank {r}: {k}")
+    assert_tester_matches(*band_run, "tester")
+
+
+def test_band_per_sample_tester_matches_jax(band_run):
+    """The same with ``spectralbatch`` E (per-sample encoding through
+    'auto', batch 2) over 2 H bands, the pairs of ranks: both sides encode
+    each sample on its own (JAX's ``lax.scan`` under ``constrain``), its
+    batch statistics over that sample's references summed over the
+    bands; TESTER_RTOL / TESTER_ATOL."""
+    assert_tester_matches(*band_run, "per_sample_tester")

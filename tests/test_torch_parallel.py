@@ -239,9 +239,10 @@ def test_segtrain_eval_tail_drop_at_world_2(tmp_path, monkeypatch, capsys):
 # --------------------------------------------------------------- refusals
 def test_refusals(h5, monkeypatch):
     """An explicit --data_axis that is not the world size over the model
-    axis, a global batch that the data degree does not divide, a model
-    axis that the world does not hold or divide, and per-sample encoding
-    under a model axis raise in the loop (``--spatial_shard`` does not);
+    axis, a global batch that the data degree does not divide, and a model
+    axis that the world does not hold or divide raise in the loop
+    (``--spatial_shard`` does not, nor per-sample encoding under a model
+    axis: ``spectralbatch`` E with 'auto', or ``--per_sample_encode on``);
     a process-group start that cannot happen
     (two processes asked for on a card that is absent) raises and leaves
     no group."""
@@ -269,9 +270,10 @@ def test_refusals(h5, monkeypatch):
                         ({"model_axis": 2, "batchSize": 5}, "not divisible")):
         with pytest.raises(ValueError, match=match):
             loop._check_ported(opt.replace(**flag), cpu)
-    with pytest.raises(NotImplementedError, match="per-sample encoding"):
-        loop._check_ported(opt.replace(model_axis=2,
-                                       norm_E="spectralbatch"), cpu)
+    for flag in ({"norm_E": "spectralbatch"}, {"per_sample_encode": "on"}):
+        grid = opt.replace(model_axis=2, data_axis=2, **flag)
+        assert grid.per_sample_encode_enabled
+        loop._check_ported(grid, cpu)
     monkeypatch.undo()
 
     for k, v in (("WORLD_SIZE", "2"), ("RANK", "0"), ("LOCAL_RANK", "0")):

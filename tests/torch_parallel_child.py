@@ -10,6 +10,7 @@ and writes what the test compares to ``DIR/TASK_out{RANK}.pt``.  The ranks
 check between themselves that their final networks (and optimizer
 buffers) are bit for bit equal; only rank 0 writes its tensors.
 """
+import contextlib
 import os
 import shutil
 import sys
@@ -146,6 +147,93 @@ def spectral(rank):
     return out
 
 
+@contextlib.contextmanager
+def no_collectives():
+    """Inside, every ``all_reduce`` and ``broadcast`` raises: for work
+    that one rank does while the others do not join it."""
+    def refuse(*args, **kwargs):
+        raise AssertionError("a collective in one rank's own work")
+
+    saved = dist.all_reduce, dist.broadcast
+    dist.all_reduce = dist.broadcast = refuse
+    try:
+        yield
+    finally:
+        dist.all_reduce, dist.broadcast = saved
+
+
+def grid_loader(opt, arrays, rank, world):
+    """The shuffled loader of the arrays, this rank loading its data
+    index's share."""
+    from seg2eye_tpu_torch.data.openeds import DataLoader
+
+    return DataLoader(ArrayDataset(arrays), batch_size=opt.batchSize,
+                      shuffle=True, drop_last=True, seed=opt.seed,
+                      process_index=rank // opt.model_axis,
+                      process_count=world // opt.model_axis)
+
+
+def per_sample_grid(opt, arrays, infer, rank, world):
+    """One ``train.loop.train`` iteration on the grid with per-sample
+    encoding, from the seeded state: its losses as means over the data
+    ranks, every buffer of G, E and D as this rank holds it, the networks
+    gathered after the G step and at the end, and inference of the grid
+    against the whole copy's that rank 0 scores with alone (no collective
+    allowed).  Between them, ``broadcast_buffers`` restores buffers that
+    the second model rank changed."""
+    from seg2eye_tpu_torch.parallel import mesh
+    from seg2eye_tpu_torch.train import steps
+    from seg2eye_tpu_torch.train.loop import _scoring_model, train
+    from seg2eye_tpu_torch.utils import checkpoint
+
+    def whole(model):
+        nets = {"G": model.netG, "E": model.netE, "D": model.netD}
+        return {k: numpy_of(v) for k, v in
+                checkpoint.whole_networks(nets, opt).items()}
+
+    after_g = {}
+    d_update = steps._d_update
+
+    def d_update_after_snapshot(state, batch, fake=None):
+        after_g.update(whole(state.model))
+        return d_update(state, batch, fake)
+
+    losses = []
+    steps._d_update = d_update_after_snapshot
+    try:
+        run = train(opt, max_steps=1, dataloader=grid_loader(
+            opt, arrays, rank, world), device="cpu",
+            step_hook=lambda n, l: losses.append(
+                {k: float(v) for k, v in dp.mean_over_ranks(l).items()}))
+    finally:
+        steps._d_update = d_update
+    model = run["state"].model
+    nets = {"G": model.netG, "E": model.netE, "D": model.netD}
+    dp.check_replicated(dp.module_tensors(nets), "per-sample: trained")
+    buffers = {k: t.clone() for k, t in dp.module_tensors(nets).items()
+               if k.endswith(("running_mean", "weight_u"))}
+    if mesh.current().model_index:      # as if computed otherwise there
+        with torch.no_grad():
+            for k, t in dp.module_tensors(nets).items():
+                if k in buffers:
+                    t.add_(1.0)
+    dp.broadcast_buffers(nets.values())
+    for k, t in dp.module_tensors(nets).items():
+        if k in buffers:
+            assert torch.equal(t, buffers[k]), k
+    scoring = _scoring_model(model)
+    with dp.local():
+        fake = model.inference(infer)
+    out = {"losses": losses, "fake": fake, "after_g": after_g,
+           "buffers": {f"{k}.{n}": t.clone() for k, net in nets.items()
+                       for n, t in net.named_buffers()},
+           "nets": whole(model)}
+    if rank == 0:
+        with dp.local(), no_collectives():
+            out["scored"] = scoring.inference(infer)
+    return out
+
+
 def model_parallel(inputs, rank, world):
     """``train.loop.train`` on a data x model grid: one iteration, then a
     resumed run of one more from its checkpoint; the losses of each as
@@ -153,8 +241,8 @@ def model_parallel(inputs, rank, world):
     rank holds them, inference on a fixed batch (the grid's, and the
     whole copy's that rank 0's Testers score with), the sharded spectral
     norm against the whole one, and a one-process checkpoint resumed
-    here and saved again."""
-    from seg2eye_tpu_torch.data.openeds import DataLoader
+    here and saved again.  Then ``per_sample_grid`` with
+    ``spectralbatch`` E."""
     from seg2eye_tpu_torch.models.pix2pix import Pix2Pix
     from seg2eye_tpu_torch.parallel import tensor_parallel as tp
     from seg2eye_tpu_torch.train import state as state_lib
@@ -165,13 +253,9 @@ def model_parallel(inputs, rank, world):
     opt, arrays = inputs["opt"], inputs["arrays"]
     losses, runs = [], []
     for cont in (False, True):
-        loader = DataLoader(ArrayDataset(arrays), batch_size=opt.batchSize,
-                            shuffle=True, drop_last=True, seed=opt.seed,
-                            process_index=rank // opt.model_axis,
-                            process_count=world // opt.model_axis)
         runs.append(train(
             opt.replace(continue_train=cont), max_steps=1,
-            dataloader=loader, device="cpu",
+            dataloader=grid_loader(opt, arrays, rank, world), device="cpu",
             step_hook=lambda n, l: losses.append(
                 {k: float(v) for k, v in dp.mean_over_ranks(l).items()})))
         if not cont:        # keep the first iteration's files
@@ -203,12 +287,15 @@ def model_parallel(inputs, rank, world):
     return {"losses": losses, "fake": fake, "scored": scored,
             "spectral": spectral(rank),
             "local": local_tensors(nets),
-            "nets": {k: numpy_of(v) for k, v in whole.items()}}
+            "nets": {k: numpy_of(v) for k, v in whole.items()},
+            "per_sample": per_sample_grid(inputs["per_sample"], arrays,
+                                          inputs["infer"], rank, world)}
 
 
 def spatial_scoring(inputs, rank, world):
     """H-band inference of a fixed batch over the 4 ranks and over the
-    pairs {0, 1} and {2, 3}, and the Tester's 'fix' mode over the 4."""
+    pairs {0, 1} and {2, 3}, the Tester's 'fix' mode over the 4, and
+    with per-sample encoding (``spectralbatch`` E) over the pairs."""
     from seg2eye_tpu_torch.eval.tester import Tester
     from seg2eye_tpu_torch.models.pix2pix import Pix2Pix
     from seg2eye_tpu_torch.parallel import spatial
@@ -220,16 +307,23 @@ def spatial_scoring(inputs, rank, world):
     with dp.local():
         out = {n: model.inference(inputs["infer"], bands=spatial.Bands(g))
                for n, g in ((4, None), (2, pairs[rank // 2]))}
-        tester = Tester(opt, "validation", make_dataloader(
-            opt.replace(serial_batches=True, no_flip=True), "validation"),
-                        bands=spatial.Bands())
-        out["tester"] = tester.run(model, mode="fix", limit=2)
+        for key, o, m, bands in (
+                ("tester", opt, model, spatial.Bands()),
+                ("per_sample_tester", inputs["per_sample"]["opt"],
+                 Pix2Pix(inputs["per_sample"]["opt"],
+                         inputs["per_sample"]["nets"], "cpu"),
+                 spatial.Bands(pairs[rank // 2]))):
+            tester = Tester(o, "validation", make_dataloader(
+                o.replace(serial_batches=True, no_flip=True), "validation"),
+                            bands=bands)
+            out[key] = tester.run(m, mode="fix", limit=2)
     return out
 
 
 TASKS = {"seg2eye": seg2eye, "segtrain": segtrain, "refinenet": refinenet,
          "model_parallel": model_parallel, "spatial": spatial_scoring}
-TENSOR_KEYS = ("nets", "net", "momentum", "grads", "fake", "scored")
+TENSOR_KEYS = ("nets", "net", "momentum", "grads", "fake", "scored",
+               "after_g")
 
 
 def without_tensors(out):
