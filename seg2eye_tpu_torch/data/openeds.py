@@ -38,6 +38,7 @@ import torch
 from seg2eye_tpu_torch.data import transforms
 from seg2eye_tpu_torch.data.schema import split_keys
 from seg2eye_tpu_torch.parallel import data_parallel as dp
+from seg2eye_tpu_torch.utils.spans import TO_DEVICE, span
 
 
 class OpenEDSDataset:
@@ -379,14 +380,16 @@ def to_device(batch: Dict, device: torch.device,
               keys: Sequence[str] = MODEL_KEYS) -> Dict:
     """The arrays of ``keys`` that the batch has (by default those the
     Seg2Eye model reads), on ``device``; for a card, from pinned host
-    memory and without waiting for the copy."""
+    memory and without waiting for the copy.  Under a profiler the
+    ``utils.spans.TO_DEVICE`` span."""
     out = {}
-    for k in keys:
-        if k in batch:
-            t = torch.from_numpy(np.ascontiguousarray(batch[k]))
-            if device.type == "cuda":
-                t = t.pin_memory()
-            out[k] = t.to(device, non_blocking=True)
+    with span(TO_DEVICE):
+        for k in keys:
+            if k in batch:
+                t = torch.from_numpy(np.ascontiguousarray(batch[k]))
+                if device.type == "cuda":
+                    t = t.pin_memory()
+                out[k] = t.to(device, non_blocking=True)
     return out
 
 

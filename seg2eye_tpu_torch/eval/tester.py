@@ -37,6 +37,7 @@ import torch
 from seg2eye_tpu_torch.ops import metrics
 from seg2eye_tpu_torch.ops.image import to_255resized
 from seg2eye_tpu_torch.parallel import data_parallel as dp
+from seg2eye_tpu_torch.utils.spans import SCORE, TO_DEVICE, span
 from seg2eye_tpu_torch.utils.visualizer import (Visualizer,
                                                 visualize_sidebyside)
 
@@ -85,13 +86,17 @@ class Tester:
 
     @torch.no_grad()
     def score_batch(self, model, batch: Dict, need_fake: bool = True):
-        """-> (per-image errors as numpy, fake as numpy or None)."""
-        fake, fake_resized = self.infer_batch(model, batch)
-        target = torch.as_tensor(batch["target_original"]).to(
-            device=fake.device, dtype=torch.float32)
-        errors = metrics.mse_for_images(fake_resized, target)
-        return (errors.cpu().numpy(),
-                fake.cpu().numpy() if need_fake else None)
+        """-> (per-image errors as numpy, fake as numpy or None).  Under a
+        profiler the ``SCORE`` span, the target's copy a ``TO_DEVICE``
+        one inside it."""
+        with span(SCORE):
+            fake, fake_resized = self.infer_batch(model, batch)
+            with span(TO_DEVICE):
+                target = torch.as_tensor(batch["target_original"]).to(
+                    device=fake.device, dtype=torch.float32)
+            errors = metrics.mse_for_images(fake_resized, target)
+            return (errors.cpu().numpy(),
+                    fake.cpu().numpy() if need_fake else None)
 
     # ------------------------------------------------------------------ #
     def _iterator(self, indices: Optional[List[int]]):

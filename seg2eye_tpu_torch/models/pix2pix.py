@@ -61,6 +61,7 @@ from seg2eye_tpu_torch.ops import metrics
 from seg2eye_tpu_torch.ops.image import one_hot_label
 from seg2eye_tpu_torch.parallel import data_parallel as dp
 from seg2eye_tpu_torch.utils.precision import full_float32
+from seg2eye_tpu_torch.utils.spans import TO_DEVICE, span
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
@@ -112,18 +113,20 @@ class Pix2Pix:
                    ) -> Tuple[torch.Tensor, torch.Tensor,
                               Optional[torch.Tensor]]:
         """-> (seg (B,H,W,S), style (B,k,H,W,1), target (B,H,W,1) or None)
-        on the device, in the compute dtype."""
+        on the device, in the compute dtype.  Under a profiler the copies
+        of host arrays are the ``utils.spans.TO_DEVICE`` span."""
         def norm(x):
-            x = torch.as_tensor(x).to(self.device)
             if x.dtype == torch.uint8:
                 x = (x.to(torch.float32) / 255.0 - 0.5) / 0.5
             return x.to(self.dtype)
 
-        label = torch.as_tensor(batch["label"]).to(self.device)
-        seg = one_hot_label(label, self.opt.semantic_nc).to(self.dtype)
         target = batch.get("target")
-        return (seg, norm(batch["style_image"]),
-                None if target is None else norm(target))
+        with span(TO_DEVICE):
+            label, style, target = (
+                None if x is None else torch.as_tensor(x).to(self.device)
+                for x in (batch["label"], batch["style_image"], target))
+        seg = one_hot_label(label, self.opt.semantic_nc).to(self.dtype)
+        return (seg, norm(style), None if target is None else norm(target))
 
     def _aggregate(self, t: torch.Tensor, dim: int) -> torch.Tensor:
         if self.opt.style_aggr_method == "mean":

@@ -38,6 +38,7 @@ import torch
 import torch.nn.functional as F
 
 from seg2eye_tpu_torch.utils.precision import full_float32
+from seg2eye_tpu_torch.utils.spans import BACKWARD_RANGE, K1_PACK, span
 
 EPS = 1e-5
 NHIDDEN = 128
@@ -47,8 +48,6 @@ KERNELS = {torch.bfloat16: "spade_style_fwd_bf16_sm90",
 SOURCE = {dtype: "seg2eye_tpu_torch/ops/csrc/spade_style_sm90.cu"
           for dtype in KERNELS}
 REPLACES = "seg2eye_tpu/ops/pallas/spade_style.py:83"   # the Pallas _kernel
-# the profiler range around the backward's recompute
-BACKWARD_RANGE = "spade_style backward (plain recompute)"
 
 
 def _conv3x3(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -167,7 +166,8 @@ class PackedWeights:
     offset and shape, so that it too is packed once.  An in-place update that leaves
     ``_version`` alone (``torch.optim.Adam(fused=True)`` does) is not
     seen, so the port's optimizers are never fused (``train.state``).
-    ``packings`` counts the packings made."""
+    ``packings`` counts the packings made; under a profiler each packing
+    is one ``utils.spans.K1_PACK`` span."""
 
     def __init__(self):
         self._cache = {}
@@ -186,7 +186,8 @@ class PackedWeights:
         if hit is None:
             for b in bases:
                 weakref.finalize(b, self._cache.pop, key, None)
-        packed = pack_weights(*weights, dtype)
+        with span(K1_PACK):
+            packed = pack_weights(*weights, dtype)
         self._cache[key] = (stamp, tuple(map(weakref.ref, bases)), packed)
         self.packings += 1
         return packed
@@ -277,13 +278,13 @@ def _setup_context(ctx, inputs, output):
 
 def _backward(ctx, grad_out):
     """The autograd of ``spade_style_reference``, recomputed from the
-    inputs (float32 in full float32)."""
+    inputs (float32 in full float32), inside the ``BACKWARD_RANGE`` span."""
     inputs = [t.detach().requires_grad_(need) for t, need in
               zip(ctx.saved_tensors, ctx.needs_input_grad)]
     wanted = [t for t in inputs if t.requires_grad]
     with torch.enable_grad(), full_float32(
             grad_out.dtype == torch.float32), \
-            torch.profiler.record_function(BACKWARD_RANGE):
+            span(BACKWARD_RANGE):
         out = spade_style_reference(*inputs, eps=ctx.eps)
         grads = iter(torch.autograd.grad(out, wanted, grad_out))
     return tuple(next(grads) if t.requires_grad else None

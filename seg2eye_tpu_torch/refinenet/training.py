@@ -15,6 +15,8 @@ training.py).
   * ``Trainer.train_step``: forward (BN running statistics update), the
     loss's backward, clip, SGD step; a float32 model runs all of it in full
     float32.  ``eval_step``: forward on the running statistics, no grad.
+    Under a profiler the train step's forward, backward and update (clip,
+    SGD) are spans (``utils.spans``), and ``eval_step`` is one.
   * ``main_loop``: the step budget (``max_steps``, epochs restarted as
     needed), logging, periodic test and checkpoint, the final checkpoint
     and test; SIGTERM or Ctrl-C saves at step + 1 and skips the final test.
@@ -57,6 +59,8 @@ from seg2eye_tpu_torch.refinenet.config import RefineNetConfig
 from seg2eye_tpu_torch.refinenet.loggers import GoogleSheetLogger, Tensorboard
 from seg2eye_tpu_torch.utils.precision import full_float32
 from seg2eye_tpu_torch.utils.signals import is_preemption, sigterm_raises
+from seg2eye_tpu_torch.utils.spans import (BACKWARD, FORWARD, OPTIMIZER,
+                                           REFINENET_SERVE, span)
 
 logger = logging.getLogger(__name__)
 
@@ -154,17 +158,20 @@ class Trainer:
         model, opt = state.model, state.optimizer
         with full_float32(model.dtype == torch.float32):
             opt.zero_grad(set_to_none=True)
-            out = model.forward(batch, train=True, generator=generator)
-            out[self.loss_key].backward()
-            params = [p for group in opt.param_groups
-                      for p in group["params"] if p.grad is not None]
-            dp.all_reduce_grads(params)
-            if self.cfg.gradient_norm_clip > 0.0:
-                clip_by_global_norm_([p.grad for p in params],
-                                     self.cfg.gradient_norm_clip)
-            for group in opt.param_groups:
-                group["lr"] = lr
-            opt.step()
+            with span(FORWARD):
+                out = model.forward(batch, train=True, generator=generator)
+            with span(BACKWARD):
+                out[self.loss_key].backward()
+            with span(OPTIMIZER):
+                params = [p for group in opt.param_groups
+                          for p in group["params"] if p.grad is not None]
+                dp.all_reduce_grads(params)
+                if self.cfg.gradient_norm_clip > 0.0:
+                    clip_by_global_norm_([p.grad for p in params],
+                                         self.cfg.gradient_norm_clip)
+                for group in opt.param_groups:
+                    group["lr"] = lr
+                opt.step()
         state.step += 1
         out = {k: v.detach() for k, v in out.items()}
         scalars = {k: v for k, v in out.items() if v.dim() == 0}
@@ -174,7 +181,8 @@ class Trainer:
 
     @torch.no_grad()
     def eval_step(self, state: TrainState, batch: Dict) -> Dict:
-        return state.model.forward(batch, train=False)
+        with span(REFINENET_SERVE):
+            return state.model.forward(batch, train=False)
 
 
 def dropout_generator(cfg: RefineNetConfig, step: int,

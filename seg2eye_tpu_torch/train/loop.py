@@ -21,7 +21,11 @@ the validation loaders are still built from ``opt.dataroot``, when a
 validation comes due.  The run starts with a ``src.zip`` snapshot of the
 checkout's ``.py`` files in ``expr_dir``.  ``--profile_steps N`` traces
 iterations 3 to N + 2 with ``torch.profiler`` into
-``expr_dir/profile/trace.json`` (a chrome trace).  ``--tf_log`` sends the
+``expr_dir/profile/trace.json`` (a chrome trace): operators, kernels and
+copies, and the program's phase spans (``utils.spans``: the G and D steps,
+each one's forward, backward and optimizer, batch copies to the device,
+K1's weight packings, the norm sites' backward), which exist only while a
+profiler records.  ``--tf_log`` sends the
 losses, validation statistics and panels to TensorBoard, and
 ``--write_error_log`` writes the full validation's error-log H5.  The VGG
 loss (``--no_vgg_loss False``) loads torchvision VGG19 weights from
@@ -107,7 +111,8 @@ def _testers(opt, visualizer: Visualizer):
 class _ProfileWindow:
     """``--profile_steps``: ``torch.profiler`` from the end of iteration 2
     to the end of iteration 2 + N, as the JAX loop's trace window; the
-    chrome trace goes to ``expr_dir/profile/trace.json``."""
+    chrome trace, with the program's spans (``utils.spans``), goes to
+    ``expr_dir/profile/trace.json``."""
 
     def __init__(self, opt, device: torch.device):
         self.n = opt.profile_steps

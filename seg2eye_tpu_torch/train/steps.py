@@ -14,6 +14,8 @@ running statistics of each net it runs advance.  A float32 model runs the
 whole step, backward and update included, under ``full_float32``: cuDNN
 reads the TF32 flags when each backward convolution runs.  Steps change
 the state in place; the loss dicts and the fake come back detached.
+Under a profiler each update is a span (``utils.spans``: ``G_STEP``,
+``D_STEP``) holding its ``FORWARD``, ``BACKWARD`` and ``OPTIMIZER`` spans.
 
 Under data parallelism (``parallel.data_parallel``) the batch is this
 rank's share of the global one; the batch statistics inside are global,
@@ -33,6 +35,8 @@ import torch
 
 from seg2eye_tpu_torch.parallel import data_parallel as dp
 from seg2eye_tpu_torch.utils.precision import full_float32
+from seg2eye_tpu_torch.utils.spans import (BACKWARD, D_STEP, FORWARD, G_STEP,
+                                           OPTIMIZER, span)
 from seg2eye_tpu_torch.train.state import TrainState
 
 
@@ -60,32 +64,43 @@ def _frozen(net: torch.nn.Module):
             p.requires_grad_(True)
 
 
+def _update(optimizer: torch.optim.Optimizer, model) -> None:
+    """Average the gradients over the data ranks, step, and give the model
+    ranks the first one's buffers."""
+    with span(OPTIMIZER):
+        dp.all_reduce_grads(_params(optimizer))
+        optimizer.step()
+        dp.broadcast_buffers(_nets(model))
+
+
 def _g_update(state: TrainState, batch: Dict) -> Tuple[Dict, torch.Tensor]:
     model = state.model
-    state.opt_g.zero_grad(set_to_none=True)
-    with _frozen(model.netD):
-        total, losses, fake = model.generator_loss(batch)
-        total.backward()
-    dp.all_reduce_grads(_params(state.opt_g))
-    state.opt_g.step()
-    dp.broadcast_buffers(_nets(model))
+    with span(G_STEP):
+        state.opt_g.zero_grad(set_to_none=True)
+        with _frozen(model.netD):
+            with span(FORWARD):
+                total, losses, fake = model.generator_loss(batch)
+            with span(BACKWARD):
+                total.backward()
+        _update(state.opt_g, model)
     return _detached(losses), fake.detach()
 
 
 def _d_update(state: TrainState, batch: Dict,
               fake: Optional[torch.Tensor] = None) -> Dict:
     model = state.model
-    if fake is None:
-        with torch.no_grad():
-            seg, style, _ = model.preprocess(batch)
-            w, _ = model.encode_w(style, update_stats=True)
-            fake = model.generate(seg, w, update_stats=True)
-    state.opt_d.zero_grad(set_to_none=True)
-    total, losses = model.discriminator_loss(batch, fake)
-    total.backward()
-    dp.all_reduce_grads(_params(state.opt_d))
-    state.opt_d.step()
-    dp.broadcast_buffers(_nets(model))
+    with span(D_STEP):
+        state.opt_d.zero_grad(set_to_none=True)
+        with span(FORWARD):
+            if fake is None:
+                with torch.no_grad():
+                    seg, style, _ = model.preprocess(batch)
+                    w, _ = model.encode_w(style, update_stats=True)
+                    fake = model.generate(seg, w, update_stats=True)
+            total, losses = model.discriminator_loss(batch, fake)
+        with span(BACKWARD):
+            total.backward()
+        _update(state.opt_d, model)
     return _detached(losses)
 
 

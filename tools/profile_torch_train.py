@@ -37,7 +37,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 from chip_smoke import (make_train_batch, plain_norm_sites,  # noqa: E402
                         train_state)
 from profile_torch_slice import busy_us  # noqa: E402
-from seg2eye_tpu_torch.ops.spade_style import BACKWARD_RANGE  # noqa: E402
+from seg2eye_tpu_torch.utils.spans import BACKWARD_RANGE  # noqa: E402
 from seg2eye_tpu_torch.options import Options  # noqa: E402
 from seg2eye_tpu_torch.train import steps  # noqa: E402
 from seg2eye_tpu_torch.utils.weights import init_networks  # noqa: E402
