@@ -19,7 +19,14 @@ Phases; any failure raises and the script exits non-zero:
      each crop-256 site the kernel, its plain version and one cuDNN conv
      (library_ms) timed in turns with CUDA events, beside the bound; at
      each float32 site, the error of a single-pass TF32 cuDNN conv of the
-     same product (then the same epilogue) as a contrast;
+     same product (then the same epilogue) as a contrast.  Then the
+     bfloat16 backward kernel at the same shapes: dx, [dgamma | dbeta] and
+     the per-channel sums against its plain version
+     (``epilogue_backward_reference``), the op's gradients through it
+     against autograd of the float32 plain version, and the kernel, its
+     plain version, the op's whole backward through it and through the
+     plain recompute (the route before the kernel) timed in turns beside
+     the kernel's bound;
   4. slice: scored inference (Tester.score_batch: encode, generate, resize
      to 640x400, truncate, per-image error) at the full width of the
      default model, seeded random weights, batch 16, in bfloat16 and
@@ -36,7 +43,9 @@ Phases; any failure raises and the script exits non-zero:
      both Adam states): their loss dicts and gradients must agree.  The
      kernel must launch 36 times in one iteration (18 sites in the G
      step's forward and 18 in the D step's regeneration of the fake), the
-     losses be finite, every spectral u/v, running statistic and
+     backward kernel 18 times in a bfloat16 iteration (the G step's
+     backward) and never in float32 or in scoring, the losses be finite,
+     every spectral u/v, running statistic and
      parameter with a nonzero gradient have moved, and netE's fc_var
      (no gradient) not; ms/iteration and img/s of both
      routes and the peak memory are printed.  One small float32 iteration
@@ -246,7 +255,8 @@ KERNEL_RATES = {"bfloat16": (torch.bfloat16, 1), "float32": ("tf32", 3)}
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 # the kernel symbols of the library, per dtype
 KERNEL_SYMBOLS = {"bfloat16": "spade_style_sm90_kernel",
-                  "float32": "spade_style_3xtf32_sm90_kernel"}
+                  "float32": "spade_style_3xtf32_sm90_kernel",
+                  "bfloat16 backward": "spade_style_sm90_kernel_bwd"}
 SUMMARY_NAMES = {"bfloat16": "spade_style_bf16_sm90",
                  "float32": "spade_style_f32_3xtf32_sm90"}
 
@@ -549,6 +559,141 @@ def phase_kernel():
     return summary
 
 
+# the backward kernel's per-channel sums against its plain version's: both
+# sum the same bfloat16 h and x in float32 in other orders (blocks of 128
+# pixels, then over the blocks), with gamma to float32 summation order; at
+# 81,920 pixels a sum of |h| about 3e4 is off by about 1e-2 in float32
+# while the largest sum of a site is some 4e2, so 1e-3 of that largest sum
+# leaves ten times room; a sum of a wrong row or channel is off by the
+# order of the sum itself
+SUMS_RTOL = 1e-3
+# the op's inputs that take a gradient in training, by index (seg takes none)
+BWD_GRAD_INPUTS = {"x": 0, "style": 2, "mean": 3, "var": 4, "ws": 5,
+                   "bs": 6, "wg": 7, "bg": 8, "wb": 9, "bb": 10}
+# backward kernel launches in one training iteration: the G step's backward
+BACKWARD_LAUNCHES = {"bfloat16": len(SITES), "float32": 0}
+
+
+def phase_kernel_backward():
+    from seg2eye_tpu_torch.ops import spade_style as K
+    from seg2eye_tpu_torch.utils import roofline
+
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    dtype = torch.bfloat16
+    rtol, atol = TOLS["bfloat16"]
+    # the op's gradients through the kernel (bfloat16) against autograd of
+    # the float32 plain version, per input: ||d|| <= grad_rtol ||g||,
+    # F32_ROUTE's per-tensor rule (the bfloat16 rounding of actv, the
+    # weights and the stored maps, 2^-8 relative each, moves most gradients
+    # by a few 1e-3 of their norm), or within BF16_TENSOR_RATIO times the
+    # bfloat16 plain recompute's own distance, phase 5's bfloat16 rule: the
+    # seg MLP's ws and bs gradients pass the ReLU mask of a bfloat16 actv
+    # and move by 2.4e-2 to 4.2e-2 of their norm in the plain recompute
+    # itself (on an H100, at these shapes)
+    grad_rtol = F32_ROUTE["grad_rtol"]
+    needs = tuple(i in BWD_GRAD_INPUTS.values() for i in range(11))
+    graded = [i for i, need in enumerate(needs) if need]
+    log(f"backward kernel, bfloat16, against its plain version "
+        f"(epilogue_backward_reference): dx and [dgamma | dbeta] within "
+        f"|err| <= {atol:.3g} + {rtol:.3g} * |plain| (dx_e/t, dgb_e/t: worst "
+        f"err/tolerance), the sums within {SUMS_RTOL:g} of each kind's "
+        f"largest (sums_e/t); the op's gradients through the kernel against "
+        f"autograd of the float32 plain version, worst ||d|| / ||g|| over "
+        f"{len(graded)} inputs, beside the same for the bfloat16 plain "
+        f"recompute (limit per input: {grad_rtol:g}, or {BF16_TENSOR_RATIO:g} "
+        "times the plain recompute's); times in ms: the kernel, its "
+        "plain version, the op's backward through the kernel (seg MLP, "
+        "kernel, sums, dgrad and wgrad) and through the plain recompute "
+        "(the route before the kernel), the kernel's bound")
+    log("  site  (N, H, W, C)         dx_e/t  dgb_e/t  sums_e/t  grad_k  "
+        "(input)  grad_p    kernel    plain  backward  recompute    bound  "
+        "by   %bound")
+    tot = dict(worst=0.0, grad_worst=0.0, ms=0.0, plain_ms=0.0,
+               backward_ms=0.0, recompute_ms=0.0, bound_ms=0.0,
+               bound_ops_ms=0.0, bound_bytes_ms=0.0)
+    for i, shape in enumerate(ODD_SITES + [(SITE_N, *s) for s in SITES]):
+        args = site_inputs(*shape, dtype, gen)
+        x, seg, style, mean, var, ws, bs, wg, bg, wb, bb = args
+        dout = torch.randn(shape, generator=gen, device="cuda").to(dtype)
+        actv = K.seg_mlp_shared(seg.to(dtype), ws, bs).contiguous()
+        wgam, bcat, _ = K.packed_weights.backward(wg, bg, wb, bb, dtype)
+        got = K.spade_style_backward_cuda(x, actv, dout, style, mean, var,
+                                          wgam, bcat)
+        want = K.epilogue_backward_reference(x, actv, dout, style, mean, var,
+                                             wg, bg)
+        torch.cuda.synchronize()
+        _, dx_w = check_close(f"backward dx {shape}", got[0], want[0], rtol,
+                              atol)
+        _, dgb_w = check_close(f"backward dgamma|dbeta {shape}", got[1],
+                               want[1], rtol, atol)
+        scale = want[2].abs().amax(dim=(0, 2), keepdim=True)
+        sums_w = float(((got[2] - want[2]).abs() / (SUMS_RTOL * scale)).max())
+        if not sums_w <= 1.0:
+            raise AssertionError(f"backward sums {shape}: worst "
+                                 f"err/tolerance {sums_w:.3f}")
+        # the op's gradients, kernel route and bfloat16 plain recompute,
+        # against autograd of the float32 plain version
+        grads_k = K._kernel_backward(args, needs, dout, K.EPS)
+        grads_p = K._recompute_backward(args, needs, dout, K.EPS)
+        leaves = [a.float().requires_grad_(need)
+                  for a, need in zip(args, needs)]
+        with tf32(False):
+            out = K.spade_style_reference(*leaves)
+            grads_f = torch.autograd.grad(
+                out, [leaves[j] for j in graded], dout.float())
+        ratios_k, ratios_p = {}, {}
+        for j, g_f in zip(graded, grads_f):
+            norm = float(g_f.norm())
+            ratios_k[j] = float((grads_k[j].float() - g_f).norm()) / norm
+            ratios_p[j] = float((grads_p[j].float() - g_f).norm()) / norm
+        worst = max(ratios_k, key=ratios_k.get)
+        name = next(k for k, v in BWD_GRAD_INPUTS.items() if v == worst)
+        for j, r in ratios_k.items():
+            if not r <= max(grad_rtol, BF16_TENSOR_RATIO * ratios_p[j]):
+                raise AssertionError(
+                    f"backward gradients {shape}: ||d|| / ||g|| of input "
+                    f"{j} {r:.3e}, the bfloat16 plain recompute's "
+                    f"{ratios_p[j]:.3e}")
+        del grads_k, grads_p, grads_f, leaves, out
+        kms, pms, bms, rms = time_turns([
+            lambda: K.spade_style_backward_cuda(x, actv, dout, style, mean,
+                                                var, wgam, bcat),
+            lambda: K.epilogue_backward_reference(x, actv, dout, style, mean,
+                                                  var, wg, bg),
+            lambda: K._kernel_backward(args, needs, dout, K.EPS),
+            lambda: K._recompute_backward(args, needs, dout, K.EPS)])
+        flops, nbytes = K.backward_kernel_work(shape, dtype)
+        ops_ms = roofline.compute_ms(flops, dtype)
+        bytes_ms = roofline.memory_ms(nbytes)
+        bound = max(ops_ms, bytes_ms)
+        by = "operations" if ops_ms >= bytes_ms else "bytes"
+        label = "odd" if i < len(ODD_SITES) else f"{i - 1:4d}"
+        log(f"  {label}  {str(shape):22s} {dx_w:7.3f}  {dgb_w:7.3f}  "
+            f"{sums_w:8.4f}  {ratios_k[worst]:.2e} ({name:5s}) "
+            f"{ratios_p[worst]:.2e} {kms:8.4f} {pms:8.4f} {bms:9.4f} "
+            f"{rms:10.4f} {bound:8.4f}  {by[:3]}  {100 * bound / kms:6.1f}")
+        tot["worst"] = max(tot["worst"], dx_w, dgb_w, sums_w)
+        tot["grad_worst"] = max(tot["grad_worst"], ratios_k[worst])
+        if i >= len(ODD_SITES):
+            for key, v in (("ms", kms), ("plain_ms", pms),
+                           ("backward_ms", bms), ("recompute_ms", rms),
+                           ("bound_ms", bound), ("bound_ops_ms", ops_ms),
+                           ("bound_bytes_ms", bytes_ms)):
+                tot[key] += v
+        del args, got, want, actv, dout
+    tot["bound_by"] = ("operations" if tot.pop("bound_ops_ms")
+                       >= tot.pop("bound_bytes_ms") else "bytes")
+    log(f"  18 sites at N={SITE_N}, bfloat16 backward (sums of per-site "
+        f"medians): kernel {tot['ms']:.4f} ms, plain {tot['plain_ms']:.4f}, "
+        f"bound {tot['bound_ms']:.4f} ({tot['bound_by']}), "
+        f"{100 * tot['bound_ms'] / tot['ms']:.1f}% of the bound; the op's "
+        f"backward through the kernel {tot['backward_ms']:.4f}, through the "
+        f"plain recompute {tot['recompute_ms']:.4f}; worst err/tolerance "
+        f"{tot['worst']:.4f}, worst gradient ||d|| / ||g|| "
+        f"{tot['grad_worst']:.3e} (odd shapes included)")
+    return tot
+
+
 # ---------------------------------------------------------------- phase 4
 def make_batch(opt, b, seed=0):
     rng = np.random.default_rng(seed)
@@ -623,9 +768,13 @@ def phase_slice():
         tester = Tester(model.opt)
         tester.score_batch(model, batch, need_fake=False)       # warm-up
         shapes.clear()
-        K.spade_style.launches = 0
+        K.spade_style.launches = K.spade_style.backward_launches = 0
         errors, fake = tester.score_batch(model, batch)
         count = K.spade_style.launches
+        if K.spade_style.backward_launches:
+            raise AssertionError(f"{dtype}: the backward kernel launched "
+                                 f"{K.spade_style.backward_launches} times "
+                                 "in scoring")
         if shapes != SITES:
             raise AssertionError(f"norm sites ran at {shapes}, not {SITES}")
         if count != len(SITES):
@@ -641,7 +790,8 @@ def phase_slice():
                                  f"at {tf32_flags()}, not {flags}")
         ms = time_slice(tester, model, batch)
         results[dtype] = fake
-        log(f"slice {dtype} bs{BATCH}: {count} kernel launches per forward, "
+        log(f"slice {dtype} bs{BATCH}: {count} kernel launches per forward "
+            "(0 of the backward kernel), "
             f"errors finite (mean x1471 = "
             f"{float(np.mean(errors)) * 1471:.2f}), {ms:.2f} ms/batch, "
             f"{BATCH / ms * 1e3:.2f} img/s (median of 5, host clock)")
@@ -686,7 +836,7 @@ def phase_slice():
 TRAIN_BATCH = 16
 # K1 launches in one training iteration: the G step's forward and the D
 # step's regeneration of the fake with the updated G, 18 sites each (the
-# backward recomputes through the plain version and launches nothing)
+# backward kernel counts apart: BACKWARD_LAUNCHES)
 TRAIN_LAUNCHES = 2 * len(SITES)
 ROUTE_ITERS, TIMED_ITERS, LOOP_STEPS = 3, 5, 3
 EXPECTED_D_PARAMS = 5_531_778
@@ -1198,13 +1348,19 @@ def phase_train():
             "kernel route's state (losses kernel/plain)")
         lockstep(dname, state, batch, None if dname == "float32"
                  else opt.replace(compute_dtype="float32"))
-        K.spade_style.launches = 0
+        K.spade_style.launches = K.spade_style.backward_launches = 0
         timed_iteration(state, batch)
         launches[dname] = K.spade_style.launches
+        backward = K.spade_style.backward_launches
         if launches[dname] != TRAIN_LAUNCHES:
             raise AssertionError(f"{dname}: kernel launched "
                                  f"{launches[dname]} times in one training "
                                  f"iteration, expected {TRAIN_LAUNCHES}")
+        if backward != BACKWARD_LAUNCHES[dname]:
+            raise AssertionError(f"{dname}: backward kernel launched "
+                                 f"{backward} times in one training "
+                                 f"iteration, expected "
+                                 f"{BACKWARD_LAUNCHES[dname]}")
         ms, peak = timed(state, batch)
         check_trained(dname, state, before)
         check_packed(dname, state.model)
@@ -1218,7 +1374,8 @@ def phase_train():
             raise AssertionError(f"{dname}: training left the TF32 flags at "
                                  f"{tf32_flags()}, not {flags}")
         log(f"train {dname} bs{TRAIN_BATCH}: {launches[dname]} kernel "
-            f"launches per iteration; kernel route {ms:.2f} ms/iteration, "
+            f"launches and {backward} of the backward kernel per iteration; "
+            f"kernel route {ms:.2f} ms/iteration, "
             f"{TRAIN_BATCH / ms * 1e3:.2f} img/s, peak {peak:.2f} GiB; plain "
             f"route {p_ms:.2f} ms/iteration, {TRAIN_BATCH / p_ms * 1e3:.2f} "
             f"img/s, peak {p_peak:.2f} GiB (median of {TIMED_ITERS}, host "
@@ -3782,6 +3939,7 @@ def main():
     kind = phase_device()
     phase_build()
     summary = phase_kernel()
+    backward = phase_kernel_backward()
     launches = phase_slice()
     train_launches = phase_train()
     options = phase_options()
@@ -3834,7 +3992,13 @@ def main():
          "tp_per_sample_launches": mp_launches["tp_per_sample"]
          if d == "float32" else None,
          **{k: summary[d][k] for k in keys}}
-        for d in ("bfloat16", "float32")]}))
+        for d in ("bfloat16", "float32")] + [
+        {"name": "spade_style_bwd_bf16_sm90", "route": "cuda",
+         "source": K.SOURCE[torch.bfloat16], "replaces": None,
+         "train_launches": BACKWARD_LAUNCHES["bfloat16"],
+         **{k: backward[k] for k in ("ms", "plain_ms", "bound_ms",
+                                     "bound_by", "backward_ms",
+                                     "recompute_ms", "grad_worst")}}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)

@@ -32,6 +32,10 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SPADE_STYLE_ARGTYPES = [_I] + [_P] * 8 + [_I] * 4 + [_F, _P]
 _SPADE_STYLE_ENTRY_POINTS = ("spade_style_fwd_f32_3xtf32_sm90",
                              "spade_style_fwd_bf16_sm90")
+# the backward: int fn(int device, 8 input pointers, dx, dgb, partial, N, H,
+# W, C, tiles, float eps, stream)
+_BACKWARD_ARGTYPES = [_I] + [_P] * 11 + [_I] * 5 + [_F, _P]
+_BACKWARD_ENTRY_POINTS = ("spade_style_bwd_bf16_sm90",)
 SASS_OPCODES = ("HGMMA", "FFMA")
 
 
@@ -110,10 +114,12 @@ def load(path: Path) -> ctypes.CDLL:
     """A built library with every C signature declared (an undeclared
     pointer argument would be cut to 32 bits)."""
     lib = ctypes.CDLL(str(path))
-    for name in _SPADE_STYLE_ENTRY_POINTS:
-        fn = getattr(lib, name)
-        fn.argtypes = _SPADE_STYLE_ARGTYPES
-        fn.restype = ctypes.c_int
+    for names, argtypes in ((_SPADE_STYLE_ENTRY_POINTS, _SPADE_STYLE_ARGTYPES),
+                            (_BACKWARD_ENTRY_POINTS, _BACKWARD_ARGTYPES)):
+        for name in names:
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
     lib.seg2eye_cuda_error_string.argtypes = [ctypes.c_int]
     lib.seg2eye_cuda_error_string.restype = ctypes.c_char_p
     return lib

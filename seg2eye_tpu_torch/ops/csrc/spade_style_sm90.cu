@@ -92,6 +92,35 @@
 // Any H, W and C work.  One block per SM (384 threads); a persistent grid
 // that overlaps one tile's epilogue with the next tile's mainloop is later
 // work.
+//
+// Backward, bfloat16 (spade_style_sm90_kernel_bwd).  It replaces no TPU
+// kernel: the Pallas kernel's custom VJP rematerialises through the plain
+// version, and so did the port, whose plain recompute (a dozen float32
+// elementwise passes over every site's map and as many for their
+// gradients) took 47% of a bf16 training step's device time on an H100.
+// One launch per site, with h = dout / 2:
+//
+//   gamma = the forward's product with the gamma columns alone (beta's
+//           value enters no gradient), in registers
+//   dx     = h * ((1 + gamma) * rstd + s0 + 1)          -> x's dtype
+//   dgamma = h * (x - mean) * rstd, dbeta = h           -> [dgamma | dbeta]
+//   per block and channel, over its pixels (float32):  sum h, sum h (x - mean),
+//   sum h (1 + gamma), sum h (1 + gamma) (x - mean)
+//
+// from which the wrapper forms the style, mean, var and bias gradients
+// after a sum over the blocks (no atomics: the same order every run), and
+// cuDNN the convs' dgrad and wgrad from [dgamma | dbeta].  What bounds it:
+// 2 * 1152 * C flops per pixel against 128 + 5C bf16 values of actv, x,
+// dout, dx and [dgamma | dbeta], so the memory.  Design: the forward's
+// TMA + wgmma mainloop over the gamma-only packed weights (BN = C columns,
+// 128, or 64 where C <= 64), while the producer's three idle warps stage the
+// x and dout tiles by cp.async (16 bytes each, zero-filled outside the map)
+// and write dbeta from the dout tile straight away.  The consumers then
+// overwrite x with dx and dout with dgamma in shared memory, fold their
+// sums over the rows with 7 shuffles per 8 channel pairs (a butterfly
+// reduce-scatter), and write both tiles with 16-byte stores.  Shared
+// memory at BN = 128: 4 stages x 16 KB of B + 2 x 23 KB of halo + 2 x 34 KB
+// of tiles + 16 KB of per-warp sums = 197 KB.
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -109,6 +138,8 @@ constexpr int STAGERS = 96;      // producer threads that stage x and params
 constexpr int PRODUCER_REGS = 40, CONSUMER_REGS = 232;
 constexpr int ROW_BYTES = 128;               // one swizzled row of k
 constexpr int NPARAMS = 6;       // per channel: mean, rstd, s0 + 1, s1, bg, bb
+// backward: per channel mean, rstd, s0 + 1, bg; sums per channel and block
+constexpr int BWD_PARAMS = 4, BWD_SUMS = 4;
 // float32: taps summed in one accumulator before it is added to the total
 constexpr int TF32_FLUSH_TAPS = 1;
 static_assert(9 % TF32_FLUSH_TAPS == 0, "the flush period divides the 9 taps");
@@ -164,6 +195,19 @@ __device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map
       "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
       "r"(c2), "r"(c3)
       : "memory");
+}
+
+// 16 bytes from device to shared memory, asynchronously; the bytes past
+// `src_bytes` (0 or 16) are zero-filled
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           uint32_t src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(dst),
+               "l"(src), "r"(src_bytes)
+               : "memory");
+}
+// Waits for every cp.async of this thread.
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;" ::: "memory");
 }
 
 __device__ __forceinline__ void ldmatrix_x4(uint32_t (&a)[4], uint32_t addr) {
@@ -267,6 +311,26 @@ __device__ __forceinline__ void wgmma(float (&d)[64], const uint32_t (&a)[4],
         "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
         "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+}
+
+// The same with N = 64: d is 64 x 64 f32, this thread's 32.
+__device__ __forceinline__ void wgmma(float (&d)[32], const uint32_t (&a)[4],
+                                      uint64_t desc) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{ %0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31},"
+      " {%32, %33, %34, %35},"
+      " %36, p, 1, 1, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
 }
 
@@ -401,6 +465,146 @@ static_assert(Tile<Tf32x3Operand, 128>::smem_bytes(4) <= 232448,
 static_assert(Tile<Bf16Operand, 256>::smem_bytes(4) <= 232448,
               "bfloat16 tile exceeds a block's shared memory");
 
+// The mbarriers after a block's buffers: full[STAGES] and empty[STAGES] of
+// the B ring, the halo's, and the staged tiles' (x_bar).
+template <int STAGES>
+struct Bars {
+  uint32_t base;
+  __device__ uint32_t full(int s) const { return base + 8 * s; }
+  __device__ uint32_t empty(int s) const { return base + 8 * (STAGES + s); }
+  __device__ uint32_t halo() const { return base + 16 * STAGES; }
+  __device__ uint32_t x() const { return base + 16 * STAGES + 8; }
+  // by thread 0; `stagers`: the arrivals that complete x_bar
+  __device__ void init(uint32_t stagers) const {
+    if (threadIdx.x == 0) {
+      for (int s = 0; s < STAGES; ++s) {
+        mbar_init(full(s), 1);
+        mbar_init(empty(s), CONSUMER_WARPS);
+      }
+      mbar_init(halo(), 1);
+      mbar_init(x(), stagers);
+      asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    }
+  }
+};
+
+// The TMA issuer's loads of one block: the NBOX halo boxes of actv around
+// the tile at (x0, y0) of sample n, then every k-step's B stage, columns
+// col0 .. col0 + BN - 1 of the packed weights (np_cols columns per tap).
+template <class Op, int BN>
+__device__ __forceinline__ void load_operands(
+    const CUtensorMap* tm_actv, const CUtensorMap* tm_w, uint32_t a_smem,
+    uint32_t halo_stride, uint32_t halo_bytes, uint32_t b_smem,
+    Bars<Op::STAGES> bars, int x0, int y0, int n, int col0, int np_cols) {
+  using L = Tile<Op, BN>;
+  constexpr int STAGES = Op::STAGES;
+  mbar_expect_tx(bars.halo(), L::NBOX * halo_bytes);
+  for (int h = 0; h < L::NBOX; ++h)
+    tma_load_4d(a_smem + h * halo_stride, tm_actv, bars.halo(), h * Op::BK,
+                x0 - 1, y0 - 1, n);
+  // k-step s: tap s / NBOX, k from (s % NBOX) * BK; the parts of one
+  // stage (float32: hi, lo) are 9 * np_cols rows apart
+  for (int s = 0; s < L::KSTEPS; ++s) {
+    const int st = s % STAGES;
+    if (s >= STAGES) mbar_wait(bars.empty(st), ((s / STAGES) - 1) & 1);
+    mbar_expect_tx(bars.full(st), L::B_STAGE);
+    for (int p = 0; p < Op::PARTS; ++p)
+      tma_load_2d(b_smem + st * L::B_STAGE + p * L::B_TILE, tm_w,
+                  bars.full(st), (s % L::NBOX) * Op::BK,
+                  (p * 9 + s / L::NBOX) * np_cols + col0);
+  }
+}
+
+// The consumer warpgroups' mainloop: acc = this thread's BN / 2 of its
+// warpgroup's 64 rows x BN columns of the 9-tap product of the halo tile
+// with the B stages that load_operands streams in.
+template <class Op, int BN>
+__device__ __forceinline__ void mainloop(float (&acc)[BN / 2], uint32_t a_smem,
+                                         uint32_t halo_stride, uint32_t b_smem,
+                                         Bars<Op::STAGES> bars, int tw_log2) {
+  using L = Tile<Op, BN>;
+  constexpr int STAGES = Op::STAGES;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int tw = 1 << tw_log2;
+  const int halo_w = tw + 2;
+  // warpgroup wg owns tile rows 64 wg .. 64 wg + 63
+  const int wg = warp / 4;
+  // the A row this lane addresses for ldmatrix, and its 16-byte k chunk
+  const int m_lane = wg * 64 + (warp % 4) * 16 + (lane & 15);
+  const int a_row0 = (m_lane >> tw_log2) * halo_w + (m_lane & (tw - 1));
+  const int kc = lane >> 4;
+
+  // A fragments of k-step s: tap s / NBOX (dy, dx) over the channels of
+  // halo box s % NBOX, four 32-byte k slices
+  auto load_a = [&](uint32_t (&a)[4][Op::PARTS][4], int s) {
+    const int tap = s / L::NBOX;
+    const int r = a_row0 + (tap / 3) * halo_w + tap % 3;
+    const uint32_t row = a_smem + (s % L::NBOX) * halo_stride + r * ROW_BYTES;
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      ldmatrix_x4(a[kk][0], row + (((2 * kk + kc) ^ (r & 7)) << 4));
+      Op::split(a[kk]);
+    }
+  };
+
+#pragma unroll
+  for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
+  // step s: issue its wgmmas from a (the first one overwrites acc when
+  // `fresh`), then wait for step s - 1's (for all, step s's too, when
+  // `last`), release step s - 1's B stage and load step s + 1's A into
+  // `next`, which step s - 1 read
+  auto step = [&](int s, const uint32_t (&a)[4][Op::PARTS][4],
+                  uint32_t (&next)[4][Op::PARTS][4], bool fresh, bool last) {
+    const int st = s % STAGES;
+    mbar_wait(bars.full(st), (s / STAGES) & 1);
+    fence_acc(acc);
+    wgmma_fence();
+    const uint32_t b = b_smem + st * L::B_STAGE;
+    const uint64_t desc = sw128_desc(b), desc_lo = sw128_desc(b + L::B_TILE);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)      // 32 bytes = 2 descriptor units
+      Op::mma(acc, a[kk], desc + 2 * kk, desc_lo + 2 * kk, fresh && kk == 0);
+    wgmma_commit();
+    if (last)
+      wgmma_wait<0>();
+    else
+      wgmma_wait<1>();
+    fence_acc(acc);
+    if (s > 0 && lane == 0) mbar_arrive(bars.empty((s - 1) % STAGES));
+    if (s + 1 < L::KSTEPS) load_a(next, s + 1);
+  };
+  uint32_t a[2][4][Op::PARTS][4];
+  mbar_wait(bars.halo(), 0);
+  load_a(a[0], 0);
+  if constexpr (Op::FLUSH_TAPS == 0) {
+#pragma unroll
+    for (int s = 0; s < L::KSTEPS; ++s)
+      step(s, a[s & 1], a[(s + 1) & 1], false, false);
+    wgmma_wait<0>();
+    fence_acc(acc);
+  } else {
+    // one tap per trip; every FLUSH_TAPS taps, acc is added to the total
+    float total[BN / 2];
+#pragma unroll
+    for (int i = 0; i < BN / 2; ++i) total[i] = 0.f;
+#pragma unroll 1
+    for (int tap = 0; tap < 9; ++tap) {
+      const bool fresh = tap % Op::FLUSH_TAPS == 0;
+      const bool last = (tap + 1) % Op::FLUSH_TAPS == 0;
+#pragma unroll
+      for (int j = 0; j < L::NBOX; ++j)
+        step(tap * L::NBOX + j, a[j & 1], a[(j + 1) & 1], fresh && j == 0,
+             last && j == L::NBOX - 1);
+      if (last) {
+#pragma unroll
+        for (int i = 0; i < BN / 2; ++i) total[i] += acc[i];
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < BN / 2; ++i) acc[i] = total[i];
+  }
+}
+
 // One block of one site.  tm_actv: actv (N, H, W, 128), box (BK, TW+2,
 // TH+2, 1).  tm_w: pack_weights' (PARTS * 9 * np_cols, 128), box (BK, BN):
 // row (part * 9 + tap) * np_cols + j holds column j of that tap, j = 2c +
@@ -422,18 +626,13 @@ __device__ __forceinline__ void spade_style_sm90(
   const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
   uint8_t* const gbase = smem_raw + (base - smem_u32(smem_raw));  // generic
   const int tw = 1 << tw_log2;
-  const int halo_w = tw + 2;
   const uint32_t halo_bytes = halo_box_bytes(tw_log2);
   const uint32_t halo_stride = align1024(halo_bytes);
   const uint32_t b_smem = base;                         // STAGES x B stage
   const uint32_t a_smem = base + STAGES * L::B_STAGE;   // NBOX halo boxes
   uint8_t* const x_tile = gbase + (a_smem - base) + L::NBOX * halo_stride;
   float* const params = reinterpret_cast<float*>(x_tile + BM * X_ROW);
-  const uint32_t bars = smem_u32(params + NPARAMS * COLS);
-  auto full_bar = [&](int s) { return bars + 8 * s; };
-  auto empty_bar = [&](int s) { return bars + 8 * (STAGES + s); };
-  const uint32_t halo_bar = bars + 16 * STAGES;
-  const uint32_t x_bar = halo_bar + 8;
+  const Bars<STAGES> bars{smem_u32(params + NPARAMS * COLS)};
 
   const int n = blockIdx.z;
   const int y0 = (blockIdx.x / tiles_w) * (BM >> tw_log2);
@@ -451,15 +650,7 @@ __device__ __forceinline__ void spade_style_sm90(
     return (((long long)n * H + gy) * W + gx) * C + c_base + c;
   };
 
-  if (threadIdx.x == 0) {
-    for (int s = 0; s < STAGES; ++s) {
-      mbar_init(full_bar(s), 1);
-      mbar_init(empty_bar(s), CONSUMER_WARPS);
-    }
-    mbar_init(halo_bar, 1);
-    mbar_init(x_bar, STAGERS);
-    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
-  }
+  bars.init(STAGERS);
   __syncthreads();
 
   if (warp >= CONSUMER_WARPS) {                 // the producer warpgroup
@@ -493,111 +684,22 @@ __device__ __forceinline__ void spade_style_sm90(
         params[4 * COLS + c] = in ? bcat[2 * ch] : 0.f;
         params[5 * COLS + c] = in ? bcat[2 * ch + 1] : 0.f;
       }
-      mbar_arrive(x_bar);
+      mbar_arrive(bars.x());
     } else if (threadIdx.x == 32 * CONSUMER_WARPS) {   // the TMA issuer
-      mbar_expect_tx(halo_bar, L::NBOX * halo_bytes);
-      for (int h = 0; h < L::NBOX; ++h)
-        tma_load_4d(a_smem + h * halo_stride, tm_actv, halo_bar, h * Op::BK,
-                    x0 - 1, y0 - 1, n);
-      // k-step s: tap s / NBOX, k from (s % NBOX) * BK; the parts of one
-      // stage (float32: hi, lo) are 9 * np_cols rows apart
-      for (int s = 0; s < L::KSTEPS; ++s) {
-        const int st = s % STAGES;
-        if (s >= STAGES) mbar_wait(empty_bar(st), ((s / STAGES) - 1) & 1);
-        mbar_expect_tx(full_bar(st), L::B_STAGE);
-        for (int p = 0; p < Op::PARTS; ++p)
-          tma_load_2d(b_smem + st * L::B_STAGE + p * L::B_TILE, tm_w,
-                      full_bar(st), (s % L::NBOX) * Op::BK,
-                      (p * 9 + s / L::NBOX) * np_cols + col0);
-      }
+      load_operands<Op, BN>(tm_actv, tm_w, a_smem, halo_stride, halo_bytes,
+                            b_smem, bars, x0, y0, n, col0, np_cols);
     }
   } else {                                      // the consumer warpgroups
     asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;" ::"n"(CONSUMER_REGS));
-    // warpgroup wg owns tile rows 64 wg .. 64 wg + 63
-    const int wg = warp / 4;
-    // the A row this lane addresses for ldmatrix, and its 16-byte k chunk
-    const int m_lane = wg * 64 + (warp % 4) * 16 + (lane & 15);
-    const int a_row0 = (m_lane >> tw_log2) * halo_w + (m_lane & (tw - 1));
-    const int kc = lane >> 4;
-
-    // A fragments of k-step s: tap s / NBOX (dy, dx) over the channels of
-    // halo box s % NBOX, four 32-byte k slices
-    auto load_a = [&](uint32_t (&a)[4][Op::PARTS][4], int s) {
-      const int tap = s / L::NBOX;
-      const int r = a_row0 + (tap / 3) * halo_w + tap % 3;
-      const uint32_t row = a_smem + (s % L::NBOX) * halo_stride + r * ROW_BYTES;
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk) {
-        ldmatrix_x4(a[kk][0], row + (((2 * kk + kc) ^ (r & 7)) << 4));
-        Op::split(a[kk]);
-      }
-    };
-
     float acc[BN / 2];
-#pragma unroll
-    for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
-    // step s: issue its wgmmas from a (the first one overwrites acc when
-    // `fresh`), then wait for step s - 1's (for all, step s's too, when
-    // `last`), release step s - 1's B stage and load step s + 1's A into
-    // `next`, which step s - 1 read
-    auto step = [&](int s, const uint32_t (&a)[4][Op::PARTS][4],
-                    uint32_t (&next)[4][Op::PARTS][4], bool fresh,
-                    bool last) {
-      const int st = s % STAGES;
-      mbar_wait(full_bar(st), (s / STAGES) & 1);
-      fence_acc(acc);
-      wgmma_fence();
-      const uint32_t b = b_smem + st * L::B_STAGE;
-      const uint64_t desc = sw128_desc(b), desc_lo = sw128_desc(b + L::B_TILE);
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk)      // 32 bytes = 2 descriptor units
-        Op::mma(acc, a[kk], desc + 2 * kk, desc_lo + 2 * kk, fresh && kk == 0);
-      wgmma_commit();
-      if (last)
-        wgmma_wait<0>();
-      else
-        wgmma_wait<1>();
-      fence_acc(acc);
-      if (s > 0 && lane == 0) mbar_arrive(empty_bar((s - 1) % STAGES));
-      if (s + 1 < L::KSTEPS) load_a(next, s + 1);
-    };
-    uint32_t a[2][4][Op::PARTS][4];
-    mbar_wait(halo_bar, 0);
-    load_a(a[0], 0);
-    if constexpr (Op::FLUSH_TAPS == 0) {
-#pragma unroll
-      for (int s = 0; s < L::KSTEPS; ++s)
-        step(s, a[s & 1], a[(s + 1) & 1], false, false);
-      wgmma_wait<0>();
-      fence_acc(acc);
-    } else {
-      // one tap per trip; every FLUSH_TAPS taps, acc is added to the total
-      float total[BN / 2];
-#pragma unroll
-      for (int i = 0; i < BN / 2; ++i) total[i] = 0.f;
-#pragma unroll 1
-      for (int tap = 0; tap < 9; ++tap) {
-        const bool fresh = tap % Op::FLUSH_TAPS == 0;
-        const bool last = (tap + 1) % Op::FLUSH_TAPS == 0;
-#pragma unroll
-        for (int j = 0; j < L::NBOX; ++j)
-          step(tap * L::NBOX + j, a[j & 1], a[(j + 1) & 1], fresh && j == 0,
-               last && j == L::NBOX - 1);
-        if (last) {
-#pragma unroll
-          for (int i = 0; i < BN / 2; ++i) total[i] += acc[i];
-        }
-      }
-#pragma unroll
-      for (int i = 0; i < BN / 2; ++i) acc[i] = total[i];
-    }
+    mainloop<Op, BN>(acc, a_smem, halo_stride, b_smem, bars, tw_log2);
 
     // epilogue: acc[4i + 2h + j] is row (lane / 4) + 8h of this warp's 16,
     // column col0 + 8i + 2 (lane % 4) + j, i.e. tile channel
     // 4i + lane % 4, gamma for j = 0 and beta for j = 1; out is written
     // over x in the tile
-    const int m0 = wg * 64 + (warp % 4) * 16 + (lane >> 2);
-    mbar_wait(x_bar, 0);
+    const int m0 = (warp / 4) * 64 + (warp % 4) * 16 + (lane >> 2);
+    mbar_wait(bars.x(), 0);
 #pragma unroll
     for (int i = 0; i < BN / 8; ++i) {
       const int c = 4 * i + (lane & 3);
@@ -636,6 +738,236 @@ __device__ __forceinline__ void spade_style_sm90(
   }
 }
 
+// The backward's shared-memory layout at BN gamma columns (bfloat16): B
+// stages, halo boxes, the x (then dx) and dout (then dgamma) tiles with
+// rows padded by 16 bytes as the forward's, the per-channel params, each
+// consumer warp's sums, the mbarriers, and the 1024-byte alignment slack.
+template <int BN>
+struct BwdTile {
+  using L = Tile<Bf16Operand, BN>;
+  static constexpr int VEC = 8;                 // bfloat16 per 16 bytes
+  static constexpr uint32_t X_ROW = BN * 2 + 16;
+  static __host__ __device__ constexpr uint32_t smem_bytes(int tw_log2) {
+    return Bf16Operand::STAGES * L::B_STAGE +
+           L::NBOX * align1024(halo_box_bytes(tw_log2)) + 2 * BM * X_ROW +
+           (BWD_PARAMS + CONSUMER_WARPS * BWD_SUMS) * BN * 4 +
+           8 * (2 * Bf16Operand::STAGES + 2) + 1024;
+  }
+};
+
+static_assert(BwdTile<128>::smem_bytes(4) <= 232448,
+              "backward tile exceeds a block's shared memory");
+
+// One block of one site's backward, bfloat16, BN gamma columns = channels
+// c_base .. c_base + BN - 1.  tm_actv as the forward's; tm_w: the gamma-only
+// packed weights (9 * np_cols, 128), row tap * np_cols + c holding wg[c, :,
+// tap].  x, dout, dx: (N, H, W, C); dgb: (N, H, W, 2C), [dgamma | dbeta].
+// style: (N, 2C) f32; mean, var: (N, C) f32; bcat: (C, 2) f32.  partial:
+// (N, tiles, BWD_SUMS, C) f32, this block's sums at [n, blockIdx.x].
+template <int BN>
+__device__ __forceinline__ void spade_style_bwd_sm90(
+    const CUtensorMap* tm_actv, const CUtensorMap* tm_w,
+    const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ dout,
+    const float* __restrict__ style, const float* __restrict__ mean,
+    const float* __restrict__ var, const float* __restrict__ bcat,
+    __nv_bfloat16* __restrict__ dx, __nv_bfloat16* __restrict__ dgb,
+    float* __restrict__ partial, int H, int W, int C, int np_cols,
+    int tw_log2, int tiles_w, int tiles, float eps) {
+  using Op = Bf16Operand;
+  using T = __nv_bfloat16;
+  using L = Tile<Op, BN>;
+  constexpr int STAGES = Op::STAGES, VEC = BwdTile<BN>::VEC;
+  constexpr int PER_ROW = BN / VEC;             // 16-byte vectors per row
+  constexpr uint32_t X_ROW = BwdTile<BN>::X_ROW;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  uint8_t* const gbase = smem_raw + (base - smem_u32(smem_raw));  // generic
+  const int tw = 1 << tw_log2;
+  const uint32_t halo_bytes = halo_box_bytes(tw_log2);
+  const uint32_t halo_stride = align1024(halo_bytes);
+  const uint32_t b_smem = base;
+  const uint32_t a_smem = base + STAGES * L::B_STAGE;
+  uint8_t* const x_tile = gbase + (a_smem - base) + L::NBOX * halo_stride;
+  uint8_t* const d_tile = x_tile + BM * X_ROW;
+  // mean, rstd, s0 + 1, bg; then sums[warp][q][c]
+  float* const params = reinterpret_cast<float*>(d_tile + BM * X_ROW);
+  float* const sums = params + BWD_PARAMS * BN;
+  const Bars<STAGES> bars{smem_u32(sums + CONSUMER_WARPS * BWD_SUMS * BN)};
+
+  const int n = blockIdx.z;
+  const int y0 = (blockIdx.x / tiles_w) * (BM >> tw_log2);
+  const int x0 = (blockIdx.x % tiles_w) * tw;
+  const int c_base = blockIdx.y * BN;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const long long C2 = 2LL * C;
+  const bool vec = C % VEC == 0 && (((uintptr_t)x | (uintptr_t)dout |
+                                     (uintptr_t)dx | (uintptr_t)dgb) & 15) == 0;
+  // pixel (index into N x H x W) of tile row m; -1 outside the map
+  auto pixel = [&](int m) -> long long {
+    const int gy = y0 + (m >> tw_log2), gx = x0 + (m & (tw - 1));
+    if (gy >= H || gx >= W) return -1;
+    return ((long long)n * H + gy) * W + gx;
+  };
+
+  bars.init(STAGERS);
+  __syncthreads();
+
+  if (warp >= CONSUMER_WARPS) {                 // the producer warpgroup
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;" ::"n"(PRODUCER_REGS));
+    if (warp > CONSUMER_WARPS) {                // stage x, dout and params
+      const int t = threadIdx.x - 32 * (CONSUMER_WARPS + 1);
+      if (vec) {
+        for (int v = t; v < BM * PER_ROW; v += STAGERS) {
+          const int m = v / PER_ROW, c = VEC * (v % PER_ROW);
+          const long long p = pixel(m);
+          const bool in = p >= 0 && c_base + c < C;
+          const long long e = in ? p * C + c_base + c : 0;
+          cp_async16(smem_u32(x_tile + m * X_ROW + 2 * c), x + e, in ? 16 : 0);
+          cp_async16(smem_u32(d_tile + m * X_ROW + 2 * c), dout + e,
+                     in ? 16 : 0);
+        }
+        cp_async_wait_all();
+        // dbeta = dout / 2 (exact in bfloat16), from the vectors this thread
+        // copied
+        for (int v = t; v < BM * PER_ROW; v += STAGERS) {
+          const int m = v / PER_ROW, c = VEC * (v % PER_ROW);
+          const long long p = pixel(m);
+          if (p < 0 || c_base + c >= C) continue;
+          uint4 val = *reinterpret_cast<const uint4*>(d_tile + m * X_ROW +
+                                                       2 * c);
+          __nv_bfloat162* const pair = reinterpret_cast<__nv_bfloat162*>(&val);
+#pragma unroll
+          for (int k = 0; k < 4; ++k) {
+            const float2 f = __bfloat1622float2(pair[k]);
+            pair[k] = __floats2bfloat162_rn(0.5f * f.x, 0.5f * f.y);
+          }
+          *reinterpret_cast<uint4*>(dgb + p * C2 + C + c_base + c) = val;
+        }
+      } else {
+        for (int v = t; v < BM * BN; v += STAGERS) {
+          const int m = v / BN, c = v % BN;
+          const long long p = pixel(m);
+          const bool in = p >= 0 && c_base + c < C;
+          const T xv = in ? x[p * C + c_base + c] : __float2bfloat16(0.f);
+          const T dv = in ? dout[p * C + c_base + c] : __float2bfloat16(0.f);
+          reinterpret_cast<T*>(x_tile + m * X_ROW)[c] = xv;
+          reinterpret_cast<T*>(d_tile + m * X_ROW)[c] = dv;
+          if (in)
+            dgb[p * C2 + C + c_base + c] =
+                __float2bfloat16(0.5f * __bfloat162float(dv));
+        }
+      }
+      for (int c = t; c < BN; c += STAGERS) {
+        const int ch = c_base + c;
+        const bool in = ch < C;
+        const size_t nc = (size_t)n * C + ch;
+        params[c] = in ? mean[nc] : 0.f;
+        params[BN + c] = in ? rsqrtf(var[nc] + eps) : 0.f;
+        params[2 * BN + c] = in ? style[(size_t)n * 2 * C + ch] + 1.f : 0.f;
+        params[3 * BN + c] = in ? bcat[2 * ch] : 0.f;
+      }
+      mbar_arrive(bars.x());
+    } else if (threadIdx.x == 32 * CONSUMER_WARPS) {   // the TMA issuer
+      load_operands<Op, BN>(tm_actv, tm_w, a_smem, halo_stride, halo_bytes,
+                            b_smem, bars, x0, y0, n, c_base, np_cols);
+    }
+  } else {                                      // the consumer warpgroups
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;" ::"n"(CONSUMER_REGS));
+    float acc[BN / 2];
+    mainloop<Op, BN>(acc, a_smem, halo_stride, b_smem, bars, tw_log2);
+
+    // epilogue: acc[4i + 2h + j] is gamma - bg at row m0 + 8h, tile channel
+    // c0 + j with c0 = 8i + 2 (lane % 4); dx is written over x and dgamma
+    // over dout in the tiles
+    const int m0 = (warp / 4) * 64 + (warp % 4) * 16 + (lane >> 2);
+    const bool b16 = lane & 16, b8 = lane & 8, b4 = lane & 4;
+    mbar_wait(bars.x(), 0);
+#pragma unroll
+    for (int i = 0; i < BN / 8; ++i) {
+      const int c0 = 8 * i + 2 * (lane & 3);
+      // v[2q + j]: sum q of channel c0 + j over this thread's two rows
+      float v[2 * BWD_SUMS];
+#pragma unroll
+      for (int k = 0; k < 2 * BWD_SUMS; ++k) v[k] = 0.f;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        __nv_bfloat162* const px = reinterpret_cast<__nv_bfloat162*>(
+            x_tile + (m0 + 8 * h) * X_ROW + 2 * c0);
+        __nv_bfloat162* const pd = reinterpret_cast<__nv_bfloat162*>(
+            d_tile + (m0 + 8 * h) * X_ROW + 2 * c0);
+        const float2 xv = __bfloat1622float2(*px), dv = __bfloat1622float2(*pd);
+        float dxo[2], dgo[2];
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          const int c = c0 + j;
+          const float hv = 0.5f * (j ? dv.y : dv.x);
+          const float xm = (j ? xv.y : xv.x) - params[c];
+          const float rstd = params[BN + c];
+          const float g1 = 1.f + (acc[4 * i + 2 * h + j] + params[3 * BN + c]);
+          dgo[j] = hv * (xm * rstd);
+          dxo[j] = hv * (g1 * rstd + params[2 * BN + c]);
+          v[j] += hv;
+          v[2 + j] += hv * xm;
+          v[4 + j] += hv * g1;
+          v[6 + j] += hv * g1 * xm;
+        }
+        *px = __floats2bfloat162_rn(dxo[0], dxo[1]);
+        *pd = __floats2bfloat162_rn(dgo[0], dgo[1]);
+      }
+      // reduce-scatter over the warp's 8 row groups (lane bits 2-4): each
+      // step keeps half of the values and adds the partner's copy of them;
+      // lane then holds v[lane / 4] summed over the warp's 16 rows
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const float send = b16 ? v[k] : v[k + 4];
+        v[k] = (b16 ? v[k + 4] : v[k]) + __shfl_xor_sync(~0u, send, 16);
+      }
+#pragma unroll
+      for (int k = 0; k < 2; ++k) {
+        const float send = b8 ? v[k] : v[k + 2];
+        v[k] = (b8 ? v[k + 2] : v[k]) + __shfl_xor_sync(~0u, send, 8);
+      }
+      const float send = b4 ? v[0] : v[1];
+      v[0] = (b4 ? v[1] : v[0]) + __shfl_xor_sync(~0u, send, 4);
+      const int k = lane >> 2;
+      sums[(warp * BWD_SUMS + k / 2) * BN + c0 + (k & 1)] = v[0];
+    }
+    consumer_sync();
+    const int t = threadIdx.x;
+    if (vec) {
+      for (int v = t; v < BM * PER_ROW; v += 32 * CONSUMER_WARPS) {
+        const int m = v / PER_ROW, c = VEC * (v % PER_ROW);
+        const long long p = pixel(m);
+        if (p < 0 || c_base + c >= C) continue;
+        *reinterpret_cast<uint4*>(dx + p * C + c_base + c) =
+            *reinterpret_cast<const uint4*>(x_tile + m * X_ROW + 2 * c);
+        *reinterpret_cast<uint4*>(dgb + p * C2 + c_base + c) =
+            *reinterpret_cast<const uint4*>(d_tile + m * X_ROW + 2 * c);
+      }
+    } else {
+      for (int v = t; v < BM * BN; v += 32 * CONSUMER_WARPS) {
+        const int m = v / BN, c = v % BN;
+        const long long p = pixel(m);
+        if (p < 0 || c_base + c >= C) continue;
+        dx[p * C + c_base + c] = reinterpret_cast<const T*>(x_tile + m * X_ROW)[c];
+        dgb[p * C2 + c_base + c] =
+            reinterpret_cast<const T*>(d_tile + m * X_ROW)[c];
+      }
+    }
+    // the block's sums, over the warps in a fixed order
+    for (int v = t; v < BWD_SUMS * BN; v += 32 * CONSUMER_WARPS) {
+      const int q = v / BN, c = v % BN;
+      if (c_base + c >= C) continue;
+      float s = 0.f;
+#pragma unroll
+      for (int w = 0; w < CONSUMER_WARPS; ++w)
+        s += sums[(w * BWD_SUMS + q) * BN + c];
+      partial[(((long long)n * tiles + blockIdx.x) * BWD_SUMS + q) * C +
+              c_base + c] = s;
+    }
+  }
+}
+
 // bfloat16, BN = 128 or 256.
 template <int BN>
 __global__ void __launch_bounds__(THREADS, 1)
@@ -670,6 +1002,27 @@ spade_style_3xtf32_sm90_kernel(const __grid_constant__ CUtensorMap tm_actv,
                                        tiles_w, eps);
 }
 
+// The backward, bfloat16, BN = 64 or 128 gamma columns.
+template <int BN>
+__global__ void __launch_bounds__(THREADS, 1)
+spade_style_sm90_kernel_bwd(const __grid_constant__ CUtensorMap tm_actv,
+                            const __grid_constant__ CUtensorMap tm_w,
+                            const __nv_bfloat16* __restrict__ x,
+                            const __nv_bfloat16* __restrict__ dout,
+                            const float* __restrict__ style,
+                            const float* __restrict__ mean,
+                            const float* __restrict__ var,
+                            const float* __restrict__ bcat,
+                            __nv_bfloat16* __restrict__ dx,
+                            __nv_bfloat16* __restrict__ dgb,
+                            float* __restrict__ partial, int H, int W, int C,
+                            int np_cols, int tw_log2, int tiles_w, int tiles,
+                            float eps) {
+  spade_style_bwd_sm90<BN>(&tm_actv, &tm_w, x, dout, style, mean, var, bcat,
+                           dx, dgb, partial, H, W, C, np_cols, tw_log2,
+                           tiles_w, tiles, eps);
+}
+
 typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType,
                                   cuuint32_t, void*, const cuuint64_t*,
                                   const cuuint64_t*, const cuuint32_t*,
@@ -699,8 +1052,9 @@ EncodeTiledFn encode_tiled() {
 
 constexpr int ERR_NO_TENSOR_MAP = -1;    // see seg2eye_cuda_error_string
 constexpr int ERR_TENSOR_MAP = -2;
+constexpr int ERR_TILES = -3;
 
-// The arguments of every entry point.
+// The arguments of every forward entry point.
 struct Site {
   int device;
   const void *actv, *x, *style, *mean, *var, *wcat, *bcat;
@@ -710,58 +1064,116 @@ struct Site {
   void* stream;
 };
 
+// The pixel tiling of an (H, W) map: TW = 8 where W <= 8, else 16; TH =
+// BM / TW.
+struct Tiling {
+  int tw_log2, tw, th, tiles_w, tiles_h;
+  Tiling(int H, int W)
+      : tw_log2(W <= 8 ? 3 : 4), tw(1 << tw_log2), th(BM >> tw_log2),
+        tiles_w((W + tw - 1) / tw), tiles_h((H + th - 1) / th) {}
+};
+
+// Encodes the two tensor maps of a block of (Op, BN): the haloed actv (N, H,
+// W, 128) and packed weights of w_rows rows of 128.
+template <class Op, int BN>
+int encode_maps(CUtensorMap* tm_actv, CUtensorMap* tm_w, const void* actv,
+                const void* w, int N, int H, int W, int w_rows,
+                const Tiling& t) {
+  constexpr cuuint64_t E = sizeof(typename Op::T);
+  EncodeTiledFn encode = encode_tiled();
+  if (encode == nullptr) return ERR_NO_TENSOR_MAP;
+  const cuuint32_t ones[4] = {1, 1, 1, 1};
+  const cuuint64_t a_dim[4] = {NHIDDEN, (cuuint64_t)W, (cuuint64_t)H,
+                               (cuuint64_t)N};
+  const cuuint64_t a_stride[3] = {NHIDDEN * E, (cuuint64_t)W * NHIDDEN * E,
+                                  (cuuint64_t)H * W * NHIDDEN * E};
+  const cuuint32_t a_box[4] = {Op::BK, (cuuint32_t)t.tw + 2,
+                               (cuuint32_t)t.th + 2, 1};
+  if (encode(tm_actv, Op::TMA_TYPE, 4, const_cast<void*>(actv), a_dim,
+             a_stride, a_box, ones, CU_TENSOR_MAP_INTERLEAVE_NONE,
+             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
+    return ERR_TENSOR_MAP;
+  const cuuint64_t w_dim[2] = {NHIDDEN, (cuuint64_t)w_rows};
+  const cuuint64_t w_stride[1] = {NHIDDEN * E};
+  const cuuint32_t w_box[2] = {Op::BK, BN};
+  if (encode(tm_w, Op::TMA_TYPE, 2, const_cast<void*>(w), w_dim, w_stride,
+             w_box, ones, CU_TENSOR_MAP_INTERLEAVE_NONE,
+             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
+    return ERR_TENSOR_MAP;
+  return 0;
+}
+
 // Encodes the two tensor maps and launches `kernel`, the (Op, BN) block.
 template <class Op, int BN, class Kernel>
 int launch(Kernel kernel, const Site& a) {
   using T = typename Op::T;
-  constexpr cuuint64_t E = sizeof(T);
   cudaError_t err = cudaSetDevice(a.device);
   if (err != cudaSuccess) return (int)err;
-  EncodeTiledFn encode = encode_tiled();
-  if (encode == nullptr) return ERR_NO_TENSOR_MAP;
 
   // the packed weights' columns: 2C rounded up to 128 where 2C <= 128, else
   // to 256 (pack_weights does the same); BN divides it
   const int cols_tile = 2 * a.C <= 128 ? 128 : 256;
   const int np_cols = (2 * a.C + cols_tile - 1) / cols_tile * cols_tile;
-  const int tw_log2 = a.W <= 8 ? 3 : 4;
-  const int tw = 1 << tw_log2, th = BM >> tw_log2;
-  const cuuint32_t ones[4] = {1, 1, 1, 1};
-
+  const Tiling t(a.H, a.W);
   CUtensorMap tm_actv, tm_w;
-  const cuuint64_t a_dim[4] = {NHIDDEN, (cuuint64_t)a.W, (cuuint64_t)a.H,
-                               (cuuint64_t)a.N};
-  const cuuint64_t a_stride[3] = {NHIDDEN * E, (cuuint64_t)a.W * NHIDDEN * E,
-                                  (cuuint64_t)a.H * a.W * NHIDDEN * E};
-  const cuuint32_t a_box[4] = {Op::BK, (cuuint32_t)tw + 2, (cuuint32_t)th + 2,
-                               1};
-  if (encode(&tm_actv, Op::TMA_TYPE, 4, const_cast<void*>(a.actv), a_dim,
-             a_stride, a_box, ones, CU_TENSOR_MAP_INTERLEAVE_NONE,
-             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
-    return ERR_TENSOR_MAP;
-  const cuuint64_t w_dim[2] = {NHIDDEN,
-                               (cuuint64_t)Op::PARTS * 9 * np_cols};
-  const cuuint64_t w_stride[1] = {NHIDDEN * E};
-  const cuuint32_t w_box[2] = {Op::BK, BN};
-  if (encode(&tm_w, Op::TMA_TYPE, 2, const_cast<void*>(a.wcat), w_dim,
-             w_stride, w_box, ones, CU_TENSOR_MAP_INTERLEAVE_NONE,
-             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
-    return ERR_TENSOR_MAP;
+  const int enc = encode_maps<Op, BN>(&tm_actv, &tm_w, a.actv, a.wcat, a.N,
+                                      a.H, a.W, Op::PARTS * 9 * np_cols, t);
+  if (enc != 0) return enc;
 
-  const uint32_t smem = Tile<Op, BN>::smem_bytes(tw_log2);
+  const uint32_t smem = Tile<Op, BN>::smem_bytes(t.tw_log2);
   err = cudaFuncSetAttribute(kernel,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)smem);
   if (err != cudaSuccess) return (int)err;
-  const int tiles_w = (a.W + tw - 1) / tw;
-  const int tiles_h = (a.H + th - 1) / th;
-  const dim3 grid(tiles_h * tiles_w, np_cols / BN, a.N);
+  const dim3 grid(t.tiles_h * t.tiles_w, np_cols / BN, a.N);
   kernel<<<grid, THREADS, smem, (cudaStream_t)a.stream>>>(
       tm_actv, tm_w, (const T*)a.x, (const float*)a.style,
       (const float*)a.mean, (const float*)a.var, (const float*)a.bcat,
-      (T*)a.out, a.H, a.W, a.C, np_cols, tw_log2, tiles_w, a.eps);
+      (T*)a.out, a.H, a.W, a.C, np_cols, t.tw_log2, t.tiles_w, a.eps);
+  return (int)cudaGetLastError();
+}
+
+// The arguments of the backward entry point.
+struct BwdSite {
+  int device;
+  const void *actv, *x, *dout, *style, *mean, *var, *wgam, *bcat;
+  void *dx, *dgb, *partial;
+  int N, H, W, C, tiles;
+  float eps;
+  void* stream;
+};
+
+// The backward's launch at BN gamma columns; `tiles` must be the pixel
+// tiles per sample that the partial sums were allocated for.
+template <int BN>
+int launch_bwd(const BwdSite& a) {
+  using T = __nv_bfloat16;
+  cudaError_t err = cudaSetDevice(a.device);
+  if (err != cudaSuccess) return (int)err;
+  const Tiling t(a.H, a.W);
+  if (a.tiles != t.tiles_h * t.tiles_w) return ERR_TILES;
+  // the gamma-only layout's columns: C rounded up to BN (pack_gamma_weights)
+  const int np_cols = (a.C + BN - 1) / BN * BN;
+  CUtensorMap tm_actv, tm_w;
+  const int enc = encode_maps<Bf16Operand, BN>(&tm_actv, &tm_w, a.actv,
+                                               a.wgam, a.N, a.H, a.W,
+                                               9 * np_cols, t);
+  if (enc != 0) return enc;
+
+  auto kernel = spade_style_sm90_kernel_bwd<BN>;
+  const uint32_t smem = BwdTile<BN>::smem_bytes(t.tw_log2);
+  err = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid(a.tiles, np_cols / BN, a.N);
+  kernel<<<grid, THREADS, smem, (cudaStream_t)a.stream>>>(
+      tm_actv, tm_w, (const T*)a.x, (const T*)a.dout, (const float*)a.style,
+      (const float*)a.mean, (const float*)a.var, (const float*)a.bcat,
+      (T*)a.dx, (T*)a.dgb, (float*)a.partial, a.H, a.W, a.C, np_cols,
+      t.tw_log2, t.tiles_w, a.tiles, a.eps);
   return (int)cudaGetLastError();
 }
 
@@ -796,6 +1208,22 @@ int spade_style_fwd_f32_3xtf32_sm90(int device, const void* actv,
   return launch<Tf32x3Operand, 128>(spade_style_3xtf32_sm90_kernel, a);
 }
 
+// The backward of one site, bfloat16.  actv, x, dout, dx: (N, H, W,
+// 128|C|C|C) contiguous, actv 16-byte aligned; dgb: (N, H, W, 2C).  wgam:
+// (9, np_cols, 128) with np_cols = C rounded up to 64 where C <= 64, else to
+// 128.  bcat as the forward's; partial: (N, tiles, 4, C) f32, tiles = the
+// map's pixel tiles per sample.
+int spade_style_bwd_bf16_sm90(int device, const void* actv, const void* x,
+                              const void* dout, const void* style,
+                              const void* mean, const void* var,
+                              const void* wgam, const void* bcat, void* dx,
+                              void* dgb, void* partial, int N, int H, int W,
+                              int C, int tiles, float eps, void* stream) {
+  const BwdSite a{device, actv, x, dout, style, mean, var, wgam, bcat,
+                  dx, dgb, partial, N, H, W, C, tiles, eps, stream};
+  return C <= 64 ? launch_bwd<64>(a) : launch_bwd<128>(a);
+}
+
 // Error codes of every entry point of the library: CUDA runtime errors, and
 // the negative codes of the tensor-map encoding.
 const char* seg2eye_cuda_error_string(int err) {
@@ -803,6 +1231,8 @@ const char* seg2eye_cuda_error_string(int err) {
     return "cuTensorMapEncodeTiled is not available (TMA needs CUDA 12 or "
            "later)";
   if (err == ERR_TENSOR_MAP) return "cuTensorMapEncodeTiled refused a tensor map";
+  if (err == ERR_TILES)
+    return "the partial sums were allocated for another number of tiles";
   return cudaGetErrorString((cudaError_t)err);
 }
 

@@ -27,8 +27,11 @@ Where each span opens, and what reads it:
     ``target_original``);
   * ``K1_PACK``: each packing of K1's weights (``ops.spade_style.
     PackedWeights``), one span per packing;
-  * ``BACKWARD_RANGE``: the norm sites' backward recompute
-    (``ops.spade_style``), on the autograd engine's device thread.
+  * ``BACKWARD_RANGE``: the norm sites' backward (``ops.spade_style``:
+    the backward kernel's route in bfloat16, the plain recompute in
+    float32), on the autograd engine's device thread; its string, which
+    still says "plain recompute", is what the benchmark's
+    ``norm_bwd_ms.train`` reads, so it stays.
 
 On a card the backward's kernels are launched from the autograd device
 thread, so a span's device time is that of every op that starts inside

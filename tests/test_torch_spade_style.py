@@ -326,3 +326,203 @@ def test_sass_counts_per_kernel():
     assert _build.sass_counts(sass) == {
         "_Z23spade_style_sm90_kernel": {"HGMMA": 2, "FFMA": 1},
         "_Z30spade_style_3xtf32_sm90_kernel": {"HGMMA": 1, "FFMA": 1}}
+
+
+# the op's inputs that take a gradient, by index into the args
+GRAD_INPUTS = {"x": 0, "style": 2, "mean": 3, "var": 4, "ws": 5, "bs": 6,
+               "wg": 7, "bg": 8, "wb": 9, "bb": 10}
+# subsets of needs_input_grad: everything; no seg MLP (no dgrad into actv);
+# the seg MLP without the gamma/beta weights (no wgrad); no conv at all
+NEEDS = {"all": tuple(GRAD_INPUTS),
+         "x_style_wg": ("x", "style", "wg"),
+         "seg_mlp": ("ws", "bs"),
+         "per_channel": ("mean", "var", "bg", "bb")}
+BACKWARD_SHAPES = [(2, 7, 9, 12), (1, 8, 8, 64), (2, 5, 16, 130)]
+
+
+def _jax_grads(shape):
+    """jax.grad of sum(out * dout) of the JAX reference in every input of
+    GRAD_INPUTS, weights back in torch's OIHW; and the inputs and dout."""
+    n, h, w, c = shape
+    args = make_inputs(n=n, h=h, w=w, c=c, seed=1)
+    dout = np.random.default_rng(2).standard_normal((n, h, w, c)).astype(
+        np.float32)
+    idx = tuple(GRAD_INPUTS.values())
+
+    def loss(*leaves):
+        a = list(args)
+        for i, leaf in zip(idx, leaves):
+            a[i] = leaf
+        return jnp.sum(spade_style_reference(*a) * dout)
+
+    grads = jax.grad(loss, argnums=tuple(range(len(idx))))(
+        *(args[i] for i in idx))
+    out = {}
+    for (name, i), g in zip(GRAD_INPUTS.items(), grads):
+        g = np.asarray(g, np.float32)
+        out[name] = np.transpose(g, (3, 2, 0, 1)) if i in KERNEL_ARGS else g
+    return args, dout, out
+
+
+@pytest.mark.parametrize("needs", sorted(NEEDS))
+@pytest.mark.parametrize("shape", BACKWARD_SHAPES,
+                         ids=["x".join(map(str, s)) for s in BACKWARD_SHAPES])
+def test_backward_reference_matches_autograd_and_jax(shape, needs):
+    """The plain closed form of the backward kernel and its wrapper,
+    ``spade_style_backward_reference``, in float32 against autograd of the
+    plain version (float32 round-off: 1e-5 of each gradient's largest
+    element) and against jax.grad of the JAX reference (the existing
+    gradient tolerance), in each input that takes a gradient, at ragged
+    H, W and C, for subsets of needs_input_grad: an input not asked for
+    gets None."""
+    args, dout, want_jax = _jax_grads(shape)
+    targs = to_torch(args)
+    wanted = NEEDS[needs]
+    flags = tuple(any(GRAD_INPUTS[k] == i for k in wanted) for i in range(11))
+    got = K.spade_style_backward_reference(*targs, torch.tensor(dout),
+                                           needs=flags)
+    leaves = [t.clone().requires_grad_(f) for t, f in zip(targs, flags)]
+    out = K.spade_style_reference(*leaves)
+    want = torch.autograd.grad(out, [t for t in leaves if t.requires_grad],
+                               torch.tensor(dout))
+    assert [g is not None for g in got] == list(flags)
+    for name, g_auto in zip([k for k in GRAD_INPUTS if k in wanted], want):
+        g = got[GRAD_INPUTS[name]]
+        assert g.shape == targs[GRAD_INPUTS[name]].shape, name
+        scale = float(g_auto.abs().max())
+        torch.testing.assert_close(g, g_auto, rtol=1e-5, atol=1e-5 * scale,
+                                   msg=lambda m: f"{name}: {m}")
+        np.testing.assert_allclose(g.numpy(), want_jax[name], rtol=GRAD_TOL,
+                                   atol=GRAD_TOL, err_msg=name)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cpu_backward_builds_and_launches_nothing(monkeypatch, dtype):
+    """A CPU tensor's backward builds nothing, counts no backward kernel
+    and is the autograd of the plain version, bit for bit, in either
+    dtype."""
+    def no_build():
+        raise AssertionError("the CPU path must not build the kernels")
+
+    monkeypatch.setattr(_build, "build", no_build)
+    monkeypatch.setattr(K.spade_style, "backward_launches", 0)
+    args = to_torch(make_inputs(n=1, h=5, w=6, c=12))
+    args[0] = args[0].to(dtype)
+    graded = (0, 2, 5, 7)
+    grads = []
+    for fn in (K.spade_style, K.spade_style_reference):
+        leaves = [a.clone().requires_grad_(i in graded)
+                  for i, a in enumerate(args)]
+        out = fn(*leaves)
+        dout = torch.ones_like(out)
+        out.backward(dout)
+        grads.append([leaves[i].grad for i in graded])
+    assert K.spade_style.backward_launches == 0
+    for got, want in zip(*grads):
+        torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("c", [12, 64, 130])
+def test_gamma_layout_rebuilds_the_gamma_conv(c):
+    """gamma rebuilt from the backward kernel's layout, as it sums it (per
+    tap a shifted (pixels x 128) @ (128 x BN) product per column tile, 64 k
+    at a time, in float32), equals the gamma conv with bfloat16-rounded
+    weights; the columns past C are zero."""
+    rng = np.random.default_rng(3)
+    n, h, w = 2, 5, 9
+    actv = torch.tensor(np.maximum(rng.standard_normal((n, h, w, 128)), 0),
+                        dtype=torch.float32)
+    wg = torch.tensor(0.1 * rng.standard_normal((c, 128, 3, 3)),
+                      dtype=torch.float32)
+    wgam = K.pack_gamma_weights(wg, torch.bfloat16)
+    tile = K.gamma_tile(c)
+    assert wgam.shape == (9, K.gamma_columns(c), K.NHIDDEN)
+    assert wgam.shape[1] % tile == 0 and wgam.shape[1] - c < tile
+    assert not wgam[:, c:].any()
+    halo = torch.nn.functional.pad(actv, (0, 0, 1, 1, 1, 1))
+    acc = torch.zeros(n, h, w, wgam.shape[1])
+    for tap in range(9):
+        dy, dx = divmod(tap, 3)
+        a = halo[:, dy:dy + h, dx:dx + w, :]
+        for k0 in (0, 64):
+            for j0 in range(0, wgam.shape[1], tile):
+                b = wgam[tap, j0:j0 + tile, k0:k0 + 64].float()
+                acc[..., j0:j0 + tile] += a[..., k0:k0 + 64] @ b.T
+    want = K._conv3x3(actv, wg.bfloat16().float(), torch.zeros(c))
+    torch.testing.assert_close(acc[..., :c], want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("hw,tiles", [((10, 8), 1), ((13, 7), 1),
+                                      ((20, 16), 3), ((320, 256), 640),
+                                      ((5, 16), 1), ((17, 17), 6)])
+def test_pixel_tiles(hw, tiles):
+    """The kernels' pixel tiles per sample: 128 pixels as 16 x 8 where W <=
+    8, else 8 x 16 (the C launcher refuses partial sums of another count)."""
+    assert K.pixel_tiles(*hw) == tiles
+
+
+def _emulated_backward_launch(x, actv, dout, style, mean, var, wgam, bcat,
+                              eps=K.EPS):
+    """The backward kernel's contract emulated on the CPU from its own
+    inputs: gamma from the gamma-only packed layout and bcat's bg column,
+    the epilogue in float32, [dgamma | dbeta], and the sums per
+    (sample, channel)."""
+    n, h, w, c = x.shape
+    halo = torch.nn.functional.pad(actv.float(), (0, 0, 1, 1, 1, 1))
+    gamma = torch.zeros(n, h, w, c)
+    for tap in range(9):
+        dy, dx_ = divmod(tap, 3)
+        gamma += halo[:, dy:dy + h, dx_:dx_ + w] @ wgam[tap, :c].float().T
+    gamma = gamma + bcat[:, 0]
+    hh = 0.5 * dout.float()
+    xm = x.float() - mean[:, None, None]
+    rstd = torch.rsqrt(var[:, None, None] + eps)
+    g1 = 1 + gamma
+    s0p1 = style[:, None, None, :c] + 1
+    dx = (hh * (g1 * rstd + s0p1)).to(x.dtype)
+    dgb = torch.cat([hh * xm * rstd, hh], -1).to(x.dtype)
+    sums = torch.stack([hh, hh * xm, hh * g1, hh * g1 * xm], 1).sum((2, 3))
+    K.spade_style.backward_launches += 1
+    return dx, dgb, sums
+
+
+def test_kernel_route_plumbing(monkeypatch):
+    """The bfloat16 CUDA route of the op's backward, with the launch
+    replaced by an emulation of the kernel's contract on the CPU: one
+    launch, the gamma layout from the forward's cache entry (no packing
+    of its own), and the closed form's gradients to bfloat16 rounding."""
+    monkeypatch.setattr(K, "spade_style_backward_cuda",
+                        _emulated_backward_launch)
+    monkeypatch.setattr(K.spade_style, "backward_launches", 0)
+    packed = K.PackedWeights()
+    monkeypatch.setattr(K, "packed_weights", packed)
+    args = to_torch(make_inputs(n=2, h=7, w=9, c=12, seed=4))
+    args[0] = args[0].bfloat16()
+    wg, bg, wb, bb = args[7:]
+    packed(wg, bg, wb, bb, torch.bfloat16)             # the forward's
+    dout = torch.tensor(np.random.default_rng(5).standard_normal(
+        args[0].shape), dtype=torch.bfloat16)
+    needs = tuple(i != 1 for i in range(11))
+    got = K._kernel_backward(args, needs, dout, K.EPS)
+    assert K.spade_style.backward_launches == 1 and packed.packings == 1
+    want = K.spade_style_backward_reference(*args, dout, needs=needs)
+    assert got[1] is None and want[1] is None
+    for i, (g, w_) in enumerate(zip(got, want)):
+        if i == 1:
+            continue
+        assert g.dtype == w_.dtype and g.shape == w_.shape, i
+        torch.testing.assert_close(g.float(), w_.float(), rtol=2e-2,
+                                   atol=2e-2 * float(w_.abs().max()),
+                                   msg=lambda m: f"input {i}: {m}")
+
+
+def test_backward_work_counts_the_kernels_traffic():
+    """The backward kernel's bound: the gamma product alone, actv, x, dout,
+    dx and [dgamma | dbeta] once in the compute dtype, the per-channel
+    float32 inputs, the weights and the block sums."""
+    n, h, w, c = 16, 320, 256, 64
+    flops, nbytes = K.backward_kernel_work((n, h, w, c), torch.bfloat16)
+    pixels = n * h * w
+    assert flops == 2 * pixels * 9 * 128 * c
+    assert nbytes == (pixels * (128 + 5 * c) * 2 + 12 * n * c
+                      + 9 * 128 * c * 2 + 4 * c + 4 * n * 640 * 4 * c)

@@ -202,3 +202,68 @@ def test_benchmark_copies_every_span_name():
     assert copied == program
     assert set(bench_spans.NAMES) | {spans.BACKWARD_RANGE} == set(spans.NAMES)
     assert len(set(spans.NAMES)) == len(spans.NAMES)
+
+
+@pytest.mark.parametrize("symbol", [
+    "void (anonymous namespace)::spade_style_sm90_kernel_bwd<128>("
+    "CUtensorMap_st, CUtensorMap_st, __nv_bfloat16 const*)",
+    "void (anonymous namespace)::spade_style_sm90_kernel_bwd<64>("
+    "CUtensorMap_st, CUtensorMap_st, __nv_bfloat16 const*)",
+    "_ZN12_GLOBAL__N_127spade_style_sm90_kernel_bwdILi128EEEv14CUtensorMap_st"])
+def test_backward_kernel_groups_with_k1(symbol):
+    """The backward kernel's name falls in the benchmark's K1 group, not in
+    cuDNN's: its ``sm90_`` would otherwise count it in ``conv_ms.train``."""
+    assert bench_trace.group_of(symbol) == "k1"
+
+
+def test_op_backward_is_one_backward_range():
+    """The op's backward, whatever its route, runs inside one
+    ``BACKWARD_RANGE`` span per site, the range ``norm_bwd_ms.train``
+    reads (``portbench.readers`` takes the name from ``portbench.trace``)."""
+    from portbench import readers
+
+    assert readers.BACKWARD_RANGE == spans.BACKWARD_RANGE
+    g = torch.Generator().manual_seed(1)
+    n, h, w, c = 2, 5, 6, 8
+    x = torch.randn(n, h, w, c, generator=g).requires_grad_()
+    seg = torch.nn.functional.one_hot(
+        torch.randint(0, 4, (n, h, w), generator=g), 4).float()
+    var, mean = torch.var_mean(x.detach(), dim=(0, 1, 2), correction=0)
+    args = [x, seg, torch.randn(n, 2 * c, generator=g), mean.expand(n, c),
+            var.expand(n, c), torch.randn(128, 4, 3, 3, generator=g),
+            torch.randn(128, generator=g),
+            torch.randn(c, 128, 3, 3, generator=g).requires_grad_(),
+            torch.randn(c, generator=g), torch.randn(c, 128, 3, 3, generator=g),
+            torch.randn(c, generator=g)]
+    events = _recorded(lambda: K.spade_style(*args).sum().backward())
+    assert [e.name for e in events] == [spans.BACKWARD_RANGE]
+    assert x.grad is not None and args[7].grad is not None
+
+
+def test_forward_then_backward_packs_once():
+    """The cache entry made on a miss holds both layouts: a bfloat16
+    forward's packing serves the backward's gamma-only layout and
+    cat(wg, wb) in bfloat16, one packing (one ``K1_PACK`` span) in all."""
+    g = torch.Generator().manual_seed(2)
+    c = 12
+    wg, wb = (torch.randn(c, K.NHIDDEN, 3, 3, generator=g) for _ in "gb")
+    bg, bb = torch.randn(c, generator=g), torch.randn(c, generator=g)
+    packed = K.PackedWeights()
+    calls = []
+
+    def forward_backward():
+        calls.append(packed(wg, bg, wb, bb, torch.bfloat16))
+        calls.append(packed.backward(wg, bg, wb, bb, torch.bfloat16))
+
+    events = _recorded(forward_backward)
+    assert packed.packings == 1
+    assert [e.name for e in events] == [spans.K1_PACK]
+    (wcat, bcat), (wgam, bcat_g, wgb) = calls
+    assert bcat_g is bcat
+    torch.testing.assert_close(
+        wgam, K.pack_gamma_weights(wg, torch.bfloat16), rtol=0, atol=0)
+    torch.testing.assert_close(
+        wgb, torch.cat([wg, wb]).bfloat16(), rtol=0, atol=0)
+    torch.testing.assert_close(
+        wcat, K.pack_weights(wg, bg, wb, bb, torch.bfloat16)[0], rtol=0,
+        atol=0)

@@ -19,8 +19,11 @@ kernel and copy intervals), the card's idle share (1 - busy / wall), the
 device time per group, all and launched by the backward (the kernels of
 the ops on the autograd engine's thread), the device time of the norm
 sites' backward (the kernels launched inside the ``spade_style``
-backward's profiler range: the recompute through the plain version and
-its gradient), and the heaviest kernels.  The process keeps PyTorch's default TF32 flags, as a user's
+backward's profiler range: in bfloat16 the seg MLP's recompute, the
+backward kernel, dgrad and wgrad; in float32 the recompute through the
+plain version and its gradient), and the heaviest kernels.  The bf16
+kernel group holds the backward kernel (``spade_style_sm90_kernel_bwd``)
+beside the forward's.  The process keeps PyTorch's default TF32 flags, as a user's
 would: a float32 model turns TF32 off around its own steps.
 """
 import argparse
@@ -156,8 +159,7 @@ def main(argv=None):
                   f"{sum(backward.values()) / 1e3:10.3f}  all kernels")
             print(f"  {sites / 1e3:10.3f} {sites / 1e3:10.3f}  of these, "
                   f"inside the norm sites' backward ({n_sites} per "
-                  "iteration: recompute through the plain version and its "
-                  "gradient)")
+                  "iteration)")
             top = sorted(per_kernel.items(), key=lambda kv: -kv[1][0])
             for kname, (us, n) in top[:args.top]:
                 print(f"    {us / args.steps / 1e3:9.3f} ms "
