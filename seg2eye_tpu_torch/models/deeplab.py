@@ -52,6 +52,8 @@ from seg2eye_tpu_torch.models.layers import (BatchNorm, Bottleneck, apply_conv,
                                              at_least_f32, make_conv)
 from seg2eye_tpu_torch.ops.image import resize_bilinear_ac
 from seg2eye_tpu_torch.parallel import data_parallel as dp
+from seg2eye_tpu_torch.utils.spans import (DEEPLAB_ASPP, DEEPLAB_BACKBONE,
+                                           DEEPLAB_DECODER, span)
 
 RESNET_LAYERS = {101: (3, 4, 23, 3), 50: (3, 4, 6, 3), 26: (2, 2, 2, 2),
                  14: (1, 1, 1, 1)}
@@ -256,7 +258,9 @@ class Decoder(nn.Module):
 
 
 class DeepLab(nn.Module):
-    """backbone -> ASPP -> decoder -> align-corners upsample to the input."""
+    """backbone -> ASPP -> decoder -> align-corners upsample to the input;
+    under a profiler each stage is a ``utils.spans`` span (the upsample
+    inside the decoder's)."""
 
     def __init__(self, backbone: str = "resnet", output_stride: int = 16,
                  num_classes: int = 21,
@@ -286,10 +290,14 @@ class DeepLab(nn.Module):
         """(B,3,H,W) in the compute dtype -> (B,num_classes,H,W) logits in
         that dtype."""
         x = x.contiguous(memory_format=torch.channels_last)
-        feat, low = self.backbone(x, train)
-        out = self.aspp(feat, train, generator)
-        out = self.decoder(out, low, train, generator)
-        return resize_bilinear_ac(out, x.shape[2], x.shape[3])
+        with span(DEEPLAB_BACKBONE):
+            feat, low = self.backbone(x, train)
+        with span(DEEPLAB_ASPP):
+            out = self.aspp(feat, train, generator)
+        with span(DEEPLAB_DECODER):
+            out = self.decoder(out, low, train, generator)
+            out = resize_bilinear_ac(out, x.shape[2], x.shape[3])
+        return out
 
 
 @torch.no_grad()

@@ -41,6 +41,7 @@ from torch import nn
 
 from seg2eye_tpu_torch.parallel import data_parallel as dp
 from seg2eye_tpu_torch.parallel import tensor_parallel as tp
+from seg2eye_tpu_torch.utils.spans import NCHW_COPY, span
 
 EPS = 1e-5
 
@@ -71,9 +72,11 @@ def apply_conv(x: torch.Tensor, conv: nn.Conv2d) -> torch.Tensor:
     the traced x is not contiguous, and its traced convolutions on CUDA
     come out NCHW where the card's are channels_last, so a serving
     program would run these convs on channels_last input (1273 ms a
-    batch on an H100, not 219)."""
+    batch on an H100, not 219).  Each copy is one ``utils.spans.
+    NCHW_COPY`` span under a profiler."""
     if nchw_copy(x, conv):
-        x = x.clone(memory_format=torch.contiguous_format)
+        with span(NCHW_COPY):
+            x = x.clone(memory_format=torch.contiguous_format)
     bias = None if conv.bias is None else conv.bias.to(x.dtype)
     return F.conv2d(x, conv.weight.to(x.dtype), bias, conv.stride,
                     conv.padding, conv.dilation, conv.groups)

@@ -20,7 +20,9 @@ refinenet/deeplab/train.py).
     and the loss in float32.  ``--freeze-bn`` runs BN on its running
     statistics, which stay untouched, with dropout still on.  Dropout
     draws from a generator seeded from (seed + 1, global step), as the
-    RefineNet trainer's; it cannot draw the JAX package's masks.
+    RefineNet trainer's; it cannot draw the JAX package's masks.  Under a
+    profiler the forward and loss, the backward and the all-reduce and
+    SGD step are the ``utils.spans`` phase spans.
   * ``eval_step``: forward on the running statistics, the loss, argmax
     and the confusion matrix on the device; ``validation`` pulls each
     batch's loss and matrix to the host in one copy.
@@ -73,6 +75,7 @@ from seg2eye_tpu_torch.segtrain.summaries import TensorboardSummary
 from seg2eye_tpu_torch.segtrain.weights import calculate_weights_labels
 from seg2eye_tpu_torch.utils import flax_msgpack, optim_state, weights
 from seg2eye_tpu_torch.utils.precision import full_float32
+from seg2eye_tpu_torch.utils.spans import BACKWARD, FORWARD, OPTIMIZER, span
 
 BATCH_KEYS = ("image", "label")
 HEAD_LR_SCALE = 10.0
@@ -211,12 +214,15 @@ class SegTrainer:
         set_lr(self.optimizer, lr)
         with full_float32(self.dtype == torch.float32):
             self.optimizer.zero_grad(set_to_none=True)
-            logits = self.net(self._input(image),
-                              not self.args.freeze_bn, generator)
-            loss = self.criterion(logits, target)
-            loss.backward()
-            dp.all_reduce_grads(self.net.parameters())
-            self.optimizer.step()
+            with span(FORWARD):
+                logits = self.net(self._input(image),
+                                  not self.args.freeze_bn, generator)
+                loss = self.criterion(logits, target)
+            with span(BACKWARD):
+                loss.backward()
+            with span(OPTIMIZER):
+                dp.all_reduce_grads(self.net.parameters())
+                self.optimizer.step()
         return loss.detach(), logits.detach()
 
     @torch.no_grad()

@@ -16,10 +16,19 @@ Where each span opens, and what reads it:
     ``--profile_steps``' chrome trace, where they tell the G step's
     forward, backward and optimizer from the D step's;
   * ``FORWARD``, ``BACKWARD``, ``OPTIMIZER``: inside every training step
-    (Seg2Eye's G and D steps, RefineNet's ``Trainer.train_step``): the
-    forward and loss (the D step's regenerated fake included), the
-    loss's backward, and the gradient all-reduce, clip, optimizer step
-    and buffer broadcast;
+    (Seg2Eye's G and D steps, RefineNet's ``Trainer.train_step``,
+    segtrain's ``SegTrainer.train_step``): the forward and loss (the D
+    step's regenerated fake included), the loss's backward, and the
+    gradient all-reduce, clip, optimizer step and buffer broadcast;
+  * ``DEEPLAB_BACKBONE``, ``DEEPLAB_ASPP``, ``DEEPLAB_DECODER``: the three
+    stages of ``models.deeplab.DeepLab.forward`` (the decoder's span
+    holds the last upsample to the input), in RefineNet and segtrain
+    alike, read by the benchmark's ``backbone_ms.train`` and
+    ``aspp_ms.train`` (forward device time: the backward's kernels start
+    outside them);
+  * ``NCHW_COPY``: each NCHW copy ``models.layers.apply_conv`` makes for
+    a conv (``layers.nchw_copy``), one span per copy: a counter, read by
+    ``nchw_copies.train``;
   * ``REFINENET_SERVE``: RefineNet's ``Trainer.eval_step``, whole;
   * ``SCORE``: ``Tester.score_batch``, whole;
   * ``TO_DEVICE``: host-to-device copies of batches
@@ -52,10 +61,15 @@ REFINENET_SERVE = "refinenet.serve"
 SCORE = "seg2eye.score"
 TO_DEVICE = "input.to_device"
 K1_PACK = "seg2eye.k1_pack"
+DEEPLAB_BACKBONE = "deeplab.backbone"
+DEEPLAB_ASPP = "deeplab.aspp"
+DEEPLAB_DECODER = "deeplab.decoder"
+NCHW_COPY = "layers.nchw_copy"
 BACKWARD_RANGE = "spade_style backward (plain recompute)"
 
 NAMES = (G_STEP, D_STEP, FORWARD, BACKWARD, OPTIMIZER, REFINENET_SERVE,
-         SCORE, TO_DEVICE, K1_PACK, BACKWARD_RANGE)
+         SCORE, TO_DEVICE, K1_PACK, DEEPLAB_BACKBONE, DEEPLAB_ASPP,
+         DEEPLAB_DECODER, NCHW_COPY, BACKWARD_RANGE)
 
 _OFF = contextlib.nullcontext()
 

@@ -9,6 +9,7 @@ import pytest
 import torch
 
 from portbench import spans as bench_spans
+from portbench import spans_deeplab as bench_spans_deeplab
 from portbench import trace as bench_trace
 from seg2eye_tpu_torch.data.openeds import to_device
 from seg2eye_tpu_torch.eval import tester as tester_lib
@@ -195,12 +196,19 @@ def test_backward_range_keeps_its_name():
 
 
 def test_benchmark_copies_every_span_name():
+    """The benchmark keeps the names in two files, ``portbench/spans.py``
+    and ``portbench/spans_deeplab.py`` (the DeepLab stages and the NCHW
+    copy): together, and with no name in both, they copy the program's."""
     program = {k: v for k, v in vars(spans).items()
                if k.isupper() and isinstance(v, str) and k != "BACKWARD_RANGE"}
-    copied = {k: v for k, v in vars(bench_spans).items()
-              if k.isupper() and isinstance(v, str)}
-    assert copied == program
-    assert set(bench_spans.NAMES) | {spans.BACKWARD_RANGE} == set(spans.NAMES)
+    copies = [{k: v for k, v in vars(module).items()
+               if k.isupper() and isinstance(v, str)}
+              for module in (bench_spans, bench_spans_deeplab)]
+    assert not set(copies[0]) & set(copies[1])
+    assert {**copies[0], **copies[1]} == program
+    assert not set(bench_spans.NAMES) & set(bench_spans_deeplab.NAMES)
+    assert set(bench_spans.NAMES) | set(bench_spans_deeplab.NAMES) \
+        | {spans.BACKWARD_RANGE} == set(spans.NAMES)
     assert len(set(spans.NAMES)) == len(spans.NAMES)
 
 
