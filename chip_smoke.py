@@ -195,6 +195,21 @@ Phases; any failure raises and the script exits non-zero:
      the card-vs-CPU limits, ``num_batches_tracked`` equal), every replica
      checked after each step, 36 K1 launches per rank.  The times are a
      correctness run's through the host;
+  14. batch statistics (after phase 13; ``ops.batch_stats``): the
+     forward kernels (Welford, merge) at the 18 site shapes (bs16,
+     bfloat16) and four odd ones (C not a multiple of 8, a misaligned x),
+     mean and var against float64 within STATS_RTOL (the float32 plain
+     version's error beside them), the backward kernel's dx bit for bit
+     equal to ``batch_stats_backward_reference``, its error against
+     float64 within STATS_DX_RATIO times the parent route's, and the
+     share within one bfloat16 ulp of var_mean's float32 gradient; each
+     kernel timed alone against its byte bound (2 and 4 B an element) and
+     against the parent route at the same sites; 36 forward and 18
+     backward launches in a bfloat16 training iteration, 18 and 0 in a
+     scored batch, none in float32; one bfloat16 site through
+     ``torch.export`` (one ``seg2eye::batch_stats`` call, the live site's
+     output bit for bit); a bfloat16 training iteration with and without
+     the kernels, in turns (ms and peak memory);
 Nothing of JAX, flax, optax, msgpack or the JAX package may have been
 imported.
 The port keeps float32 in full float32 by itself (its float32 forward and
@@ -721,17 +736,19 @@ def time_slice(tester, model, batch, repeats=5):
 @contextlib.contextmanager
 def plain_norm_sites():
     """Every generator norm site runs spade_style_reference, the plain
-    version, instead of the CUDA kernel."""
+    version, instead of the CUDA kernel, and takes its batch statistics
+    from torch.var_mean instead of ``ops.batch_stats``' kernels."""
     from seg2eye_tpu_torch.models import normalization
     from seg2eye_tpu_torch.ops import spade_style as K
 
-    kernel = normalization.spade_style
+    kernel, rule = normalization.spade_style, normalization.takes_kernel
     normalization.spade_style = (
         lambda *args: K.spade_style_reference(*args))
+    normalization.takes_kernel = lambda x: False
     try:
         yield
     finally:
-        normalization.spade_style = kernel
+        normalization.spade_style, normalization.takes_kernel = kernel, rule
 
 
 def phase_slice():
@@ -3935,6 +3952,279 @@ def phase_model_parallel():
             "tp_per_sample": grid[0]["launches"][0]}
 
 
+# ---------------------------------------------------------------- phase 14
+# the statistics of a site against the float64 plain version, per channel:
+# |d mean| / std and |d var| / var, worst channel.  float32 accumulation of
+# up to 1.3 M bfloat16 values; the float32 plain version (var_mean on the
+# float32 copy) is reported beside the kernels' as the contrast
+STATS_RTOL = 1e-5
+# x of the checks: N(STATS_OFFSET, 1) per element, bfloat16, so that a
+# one-pass sum of squares would lose about 2 log2(STATS_OFFSET) bits
+STATS_OFFSET = 4.0
+STATS_ODD = [(3, 5, 7, 12), (2, 13, 7, 72), (1, 10, 8, 16)]
+STATS_MISALIGNED = (2, 9, 8, 64)       # x one element past a 16-byte start
+# the kernels' launches per bfloat16 training iteration (the G step's
+# forward and the D step's regeneration; the G step's backward), per
+# scored batch, per float32 iteration
+STATS_LAUNCHES = {"train": (2 * len(SITES), len(SITES)),
+                  "score": (len(SITES), 0), "float32": (0, 0)}
+STATS_ROUTE_ROUNDS = 3
+# dx against float64 autograd, worst over the site relative to each
+# channel's scale: at most this many times the parent route's error (both
+# are the bfloat16 rounding of nearly the same float32 value; elementwise,
+# near dx = 0 the two float32 formulas differ by many bfloat16 ulps of a
+# tiny dx: 32 at one site on an H100)
+STATS_DX_RATIO = 1.5
+
+
+def stats_errors(var, mean, x):
+    """(worst |d mean| / std, worst |d var| / var) against float64."""
+    v64, m64 = torch.var_mean(x.double(), dim=(0, 1, 2), correction=0)
+    return (float(((mean.double() - m64).abs() / v64.sqrt()).max()),
+            float(((var.double() - v64).abs() / v64).max()))
+
+
+def stats_site(shape, gen, misaligned=False):
+    """x (N,H,W,C) bfloat16 on the card, and random (gvar, gmean)."""
+    n, h, w, c = shape
+    numel = n * h * w * c
+    flat = (torch.randn(numel + 1, generator=gen, device="cuda")
+            + STATS_OFFSET).to(torch.bfloat16)
+    x = (flat[1:] if misaligned else flat[:numel]).view(n, h, w, c)
+    return (x, torch.randn(c, generator=gen, device="cuda"),
+            torch.randn(c, generator=gen, device="cuda"))
+
+
+def stats_check(shape, x, gvar, gmean, failures):
+    """The forward against float64 (beside the float32 plain version); dx
+    bit for bit against the closed form, and against float64 autograd
+    beside the parent route (var_mean's float32 autograd, cast to
+    bfloat16), each worst |error| over the channel's scale |a| std +
+    |gmean| / M; the share of dx within one bfloat16 ulp of var_mean's
+    float32 gradient.  -> a row of numbers."""
+    from seg2eye_tpu_torch.ops import batch_stats as B
+
+    var, mean = B.batch_stats_cuda(x)
+    k_mean, k_var = stats_errors(var, mean, x)
+    p_var, p_mean = torch.var_mean(x.float(), dim=(0, 1, 2), correction=0)
+    p_mean_e, p_var_e = stats_errors(p_var, p_mean, x)
+    dx = B.batch_stats_backward_cuda(x, mean, gvar, gmean)
+    closed = B.batch_stats_backward_reference(x, mean, gvar, gmean)
+    unequal = int((dx != closed).sum())
+    grads = {}
+    for dtype in (torch.float32, torch.float64):
+        leaf = x.to(dtype).requires_grad_()
+        v, m = torch.var_mean(leaf, dim=(0, 1, 2), correction=0)
+        grads[dtype] = torch.autograd.grad(
+            (v, m), leaf, (gvar.to(dtype), gmean.to(dtype)))[0]
+    want, truth = grads[torch.float32], grads[torch.float64]
+    m_rows = x.numel() // x.shape[-1]
+    v64 = torch.var_mean(x.double(), dim=(0, 1, 2), correction=0)[0]
+    scale = (2 * gvar.double().abs() / m_rows * v64.sqrt()
+             + gmean.double().abs() / m_rows)
+    err_k = float(((dx.double() - truth).abs() / scale).max())
+    err_p = float(((want.to(x.dtype).double() - truth).abs() / scale).max())
+    ulp = torch.exp2(torch.floor(torch.log2(want.abs())) - 7)
+    within = float(((dx.float() - want).abs() <= ulp).float().mean())
+    if not (max(k_mean, k_var) <= STATS_RTOL and unequal == 0
+            and err_k <= STATS_DX_RATIO * err_p):
+        failures.append(f"{shape}: mean {k_mean:.2e}, var {k_var:.2e} "
+                        f"(limit {STATS_RTOL:g}), dx unequal to the closed "
+                        f"form at {unequal}, dx error {err_k:.3e} against "
+                        f"the parent route's {err_p:.3e}")
+    return k_mean, k_var, p_mean_e, p_var_e, unequal, err_k, err_p, within
+
+
+def stats_counts(label, run, want, failures):
+    """The kernels' launches in one ``run()`` after a warm-up one."""
+    from seg2eye_tpu_torch.ops import batch_stats as B
+
+    run()
+    torch.cuda.synchronize()
+    B.batch_stats.launches = B.batch_stats.backward_launches = 0
+    run()
+    torch.cuda.synchronize()
+    got = (B.batch_stats.launches, B.batch_stats.backward_launches)
+    log(f"  {label}: {got[0]} forward and {got[1]} backward launches "
+        f"(expected {want[0]} and {want[1]})")
+    if got != want:
+        failures.append(f"{label}: launches {got}, expected {want}")
+    return got
+
+
+def stats_routes(state, batch):
+    """Median ms/iteration and peak bytes of bfloat16 training with the
+    kernels and with the parent route (var_mean of a float32 copy), in
+    turns of 3 iterations from one state."""
+    from seg2eye_tpu_torch.models import normalization
+    from seg2eye_tpu_torch.train import steps
+
+    ms = {"kernels": [], "parent": []}
+    peak = {}
+    rule = normalization.takes_kernel
+    for _ in range(STATS_ROUTE_ROUNDS):
+        for route in ms:
+            normalization.takes_kernel = (rule if route == "kernels"
+                                          else (lambda t: False))
+            try:
+                steps.train_step(state, batch)
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                for _ in range(3):
+                    ms[route].append(timed_iteration(state, batch)[1])
+                peak[route] = torch.cuda.max_memory_allocated()
+            finally:
+                normalization.takes_kernel = rule
+    return {r: (statistics.median(v), peak[r]) for r, v in ms.items()}
+
+
+def stats_export(failures):
+    """One bfloat16 norm site on batch statistics (up_0's norm_s shape)
+    through ``torch.export`` on the card: the program calls
+    ``seg2eye::batch_stats`` once and gives the live site's output bit for
+    bit."""
+    from seg2eye_tpu_torch.models.normalization import SpadeStyleBlock
+
+    n, h, w, c = (SITE_N, *SITES[6])
+    gen = torch.Generator(device="cuda").manual_seed(22)
+    block = SpadeStyleBlock("batch", c, 4, 256).cuda()
+    x = torch.randn(n, c, h, w, generator=gen, device="cuda").to(
+        torch.bfloat16).contiguous(memory_format=torch.channels_last)
+    label = torch.randint(0, 4, (n, h, w), generator=gen, device="cuda")
+    seg = F.one_hot(label, 4).permute(0, 3, 1, 2).to(torch.bfloat16)
+    seg = seg.contiguous(memory_format=torch.channels_last)
+    style = torch.randn(n, 256, generator=gen, device="cuda")
+    with torch.no_grad():
+        program = torch.export.export(block, (x, seg, style))
+        want = block(x, seg, style)
+        got = program.module()(x, seg, style)
+    calls = sum(node.target == torch.ops.seg2eye.batch_stats.default
+                for node in program.graph.nodes)
+    equal = bool(torch.equal(got, want))
+    log(f"  torch.export of a bfloat16 site {(n, h, w, c)} on batch "
+        f"statistics: {calls} seg2eye::batch_stats call(s), output equal to "
+        f"the live site's: {equal}")
+    if calls != 1 or not equal:
+        failures.append(f"export: {calls} batch_stats calls, equal {equal}")
+
+
+def phase_batch_stats():
+    from seg2eye_tpu_torch.eval.tester import Tester
+    from seg2eye_tpu_torch.models.pix2pix import Pix2Pix
+    from seg2eye_tpu_torch.ops import batch_stats as B
+    from seg2eye_tpu_torch.options import Options
+    from seg2eye_tpu_torch.train import steps
+    from seg2eye_tpu_torch.utils import roofline
+    from seg2eye_tpu_torch.utils.weights import init_networks
+
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(14)
+    failures = []
+    log(f"batch statistics, bfloat16 x ~ N({STATS_OFFSET:g}, 1): mean and "
+        "var of the kernels against float64 (worst |d mean| / std, |d var| "
+        "/ var), beside the float32 plain version's; dx against the closed "
+        "form (elements unequal), against float64 autograd beside the "
+        "parent route (worst |error| / channel scale, dx_k and dx_p) and "
+        "the share within one bf16 ulp of var_mean's float32 gradient "
+        "(1ulp); ms of the forward kernels (Welford + merge) and of the "
+        "parent route (float32 copy + var_mean), of the backward kernel and "
+        "of the parent's autograd (mean, sub, mul, mul, div, add, cast), "
+        "and the byte bounds (2 and 4 B an element at the card's rate)")
+    log("  site  (N, H, W, C)          mean_k   var_k    mean_p   var_p   "
+        "unequal dx_k     dx_p     1ulp      fwd_k   fwd_p   bound  %bnd   "
+        "bwd_k   bwd_p   bound  %bnd")
+    tot = dict.fromkeys(("fwd_ms", "fwd_parent_ms", "fwd_bound_ms", "bwd_ms",
+                         "bwd_parent_ms", "bwd_bound_ms", "worst_stats",
+                         "worst_dx", "worst_dx_parent"), 0.0)
+    tot["least_within"] = 1.0
+    cases = ([("odd", s, False) for s in STATS_ODD]
+             + [("mis", STATS_MISALIGNED, True)]
+             + [(f"{i:4d}", (SITE_N, *s), False)
+                for i, s in enumerate(SITES)])
+    for label, shape, misaligned in cases:
+        x, gvar, gmean = stats_site(shape, gen, misaligned)
+        row = stats_check(shape, x, gvar, gmean, failures)
+        xp = x.permute(0, 3, 1, 2).detach().requires_grad_()
+        v32, m32 = torch.var_mean(xp.float(), dim=(0, 2, 3), correction=0)
+        _, mean = B.batch_stats_cuda(x)
+        fk, fp, bk, bp = time_turns([
+            lambda: B.batch_stats_cuda(x),
+            lambda: torch.var_mean(x.permute(0, 3, 1, 2).float(),
+                                   dim=(0, 2, 3), correction=0),
+            lambda: B.batch_stats_backward_cuda(x, mean, gvar, gmean),
+            lambda: torch.autograd.grad((v32, m32), xp, (gvar, gmean),
+                                        retain_graph=True)])
+        fb = roofline.memory_ms(2 * x.numel())
+        bb = roofline.memory_ms(4 * x.numel())
+        log(f"  {label}  {str(shape):22s} {row[0]:.1e}  {row[1]:.1e}  "
+            f"{row[2]:.1e}  {row[3]:.1e} {row[4]:6d}  {row[5]:.2e} "
+            f"{row[6]:.2e} {row[7]:.6f} "
+            f"{fk:7.4f} {fp:7.4f} {fb:7.4f} {100 * fb / fk:5.1f} "
+            f"{bk:7.4f} {bp:7.4f} {bb:7.4f} {100 * bb / bk:5.1f}")
+        if label.strip().isdigit():
+            for key, v in (("fwd_ms", fk), ("fwd_parent_ms", fp),
+                           ("fwd_bound_ms", fb), ("bwd_ms", bk),
+                           ("bwd_parent_ms", bp), ("bwd_bound_ms", bb)):
+                tot[key] += v
+        tot["worst_stats"] = max(tot["worst_stats"], row[0], row[1])
+        tot["worst_dx"] = max(tot["worst_dx"], row[5])
+        tot["worst_dx_parent"] = max(tot["worst_dx_parent"], row[6])
+        tot["least_within"] = min(tot["least_within"], row[7])
+        del x, xp, v32, m32
+    tot["fwd_share"] = tot["fwd_bound_ms"] / tot["fwd_ms"]
+    tot["bwd_share"] = tot["bwd_bound_ms"] / tot["bwd_ms"]
+    log(f"  18 sites at N={SITE_N} (sums of per-site medians): forward "
+        f"{tot['fwd_ms']:.4f} ms against the parent route's "
+        f"{tot['fwd_parent_ms']:.4f}, bound {tot['fwd_bound_ms']:.4f} "
+        f"({100 * tot['fwd_share']:.1f}% of it); backward "
+        f"{tot['bwd_ms']:.4f} against {tot['bwd_parent_ms']:.4f}, bound "
+        f"{tot['bwd_bound_ms']:.4f} ({100 * tot['bwd_share']:.1f}%); worst "
+        f"statistic error {tot['worst_stats']:.2e}, worst dx error "
+        f"{tot['worst_dx']:.3e} (the parent route's "
+        f"{tot['worst_dx_parent']:.3e}), at least "
+        f"{100 * tot['least_within']:.4f}% of dx within one bf16 ulp of "
+        f"var_mean's float32 gradient ({card_line()})")
+
+    stats_export(failures)
+
+    # the counters, and a bfloat16 iteration with and without the kernels
+    opt = Options(batchSize=TRAIN_BATCH).finalize()
+    nets_cpu = init_networks(opt, torch.Generator().manual_seed(0), "cpu")
+    batch = make_train_batch(opt, TRAIN_BATCH)
+    counts = {}
+    for dname, key in (("bfloat16", "train"), ("float32", "float32")):
+        state = train_state(opt.replace(compute_dtype=dname), nets_cpu)
+        counts[key] = stats_counts(
+            f"{dname} training iteration, bs{TRAIN_BATCH}",
+            lambda: steps.train_step(state, batch), STATS_LAUNCHES[key],
+            failures)
+        if dname == "bfloat16":
+            eval_opt = Options(isTrain=False).finalize()
+            model = Pix2Pix(eval_opt.replace(compute_dtype=dname),
+                            {"G": state.model.netG, "E": state.model.netE},
+                            "cuda")
+            tester = Tester(model.opt)
+            scored = make_batch(eval_opt, BATCH)
+            counts["score"] = stats_counts(
+                f"{dname} scored batch, bs{BATCH}",
+                lambda: tester.score_batch(model, scored, need_fake=False),
+                STATS_LAUNCHES["score"], failures)
+            del model, tester
+            routes = stats_routes(state, batch)
+            log(f"  bfloat16 training bs{TRAIN_BATCH}, in turns: " + ", ".join(
+                f"{r} {v[0]:.2f} ms/iteration (peak {v[1] / 2**30:.2f} GiB)"
+                for r, v in routes.items()))
+            tot["train_ms"], tot["train_peak"] = routes["kernels"]
+            tot["train_parent_ms"], tot["train_parent_peak"] = \
+                routes["parent"]
+        del state
+        torch.cuda.empty_cache()
+    log(f"batch statistics: phase 14 took {time.perf_counter() - t0:.1f} s")
+    if failures:
+        raise AssertionError("batch statistics: " + "; ".join(failures))
+    return {**tot, "launches": counts}
+
+
 def main():
     kind = phase_device()
     phase_build()
@@ -3950,12 +4240,14 @@ def main():
     phase_data()
     dp_launches = phase_parallel()
     mp_launches = phase_model_parallel()
+    stats = phase_batch_stats()
     foreign = sorted(m for m in sys.modules if m.split(".")[0] in
                      ("jax", "jaxlib", "flax", "seg2eye_tpu", "msgpack",
                       "optax"))
     if foreign:
         raise AssertionError(f"the port's run imported {foreign[:5]}")
 
+    from seg2eye_tpu_torch.ops import batch_stats as B
     from seg2eye_tpu_torch.ops import spade_style as K
     log(card_line())              # again, beside the results at the end
     log("kernel summary, one entry per kernel: launches in one forward of "
@@ -3972,7 +4264,10 @@ def main():
         "per-sample encoding on a data 2 x model 2 grid (float32, bs4); "
         f"max_abs_err over the crop-256 and odd "
         f"site checks; ms, plain_ms, library_ms and bound_ms summed over the "
-        f"18 sites at N={SITE_N}")
+        f"18 sites at N={SITE_N}; the batch statistics' kernels (phase 14): "
+        "launches in one bfloat16 training iteration and one scored batch, "
+        "plain_ms the parent route's (var_mean of a float32 copy, its "
+        "autograd)")
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
     print(json.dumps({"kernels": [
@@ -3998,7 +4293,15 @@ def main():
          "train_launches": BACKWARD_LAUNCHES["bfloat16"],
          **{k: backward[k] for k in ("ms", "plain_ms", "bound_ms",
                                      "bound_by", "backward_ms",
-                                     "recompute_ms", "grad_worst")}}]}))
+                                     "recompute_ms", "grad_worst")}}] + [
+        {"name": name, "route": "cuda", "source": B.SOURCE, "replaces": None,
+         "train_launches": stats["launches"]["train"][i],
+         "score_launches": stats["launches"]["score"][i],
+         "ms": stats[f"{kind}_ms"], "plain_ms": stats[f"{kind}_parent_ms"],
+         "bound_ms": stats[f"{kind}_bound_ms"], "bound_by": "bytes"}
+        for i, (name, kind) in enumerate(
+            ((B.KERNELS[torch.bfloat16], "fwd"),
+             (B.BACKWARD_KERNELS[torch.bfloat16], "bwd")))]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)

@@ -5,8 +5,9 @@
     the parameters, under the reference's names, and the normalisation
     statistics; the modulation is one call to ``ops.spade_style.spade_style``
     (the CUDA kernel for CUDA tensors).
-  * Param-free batch statistics are biased, over (N, H, W), in float32;
-    the running statistics are used only when asked
+  * Param-free batch statistics are biased, over (N, H, W), in float32
+    (bfloat16 CUDA tensors: ``ops.batch_stats``, one read of x; everything
+    else ``torch.var_mean``); the running statistics are used only when asked
     (``use_running_average``, from ``opt.eval_use_running_stats``).  A
     training forward (``update_stats=True``) updates them as torch's
     BatchNorm does: momentum 0.1, the unbiased variance into
@@ -31,6 +32,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from seg2eye_tpu_torch.models.layers import FCStyle, SpectralConv, at_least_f32
+from seg2eye_tpu_torch.ops.batch_stats import batch_stats, takes_kernel
 from seg2eye_tpu_torch.ops.spade_style import NHIDDEN, spade_style
 from seg2eye_tpu_torch.parallel import data_parallel as dp
 from seg2eye_tpu_torch.parallel import tensor_parallel as tp
@@ -100,8 +102,10 @@ class SpadeStyleBlock(nn.Module):
                 if update_stats:
                     self._update_running_stats(mean, var, count)
             else:
-                var, mean = torch.var_mean(at_least_f32(x), dim=(0, 2, 3),
-                                           correction=0)
+                var, mean = (
+                    batch_stats(x.permute(0, 2, 3, 1)) if takes_kernel(x)
+                    else torch.var_mean(at_least_f32(x), dim=(0, 2, 3),
+                                        correction=0))
                 if update_stats:
                     self._update_running_stats(mean, var, x.numel() // c)
             mean_nc, var_nc = mean.expand(n, c), var.expand(n, c)

@@ -27,6 +27,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_L = ctypes.c_longlong
 # int fn(int device, 7 input pointers, out, N, H, W, C, float eps, stream);
 # each entry point encodes its TMA tensor maps from these in C
 _SPADE_STYLE_ARGTYPES = [_I] + [_P] * 8 + [_I] * 4 + [_F, _P]
@@ -36,6 +37,13 @@ _SPADE_STYLE_ENTRY_POINTS = ("spade_style_fwd_f32_3xtf32_sm90",
 # W, C, tiles, float eps, stream)
 _BACKWARD_ARGTYPES = [_I] + [_P] * 11 + [_I] * 5 + [_F, _P]
 _BACKWARD_ENTRY_POINTS = ("spade_style_bwd_bf16_sm90",)
+# the batch statistics: int fn(int device, x, partial, var, mean, M, C,
+# rows per chunk, chunks, stream), and the backward's int fn(int device, x,
+# mean, gvar, gmean, dx, M, C, rows per chunk, chunks, stream)
+_BATCH_STATS_ARGTYPES = [_I] + [_P] * 4 + [_L, _I, _L, _I, _P]
+_BATCH_STATS_ENTRY_POINTS = ("batch_stats_fwd_bf16_sm90",)
+_BATCH_STATS_BACKWARD_ARGTYPES = [_I] + [_P] * 5 + [_L, _I, _L, _I, _P]
+_BATCH_STATS_BACKWARD_ENTRY_POINTS = ("batch_stats_bwd_bf16_sm90",)
 SASS_OPCODES = ("HGMMA", "FFMA")
 
 
@@ -114,8 +122,12 @@ def load(path: Path) -> ctypes.CDLL:
     """A built library with every C signature declared (an undeclared
     pointer argument would be cut to 32 bits)."""
     lib = ctypes.CDLL(str(path))
-    for names, argtypes in ((_SPADE_STYLE_ENTRY_POINTS, _SPADE_STYLE_ARGTYPES),
-                            (_BACKWARD_ENTRY_POINTS, _BACKWARD_ARGTYPES)):
+    for names, argtypes in (
+            (_SPADE_STYLE_ENTRY_POINTS, _SPADE_STYLE_ARGTYPES),
+            (_BACKWARD_ENTRY_POINTS, _BACKWARD_ARGTYPES),
+            (_BATCH_STATS_ENTRY_POINTS, _BATCH_STATS_ARGTYPES),
+            (_BATCH_STATS_BACKWARD_ENTRY_POINTS,
+             _BATCH_STATS_BACKWARD_ARGTYPES)):
         for name in names:
             fn = getattr(lib, name)
             fn.argtypes = argtypes

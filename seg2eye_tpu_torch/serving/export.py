@@ -6,8 +6,9 @@ its weights inside, and a ``meta.json``; ``ServingModel`` loads and runs
 it without the model code: no ``Options``, no ``models`` or ``refinenet``
 module, no tracing.  What it imports is ``ops.spade_style``, whose
 ``seg2eye::spade_style`` op the Seg2Eye program calls at each of its norm
-sites (the CUDA kernels on the card, the plain version on the CPU), and
-``utils.precision``.
+sites (the CUDA kernels on the card, the plain version on the CPU),
+``ops.batch_stats``, whose ``seg2eye::batch_stats`` op a bfloat16 program
+on batch statistics calls there too, and ``utils.precision``.
 
 Artifact layout (directory):
     program.pt2   ``torch.export.save`` of the program and its weights
@@ -326,7 +327,9 @@ class ServingModel:
             raise RuntimeError(f"the artifact in {art_dir} runs on "
                                f"{self.device}, and no CUDA device is "
                                "available")
-        # registers seg2eye::spade_style, which the Seg2Eye program calls
+        # registers seg2eye::spade_style and seg2eye::batch_stats, which
+        # the Seg2Eye program calls
+        from seg2eye_tpu_torch.ops import batch_stats  # noqa: F401
         from seg2eye_tpu_torch.ops import spade_style  # noqa: F401
 
         self.program = torch.export.load(os.path.join(art_dir, PROGRAM))

@@ -3,7 +3,7 @@
 one CUDA card.
 
     python3 tools/profile_torch_train.py [--batch 16] [--steps 3]
-        [--dtypes bfloat16 float32] [--routes kernel plain]
+        [--dtypes bfloat16 float32] [--routes kernel plain] [--ops 30]
 
 The default model (``Options()``: ngf 64, ndf 64, 320x256 images, k = 4),
 seeded random G, E and D and a numpy-seeded batch go through
@@ -11,7 +11,8 @@ seeded random G, E and D and a numpy-seeded batch go through
 regenerated).  After two warm-up iterations, ``torch.profiler`` traces
 ``--steps`` iterations per dtype and route.  Route ``kernel`` is the port as
 it runs; route ``plain`` sends every generator norm site through
-``spade_style_reference`` instead of the CUDA kernels.
+``spade_style_reference`` and ``torch.var_mean`` instead of the CUDA
+kernels.
 
 Printed per dtype and route: wall ms/iteration (host clock around the
 traced iterations), device busy ms/iteration (the union of the card's
@@ -25,6 +26,14 @@ plain version and its gradient), and the heaviest kernels.  The bf16
 kernel group holds the backward kernel (``spade_style_sm90_kernel_bwd``)
 beside the forward's.  The process keeps PyTorch's default TF32 flags, as a user's
 would: a float32 model turns TF32 off around its own steps.
+
+``--ops N`` names the ops behind the device time: the profiler records
+input shapes, and each kernel is charged to the op that launched it (with
+the outermost aten op around it), that op's autograd node where it ran in
+the backward (``VarMeanBackward0``, ``ToCopyBackward0``, ...) or
+"forward", and the outer op's first input shape.  Printed: the N heaviest
+(node, op) pairs, then the N heaviest (node, op, shape) triples, each in ms
+and launches per iteration.
 """
 import argparse
 import collections
@@ -68,17 +77,71 @@ def group_of(name):
     return next(g for g, keys in GROUPS if any(k in name for k in keys))
 
 
-def profile(state, batch, steps_n):
+def node_of(e):
+    """The autograd node an op ran under (its evaluate_function range), or
+    'forward'."""
+    p = e.cpu_parent
+    while p is not None:
+        if p.name.startswith(BACKWARD_OP):
+            return p.name.split(": ", 1)[-1]
+        p = p.cpu_parent
+    return "forward"
+
+
+def op_of(e):
+    """The outermost aten op around e, '>' e where they differ
+    ('aten::to > aten::copy_'), and its first input shape."""
+    outer = e
+    while (outer.cpu_parent is not None
+           and outer.cpu_parent.name.startswith("aten::")):
+        outer = outer.cpu_parent
+    name = outer.name if outer is e else f"{outer.name} > {e.name}"
+    return name, str(outer.input_shapes[0]) if outer.input_shapes else ""
+
+
+def op_table(cpu, steps_n):
+    """{(node, op, first input shape): [us, launches]} per iteration, each
+    kernel charged to the op the profiler links it to."""
+    table = collections.defaultdict(lambda: [0.0, 0])
+    for e in cpu:
+        if not e.kernels:
+            continue
+        row = table[(node_of(e), *op_of(e))]
+        for k in e.kernels:
+            row[0] += k.duration / steps_n
+            row[1] += 1
+    return table
+
+
+def print_ops(table, steps_n, top):
+    pairs = collections.defaultdict(lambda: [0.0, 0])
+    for (node, op, _), (us, n) in table.items():
+        pairs[(node, op)][0] += us
+        pairs[(node, op)][1] += n
+    print("  the heaviest ops (node, op), ms and kernel launches per "
+          "iteration:")
+    for (node, op), (us, n) in sorted(pairs.items(),
+                                      key=lambda kv: -kv[1][0])[:top]:
+        print(f"    {us / 1e3:9.3f} ms {n // steps_n:5d}x  {node} / {op}")
+    print("  the heaviest (node, op, first input shape):")
+    for (node, op, shape), (us, n) in sorted(table.items(),
+                                             key=lambda kv: -kv[1][0])[:top]:
+        print(f"    {us / 1e3:9.3f} ms {n // steps_n:5d}x  {node} / {op} "
+              f"{shape[:70]}")
+
+
+def profile(state, batch, steps_n, shapes=False):
     """-> (wall us, device busy us, {kernel: [us, count]}, {group: us of
     kernels launched by the backward}, us of kernels the profiler links to
-    a launching op, us inside the norm sites' backward, its ranges), each
-    per iteration."""
+    a launching op, us inside the norm sites' backward, its ranges, and
+    ``op_table`` where ``shapes``), each per iteration."""
     for _ in range(2):
         steps.train_step(state, batch)
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
+    with torch.profiler.profile(activities=acts,
+                                record_shapes=shapes) as prof:
         t0 = time.perf_counter()
         for _ in range(steps_n):
             steps.train_step(state, batch)
@@ -113,7 +176,8 @@ def profile(state, batch, steps_n):
     sites_us = sum(e.device_time_total for e in sites)
     return (wall_us / steps_n, busy_us(spans) / steps_n, per_kernel,
             {g: us / steps_n for g, us in backward.items()},
-            linked / steps_n, sites_us / steps_n, len(sites) // steps_n)
+            linked / steps_n, sites_us / steps_n, len(sites) // steps_n,
+            op_table(cpu, steps_n) if shapes else None)
 
 
 def main(argv=None):
@@ -124,6 +188,8 @@ def main(argv=None):
     ap.add_argument("--routes", nargs="+", default=["kernel", "plain"],
                     choices=["kernel", "plain"])
     ap.add_argument("--top", type=int, default=14)
+    ap.add_argument("--ops", type=int, default=0,
+                    help="name the N heaviest ops (records input shapes)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_torch_train: no CUDA device")
@@ -137,7 +203,8 @@ def main(argv=None):
             with (plain_norm_sites() if name == "plain"
                   else contextlib.nullcontext()):
                 (wall, busy, per_kernel, backward, linked, sites,
-                 n_sites) = profile(state, batch, args.steps)
+                 n_sites, ops) = profile(state, batch, args.steps,
+                                         args.ops > 0)
             del state
             torch.cuda.empty_cache()
             print(f"== {dtype}, {name} route, batch {args.batch}: wall "
@@ -164,6 +231,8 @@ def main(argv=None):
             for kname, (us, n) in top[:args.top]:
                 print(f"    {us / args.steps / 1e3:9.3f} ms "
                       f"{n // args.steps:4d}x  {kname[:110]}")
+            if ops is not None:
+                print_ops(ops, args.steps, args.ops)
             sys.stdout.flush()
 
 
