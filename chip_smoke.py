@@ -16,25 +16,19 @@ Phases; any failure raises and the script exits non-zero:
      generator norm-site shapes of the default model (crop 256, batch 16,
      the shapes the slice gives it) and two odd shapes, then at the 18
      crop-512 site shapes (batch 2, correctness only), one gradient; at
-     each crop-256 site the kernel, its plain version and one cuDNN conv
-     (library_ms) timed in turns with CUDA events, beside the bound; at
-     each float32 site, the error of a single-pass TF32 cuDNN conv of the
-     same product (then the same epilogue) as a contrast.  Then the
-     bfloat16 backward kernel at the same shapes: dx, [dgamma | dbeta] and
-     the per-channel sums against its plain version
+     each crop-256 site the kernel alone timed with CUDA events, beside
+     its bound.  Then the bfloat16 backward kernel at the same shapes: dx,
+     [dgamma | dbeta] and the per-channel sums against its plain version
      (``epilogue_backward_reference``), the op's gradients through it
-     against autograd of the float32 plain version, and the kernel, its
-     plain version, the op's whole backward through it and through the
-     plain recompute (the route before the kernel) timed in turns beside
-     the kernel's bound;
+     against autograd of the float32 plain version, and the kernel alone
+     timed beside its bound;
   4. slice: scored inference (Tester.score_batch: encode, generate, resize
      to 640x400, truncate, per-image error) at the full width of the
      default model, seeded random weights, batch 16, in bfloat16 and
      float32; the kernel must launch once per norm site per forward.  The
      same batch then runs with every norm site on the plain version: fakes
-     and errors must agree, and both routes are timed.  A batch-1 float32
-     forward on the card must agree with the port's CPU forward on the same
-     weights;
+     and errors must agree.  A batch-1 float32 forward on the card must
+     agree with the port's CPU forward on the same weights;
   5. train: training of the default model (seeded G, E and D, a seeded
      synthetic batch of 16) through ``train.steps.train_step``, in float32
      and bfloat16.  For 3 iterations, the kernel route (the port as it
@@ -47,8 +41,7 @@ Phases; any failure raises and the script exits non-zero:
      backward) and never in float32 or in scoring, the losses be finite,
      every spectral u/v, running statistic and
      parameter with a nonzero gradient have moved, and netE's fc_var
-     (no gradient) not; ms/iteration and img/s of both
-     routes and the peak memory are printed.  One small float32 iteration
+     (no gradient) not.  One small float32 iteration
      on the card must agree with the same iteration on the CPU, each of
      its two steps from the same state, and the discriminator's pool
      must have the CPU's gradient.  Last,
@@ -65,7 +58,7 @@ Phases; any failure raises and the script exits non-zero:
      finite score) and takes 3 train steps at batch 8, in bfloat16 and
      (ResNet both models, SegNet-DRN and RefineNet-Xception) float32
      (finite losses, every parameter with a nonzero gradient and every
-     running statistic moved), each timed beside its FLOP bound.  Card
+     running statistic moved).  Card
      against CPU: single ops of the DeepLab path on channels_last input,
      then one eval forward and one train step of SegNet, RefineNet and a
      MobileNet RefineNet at ResNet-14, SegNet-DRN and RefineNet-Xception
@@ -79,12 +72,12 @@ Phases; any failure raises and the script exits non-zero:
      on through 'auto') and the VGG loss (seeded full-width VGG19,
      lambda_vgg 10), in float32 and bfloat16: kernel route against plain
      route for 3 iterations as in phase 5, 36 launches per iteration,
-     every E/D running statistic moved, ms/iteration, img/s and peak
-     memory of both routes; 7b ``--remat`` at crop 512 (640x512), bs8,
+     every E/D running statistic moved; 7b ``--remat`` at crop 512
+     (640x512), bs8,
      both dtypes: the G step and then the D step with and without remat
      from identical states (losses and gradients within F32_ROUTE, u/v
      and running statistics bit for bit), 36 and 54 launches per
-     iteration, lower peak memory with remat, ms/iteration of both; 7c
+     iteration, lower peak memory with remat; 7c
      one small float32 iteration with all of them on, card against CPU;
      7d ``train.loop.train`` for 3 steps with ``--remat`` and
      ``--profile_steps 1`` (162 launches, the trace and ``src.zip``
@@ -113,11 +106,10 @@ Phases; any failure raises and the script exits non-zero:
      working directory), in float32 and bfloat16: 3 steps of
      ``training(0)`` (finite losses, both groups' lr equal to
      LRScheduler's at each step, every parameter with a nonzero gradient
-     and every running statistic moved), ms/step, img/s, peak memory and
-     the share of the FLOP bound; ``validation(0)`` over 10 images in
+     and every running statistic moved); ``validation(0)`` over 10 images in
      batches of 4, 4 and 2 (the device's confusion matrix equal to a numpy
-     recount of the same logits, mIoU in [0, 1], model_best.ckpt written)
-     and the eval step timed.  bfloat16 only: a step with focal loss and
+     recount of the same logits, mIoU in [0, 1], model_best.ckpt written).
+     bfloat16 only: a step with focal loss and
      class-balanced weights over labels in [21, 255) (no device assert), a
      --freeze-bn step (BN buffers bit for bit), resume from
      checkpoint.ckpt (eval logits bit for bit, epoch and best_pred) and
@@ -137,8 +129,8 @@ Phases; any failure raises and the script exits non-zero:
      640x400, bs8) through ``CheckpointManager(fmt="flax")`` and segtrain
      (pascal defaults, crop 513, bs4) through ``--resume`` of a JAX
      checkpoint.ckpt: weights, statistics and momentum bit for bit, eval
-     outputs bitwise, epoch and best_pred, no K1 launch.  File sizes and
-     write/load seconds are printed;
+     outputs bitwise, epoch and best_pred, no K1 launch.  File sizes are
+     printed;
   11. data (after phase 10): the host-data tools on arrays in memory (the
      card's machine has no h5py).  (a) The style ranking
      (``data.style_ranking``) at one OpenEDS 2019 user's size: 84 target
@@ -147,12 +139,10 @@ Phases; any failure raises and the script exits non-zero:
      summed squared difference exceeds 2**24.  The card's distances and
      stable orders bit for bit equal to the same function's on the CPU
      over all 84 targets, and the pair above 2**24 equal to the exact
-     integer sum rounded once to float32, over 4096; ms per user on the
-     card (masks resident there) and on the CPU.  (b) The native batch
+     integer sum rounded once to float32, over 4096.  (b) The native batch
      assembly (``native``, built with g++ from the checkout): the 16 x 4
      references of a bs16 batch at the default crop (320x256) and 16
-     masks, per-sample flips, bit for bit equal to the numpy versions,
-     both timed;
+     masks, per-sample flips, bit for bit equal to the numpy versions;
   12. parallel (after phase 11): data-parallel training
      (``parallel.data_parallel``), each rank a child process of this
      script with its own timeout; a child that fails or times out fails
@@ -160,14 +150,12 @@ Phases; any failure raises and the script exits non-zero:
      float32 iterations, each step (G, then D) taken by the DP route and
      by the one-process route from identical states (losses and gradients
      to F32_ROUTE, the updated state to the card-vs-CPU limits), 36 K1
-     launches per iteration; then both routes timed in turns in float32
-     and bfloat16 (their difference: the synchronised statistics and the
-     gradient all-reduce).  (b) World 2 on gloo with CUDA tensors on the
+     launches per iteration, and 36 in one bfloat16 DP iteration.  (b)
+     World 2 on gloo with CUDA tensors on the
      one card: the same at 8 samples per rank against rank 0's
      one-process run of the whole bs16 batch, 36 launches per rank per
      iteration; then segtrain (ResNet-101 os16, crop 513) at global bs4,
-     2 float64 steps against the one-process step, 0 launches.  The gloo
-     times are a correctness run's, not a speed figure;
+     2 float64 steps against the one-process step, 0 launches;
   13. model and spatial parallel (after phase 12): two ranks on gloo with
      CUDA tensors on the one card, children of this script as in phase 12.
      (a) Tensor parallelism (``parallel.tensor_parallel``) on a data 1 x
@@ -193,8 +181,7 @@ Phases; any failure raises and the script exits non-zero:
      gathered copy of the same state as in (a) (losses and gradients to
      F32_ROUTE, spectral u/v, E's running statistics and the parameters to
      the card-vs-CPU limits, ``num_batches_tracked`` equal), every replica
-     checked after each step, 36 K1 launches per rank.  The times are a
-     correctness run's through the host;
+     checked after each step, 36 K1 launches per rank;
   14. batch statistics (after phase 13; ``ops.batch_stats``): the
      forward kernels (Welford, merge) at the 18 site shapes (bs16,
      bfloat16) and four odd ones (C not a multiple of 8, a misaligned x),
@@ -203,20 +190,23 @@ Phases; any failure raises and the script exits non-zero:
      equal to ``batch_stats_backward_reference``, its error against
      float64 within STATS_DX_RATIO times the parent route's, and the
      share within one bfloat16 ulp of var_mean's float32 gradient; each
-     kernel timed alone against its byte bound (2 and 4 B an element) and
-     against the parent route at the same sites; 36 forward and 18
+     kernel timed alone against its byte bound (2 and 4 B an element);
+     36 forward and 18
      backward launches in a bfloat16 training iteration, 18 and 0 in a
      scored batch, none in float32; one bfloat16 site through
      ``torch.export`` (one ``seg2eye::batch_stats`` call, the live site's
-     output bit for bit); a bfloat16 training iteration with and without
-     the kernels, in turns (ms and peak memory);
+     output bit for bit);
 Nothing of JAX, flax, optax, msgpack or the JAX package may have been
 imported.
 The port keeps float32 in full float32 by itself (its float32 forward and
 plain versions turn TF32 off around their own convolutions); the cuDNN
-calls this script makes directly set the flags around themselves.  The
-last two lines are the kernel summary (one entry per kernel) and the
-result, each one JSON object.
+calls this script makes directly set the flags around themselves.
+This script checks; the benchmark (``portbench/run.py``) measures the
+port's paths, and ``tools/profile_cell.py`` says where a cell's time
+goes.  The only times taken here are each kernel alone beside its bound,
+which no cell reads, and those a check compares (SERVE_SLOWDOWN, 7b's
+peak memory).  The last two lines are the kernel summary (one entry per
+kernel) and the result, each one JSON object.
 """
 import contextlib
 import json
@@ -264,8 +254,7 @@ ODD_SITES = [(1, 10, 8, 16), (2, 13, 7, 72)]  # (N, H, W, C), ragged tiles
 CROP512_N = 2
 # the tensor cores' rate for the type each kernel feeds them (float32 runs
 # on the TF32 rate, three passes per product), from the card's published
-# peaks in ``utils.roofline``; the FP32 pipes' rate is printed beside the
-# float32 bound
+# peaks in ``utils.roofline``
 KERNEL_RATES = {"bfloat16": (torch.bfloat16, 1), "float32": ("tf32", 3)}
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 # the kernel symbols of the library, per dtype
@@ -404,39 +393,22 @@ def time_turns(fns, warmup=WARMUP, repeats=REPEATS):
     return [statistics.median(t) for t in times]
 
 
-def site_bound(shape, flops, dname):
-    """(ms of the operations, ms of the bytes) at the card's peaks
-    (``utils.roofline``) for the kernel's work at this site: its
-    ``flops`` (the gamma|beta products) at the tensor-core rate of the
+def site_bound(shape, dname):
+    """(FLOPs, ms of the operations, ms of the bytes) of the kernel's work
+    at this site, at the card's peaks (``utils.roofline``): the
+    gamma|beta products (3x3, 128 -> 2C) at the tensor-core rate of the
     type (float32: TF32, three passes), and x read, out written, actv and
     the weights read once, at the memory rate.  The bound is the larger of
-    the two."""
+    the two times."""
     from seg2eye_tpu_torch.utils import roofline
 
     n, h, w, c = shape
     item = DTYPES[dname].itemsize
+    flops = 2.0 * n * h * w * 9 * 128 * 2 * c
     nbytes = n * h * w * (2 * c + 128) * item + 9 * 128 * 2 * c * item
     rate, passes = KERNEL_RATES[dname]
-    return (roofline.compute_ms(flops, rate, passes),
+    return (flops, roofline.compute_ms(flops, rate, passes),
             roofline.memory_ms(nbytes))
-
-
-def tf32_contrast(args, want, rtol, atol):
-    """(max abs err, worst err/tolerance) against the plain float32 version
-    of the site computed with gamma|beta from one single-pass TF32 cuDNN
-    conv of the same product, and the same float32 epilogue."""
-    from seg2eye_tpu_torch.ops import spade_style as K
-
-    x, seg, style, mean, var, ws, bs, wg, bg, wb, bb = args
-    c = x.shape[-1]
-    actv = K.seg_mlp_shared(seg, ws, bs)
-    with tf32(True):
-        gb = F.conv2d(actv.permute(0, 3, 1, 2), torch.cat([wg, wb]),
-                      torch.cat([bg, bb]), padding=1).permute(0, 2, 3, 1)
-    out = K.spade_style_epilogue(x, gb[..., :c], gb[..., c:], style, mean,
-                                 var)
-    err = (out - want).abs()
-    return float(err.max()), float((err / (atol + rtol * want.abs())).max())
 
 
 def phase_kernel():
@@ -448,25 +420,15 @@ def phase_kernel():
     for dname in ("float32", "bfloat16"):
         dtype, (rtol, atol) = DTYPES[dname], TOLS[dname]
         log(f"kernel vs plain, {dname}, tolerance |err| <= {atol:.3g} + "
-            f"{rtol:.3g} * |plain|; times in ms: the kernel alone, its plain "
-            "version (from actv), one cuDNN conv of the same product "
-            "(library), the bound; site = seg conv + kernel, as the slice "
-            "runs it, against spade_style_reference")
-        if dname == "float32":
-            log(f"  float32: the bound is 3 TF32 passes at "
-                f"{roofline.peak_flops(dtype='tf32') / 1e12:.0f} TFLOP/s; "
-                f"fp32_pipe is the same products at the FP32 pipes' "
-                f"{roofline.peak_flops(dtype=torch.float32) / 1e12:.0f} "
-                "TFLOP/s; tf32_err, tf32_e/t: a single-pass TF32 cuDNN conv "
-                "of the same product against the plain version")
+            f"{rtol:.3g} * |plain|; times in ms: the kernel alone (from "
+            "actv), its bound"
+            + (f" (3 TF32 passes at "
+               f"{roofline.peak_flops(dtype='tf32') / 1e12:.0f} TFLOP/s)"
+               if dname == "float32" else ""))
         log("  site  (N, H, W, C)         max_abs_err  err/tol    kernel   "
-            "plain  library    bound  by   %bound  TFLOP/s    site  "
-            "site_plain" + ("  fp32_pipe  tf32_err  tf32_e/t"
-                            if dname == "float32" else ""))
-        tot = dict(max_abs_err=0.0, worst=0.0, tf32_worst=0.0, ms=0.0,
-                   plain_ms=0.0, library_ms=0.0, bound_ms=0.0, site_ms=0.0,
-                   site_plain_ms=0.0, fp32_pipe_ms=0.0, bound_ops_ms=0.0,
-                   bound_bytes_ms=0.0)
+            "bound  by   %bound  TFLOP/s")
+        tot = dict(max_abs_err=0.0, worst=0.0, ms=0.0, bound_ms=0.0,
+                   bound_ops_ms=0.0, bound_bytes_ms=0.0)
         for i, shape in enumerate(ODD_SITES + [(SITE_N, *s) for s in SITES]):
             args = site_inputs(*shape, dtype, gen)
             got = K.spade_style(*args)
@@ -475,68 +437,38 @@ def phase_kernel():
             err, worst = check_close(f"{dname} {shape}", got, want, rtol, atol)
             tot["max_abs_err"] = max(tot["max_abs_err"], err)
             tot["worst"] = max(tot["worst"], worst)
-            contrast = ""
-            if dname == "float32":
-                t_err, t_worst = tf32_contrast(args, want, rtol, atol)
-                tot["tf32_worst"] = max(tot["tf32_worst"], t_worst)
             x, seg, style, mean, var, ws, bs, wg, bg, wb, bb = args
             actv = K.seg_mlp_shared(seg.to(dtype), ws, bs).contiguous()
             wcat, bcat = K.pack_weights(wg, bg, wb, bb, dtype)
-            actv_nchw = actv.permute(0, 3, 1, 2)          # channels_last
-            w_lib = torch.cat([wg, wb]).to(dtype).contiguous(
-                memory_format=torch.channels_last)
-            b_lib = torch.cat([bg, bb]).to(dtype)
-            with tf32(False):     # the library conv in full float32
-                kms, pms, lms, sms, spms = time_turns([
-                    lambda: K.spade_style_cuda(x, actv, style, mean, var,
-                                               wcat, bcat),
-                    lambda: K.spade_style_from_actv(x, actv, style, mean,
-                                                    var, wg, bg, wb, bb),
-                    lambda: F.conv2d(actv_nchw, w_lib, b_lib, padding=1),
-                    lambda: K.spade_style(*args),
-                    lambda: K.spade_style_reference(*args)])
-            # the gamma|beta products: the library conv's
-            flops = roofline.flops_of(F.conv2d, actv_nchw, w_lib, b_lib, 1,
-                                      1)
-            ops_ms, bytes_ms = site_bound(shape, flops, dname)
+            (kms,) = time_turns([
+                lambda: K.spade_style_cuda(x, actv, style, mean, var, wcat,
+                                           bcat)])
+            flops, ops_ms, bytes_ms = site_bound(shape, dname)
             bms = max(ops_ms, bytes_ms)
             by = "operations" if ops_ms >= bytes_ms else "bytes"
-            fp32_ms = roofline.compute_ms(flops, torch.float32)
-            if dname == "float32":
-                contrast = f" {fp32_ms:10.4f} {t_err:9.3e} {t_worst:9.3f}"
             label = "odd" if i < len(ODD_SITES) else f"{i - 1:4d}"
             log(f"  {label}  {str(shape):22s} {err:11.3e}  {worst:7.3f} "
-                f"{kms:8.4f} {pms:7.4f} {lms:8.4f} {bms:8.4f}  "
-                f"{by[:3]}  {100 * bms / kms:6.1f}  "
-                f"{flops / (kms * 1e-3) / 1e12:7.1f} "
-                f"{sms:7.4f} {spms:8.4f}{contrast}")
+                f"{kms:8.4f} {bms:8.4f}  {by[:3]}  {100 * bms / kms:6.1f}  "
+                f"{flops / (kms * 1e-3) / 1e12:7.1f}")
             if i >= len(ODD_SITES):
-                for key, v in (("ms", kms), ("plain_ms", pms),
-                               ("library_ms", lms), ("bound_ms", bms),
-                               ("site_ms", sms), ("site_plain_ms", spms),
-                               ("fp32_pipe_ms", fp32_ms),
+                for key, v in (("ms", kms), ("bound_ms", bms),
                                ("bound_ops_ms", ops_ms),
                                ("bound_bytes_ms", bytes_ms)):
                     tot[key] += v
-            del args, got, want, actv, wcat, actv_nchw
+            del args, got, want, actv, wcat
         tot["bound_by"] = ("operations" if tot.pop("bound_ops_ms")
                            >= tot.pop("bound_bytes_ms") else "bytes")
         log(f"  18 sites at N={SITE_N}, {dname} (sums of per-site medians): "
-            f"kernel {tot['ms']:.4f} ms, plain {tot['plain_ms']:.4f}, "
-            f"library {tot['library_ms']:.4f}, bound {tot['bound_ms']:.4f} "
+            f"kernel {tot['ms']:.4f} ms, bound {tot['bound_ms']:.4f} "
             f"({tot['bound_by']}), {100 * tot['bound_ms'] / tot['ms']:.1f}% "
-            f"of the bound; site {tot['site_ms']:.4f}, site plain "
-            f"{tot['site_plain_ms']:.4f}; worst err/tolerance "
-            f"{tot['worst']:.4f} (odd shapes included)"
-            + (f"; FP32-pipe bound {tot['fp32_pipe_ms']:.4f} ms; single-pass "
-               f"TF32 worst err/tolerance {tot['tf32_worst']:.4f}"
-               if dname == "float32" else ""))
+            f"of the bound; worst err/tolerance {tot['worst']:.4f} (odd "
+            "shapes included)")
         summary[dname] = tot
 
     # crop 512: the same sites with H and W doubled, correctness only
     for dname, dtype in DTYPES.items():
         rtol, atol = TOLS[dname]
-        worst_all, err_all, tf32_worst = 0.0, 0.0, 0.0
+        worst_all, err_all = 0.0, 0.0
         for h, w, c in SITES:
             shape = (CROP512_N, 2 * h, 2 * w, c)
             args = site_inputs(*shape, dtype, gen)
@@ -546,14 +478,9 @@ def phase_kernel():
             err, worst = check_close(f"crop 512 {dname} {shape}", got, want,
                                      rtol, atol)
             worst_all, err_all = max(worst_all, worst), max(err_all, err)
-            if dname == "float32":
-                tf32_worst = max(tf32_worst,
-                                 tf32_contrast(args, want, rtol, atol)[1])
             del args, got, want
         log(f"crop 512, 18 sites at N={CROP512_N}, {dname}: max abs err "
-            f"{err_all:.3e}, worst err/tolerance {worst_all:.4f}"
-            + (f"; single-pass TF32 worst err/tolerance {tf32_worst:.4f}"
-               if dname == "float32" else ""))
+            f"{err_all:.3e}, worst err/tolerance {worst_all:.4f}")
 
     # gradient: autograd.Function (kernel forward, recomputed backward)
     # against autograd of the plain version, float32; the plain version's
@@ -616,15 +543,11 @@ def phase_kernel_backward():
         f"autograd of the float32 plain version, worst ||d|| / ||g|| over "
         f"{len(graded)} inputs, beside the same for the bfloat16 plain "
         f"recompute (limit per input: {grad_rtol:g}, or {BF16_TENSOR_RATIO:g} "
-        "times the plain recompute's); times in ms: the kernel, its "
-        "plain version, the op's backward through the kernel (seg MLP, "
-        "kernel, sums, dgrad and wgrad) and through the plain recompute "
-        "(the route before the kernel), the kernel's bound")
+        "times the plain recompute's); times in ms: the kernel alone, its "
+        "bound")
     log("  site  (N, H, W, C)         dx_e/t  dgb_e/t  sums_e/t  grad_k  "
-        "(input)  grad_p    kernel    plain  backward  recompute    bound  "
-        "by   %bound")
-    tot = dict(worst=0.0, grad_worst=0.0, ms=0.0, plain_ms=0.0,
-               backward_ms=0.0, recompute_ms=0.0, bound_ms=0.0,
+        "(input)  grad_p    kernel    bound  by   %bound")
+    tot = dict(worst=0.0, grad_worst=0.0, ms=0.0, bound_ms=0.0,
                bound_ops_ms=0.0, bound_bytes_ms=0.0)
     for i, shape in enumerate(ODD_SITES + [(SITE_N, *s) for s in SITES]):
         args = site_inputs(*shape, dtype, gen)
@@ -670,13 +593,9 @@ def phase_kernel_backward():
                     f"{j} {r:.3e}, the bfloat16 plain recompute's "
                     f"{ratios_p[j]:.3e}")
         del grads_k, grads_p, grads_f, leaves, out
-        kms, pms, bms, rms = time_turns([
+        (kms,) = time_turns([
             lambda: K.spade_style_backward_cuda(x, actv, dout, style, mean,
-                                                var, wgam, bcat),
-            lambda: K.epilogue_backward_reference(x, actv, dout, style, mean,
-                                                  var, wg, bg),
-            lambda: K._kernel_backward(args, needs, dout, K.EPS),
-            lambda: K._recompute_backward(args, needs, dout, K.EPS)])
+                                                var, wgam, bcat)])
         flops, nbytes = K.backward_kernel_work(shape, dtype)
         ops_ms = roofline.compute_ms(flops, dtype)
         bytes_ms = roofline.memory_ms(nbytes)
@@ -685,25 +604,22 @@ def phase_kernel_backward():
         label = "odd" if i < len(ODD_SITES) else f"{i - 1:4d}"
         log(f"  {label}  {str(shape):22s} {dx_w:7.3f}  {dgb_w:7.3f}  "
             f"{sums_w:8.4f}  {ratios_k[worst]:.2e} ({name:5s}) "
-            f"{ratios_p[worst]:.2e} {kms:8.4f} {pms:8.4f} {bms:9.4f} "
-            f"{rms:10.4f} {bound:8.4f}  {by[:3]}  {100 * bound / kms:6.1f}")
+            f"{ratios_p[worst]:.2e} {kms:8.4f} {bound:8.4f}  {by[:3]}  "
+            f"{100 * bound / kms:6.1f}")
         tot["worst"] = max(tot["worst"], dx_w, dgb_w, sums_w)
         tot["grad_worst"] = max(tot["grad_worst"], ratios_k[worst])
         if i >= len(ODD_SITES):
-            for key, v in (("ms", kms), ("plain_ms", pms),
-                           ("backward_ms", bms), ("recompute_ms", rms),
-                           ("bound_ms", bound), ("bound_ops_ms", ops_ms),
+            for key, v in (("ms", kms), ("bound_ms", bound),
+                           ("bound_ops_ms", ops_ms),
                            ("bound_bytes_ms", bytes_ms)):
                 tot[key] += v
         del args, got, want, actv, dout
     tot["bound_by"] = ("operations" if tot.pop("bound_ops_ms")
                        >= tot.pop("bound_bytes_ms") else "bytes")
     log(f"  18 sites at N={SITE_N}, bfloat16 backward (sums of per-site "
-        f"medians): kernel {tot['ms']:.4f} ms, plain {tot['plain_ms']:.4f}, "
-        f"bound {tot['bound_ms']:.4f} ({tot['bound_by']}), "
-        f"{100 * tot['bound_ms'] / tot['ms']:.1f}% of the bound; the op's "
-        f"backward through the kernel {tot['backward_ms']:.4f}, through the "
-        f"plain recompute {tot['recompute_ms']:.4f}; worst err/tolerance "
+        f"medians): kernel {tot['ms']:.4f} ms, bound {tot['bound_ms']:.4f} "
+        f"({tot['bound_by']}), {100 * tot['bound_ms'] / tot['ms']:.1f}% of "
+        "the bound; worst err/tolerance "
         f"{tot['worst']:.4f}, worst gradient ||d|| / ||g|| "
         f"{tot['grad_worst']:.3e} (odd shapes included)")
     return tot
@@ -720,17 +636,6 @@ def make_batch(opt, b, seed=0):
         "target_original": rng.integers(0, 256, (b, 640, 400, 1),
                                         dtype=np.uint8),
     }
-
-
-def time_slice(tester, model, batch, repeats=5):
-    """Median host-clock ms of one scored batch (the scores come back to
-    the host, so each call ends synchronised)."""
-    times = []
-    for _ in range(repeats):
-        t0 = time.perf_counter()
-        tester.score_batch(model, batch, need_fake=False)
-        times.append(time.perf_counter() - t0)
-    return statistics.median(times) * 1e3
 
 
 @contextlib.contextmanager
@@ -760,14 +665,12 @@ def phase_slice():
     from seg2eye_tpu_torch.utils.weights import init_networks
 
     opt = Options(isTrain=False).finalize()
-    t0 = time.perf_counter()
     nets = init_networks(opt, torch.Generator().manual_seed(0), "cuda")
     counts = {k: sum(p.numel() for p in v.parameters())
               for k, v in nets.items()}
     log(f"default model (ngf {opt.ngf}, crop {opt.crop_size}, images "
         f"{opt.image_height}x{opt.image_width}, k={opt.input_ns}, "
-        f"{opt.norm_G}): params G {counts['G']:,} E {counts['E']:,}, "
-        f"seeded init {time.perf_counter() - t0:.1f} s")
+        f"{opt.norm_G}): params G {counts['G']:,} E {counts['E']:,}")
     if counts != EXPECTED_PARAMS:
         raise AssertionError(f"parameter counts {counts} != {EXPECTED_PARAMS}")
     batch = make_batch(opt, BATCH)
@@ -805,24 +708,20 @@ def phase_slice():
         if tf32_flags() != flags:
             raise AssertionError(f"{dtype}: the forward left the TF32 flags "
                                  f"at {tf32_flags()}, not {flags}")
-        ms = time_slice(tester, model, batch)
         results[dtype] = fake
         log(f"slice {dtype} bs{BATCH}: {count} kernel launches per forward "
             "(0 of the backward kernel), "
             f"errors finite (mean x1471 = "
-            f"{float(np.mean(errors)) * 1471:.2f}), {ms:.2f} ms/batch, "
-            f"{BATCH / ms * 1e3:.2f} img/s (median of 5, host clock)")
+            f"{float(np.mean(errors)) * 1471:.2f})")
 
         # the same batch with every norm site on the plain version
         with plain_norm_sites():
             p_errors, p_fake = tester.score_batch(model, batch)
-            p_ms = time_slice(tester, model, batch)
         fake_tol, err_rtol = SLICE_TOL[dtype]
         fdiff = float(np.abs(fake - p_fake).max())
         ediff = float(np.abs(errors / p_errors - 1).max())
-        log(f"slice {dtype} bs{BATCH}, norm sites on the plain version: "
-            f"{p_ms:.2f} ms/batch, {BATCH / p_ms * 1e3:.2f} img/s; kernel "
-            f"route vs plain route: fakes max abs diff {fdiff:.3e} "
+        log(f"slice {dtype} bs{BATCH}, kernel route vs plain route (norm "
+            f"sites on the plain version): fakes max abs diff {fdiff:.3e} "
             f"(tolerance {fake_tol}), errors max rel diff {ediff:.3e} "
             f"(tolerance {err_rtol})")
         if not (fdiff <= fake_tol and ediff <= err_rtol):
@@ -855,7 +754,7 @@ TRAIN_BATCH = 16
 # step's regeneration of the fake with the updated G, 18 sites each (the
 # backward kernel counts apart: BACKWARD_LAUNCHES)
 TRAIN_LAUNCHES = 2 * len(SITES)
-ROUTE_ITERS, TIMED_ITERS, LOOP_STEPS = 3, 5, 3
+ROUTE_ITERS, LOOP_STEPS = 3, 3
 EXPECTED_D_PARAMS = 5_531_778
 # Kernel route against plain route.  Each of ROUTE_ITERS iterations starts
 # both routes from identical copies of the kernel route's state (weights,
@@ -957,15 +856,12 @@ def clone_state(state, opt=None):
     return new
 
 
-def timed_iteration(state, batch):
+def iteration(state, batch):
+    """One training iteration -> its losses on the host."""
     from seg2eye_tpu_torch.train import steps
 
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
     losses, _ = steps.train_step(state, batch)
-    torch.cuda.synchronize()
-    return ({k: float(torch.mean(v.float())) for k, v in losses.items()},
-            (time.perf_counter() - t0) * 1e3)
+    return {k: float(torch.mean(v.float())) for k, v in losses.items()}
 
 
 def grads_of(model):
@@ -1060,11 +956,11 @@ def lockstep(dname, state, batch, ref_opt=None):
     for it in range(ROUTE_ITERS):
         plain = clone_state(state)
         ref = None if ref_opt is None else clone_state(state, ref_opt)
-        lk = timed_iteration(state, batch)[0]
+        lk = iteration(state, batch)
         launched = K.spade_style.launches
         with plain_norm_sites():
-            lp = timed_iteration(plain, batch)[0]
-            lr = None if ref is None else timed_iteration(ref, batch)[0]
+            lp = iteration(plain, batch)
+            lr = None if ref is None else iteration(ref, batch)
         if K.spade_style.launches != launched:
             failures.append("the plain route launched the kernel")
         where = f"{dname} kernel vs plain, iteration {it + 1}"
@@ -1079,13 +975,12 @@ def lockstep(dname, state, batch, ref_opt=None):
         raise AssertionError("; ".join(failures))
 
 
-def timed(state, batch, plain=False, iters=TIMED_ITERS):
-    """(median ms of ``iters`` iterations, peak GiB allocated)."""
+def peak_gib(state, batch, iters):
+    """Peak GiB allocated over ``iters`` iterations."""
     torch.cuda.reset_peak_memory_stats()
-    with plain_norm_sites() if plain else contextlib.nullcontext():
-        ms = statistics.median(timed_iteration(state, batch)[1]
-                               for _ in range(iters))
-    return ms, torch.cuda.max_memory_allocated() / 2 ** 30
+    for _ in range(iters):
+        iteration(state, batch)
+    return torch.cuda.max_memory_allocated() / 2 ** 30
 
 
 def check_trained(dname, state, before):
@@ -1298,10 +1193,8 @@ def train_entry_point(per_iteration=None, **options):
         batches = [make_train_batch(opt, TRAIN_BATCH, seed=10 + i)
                    for i in range(LOOP_STEPS + 1)]
         K.spade_style.launches = 0
-        t0 = time.perf_counter()
         result = train(opt, max_steps=LOOP_STEPS,
                        dataloader=InMemoryBatches(batches), device="cuda")
-        seconds = time.perf_counter() - t0
         launches = K.spade_style.launches
         if result["steps"] != LOOP_STEPS or launches != LOOP_STEPS * \
                 per_iteration:
@@ -1330,8 +1223,8 @@ def train_entry_point(per_iteration=None, **options):
         raise AssertionError("the trained checkpoint scores non-finite")
     log(f"train.loop.train: {LOOP_STEPS} steps of the default model "
         f"(bfloat16, batch {TRAIN_BATCH}{', ' if options else ''}"
-        f"{', '.join(f'{k} {v}' for k, v in options.items())}) in "
-        f"{seconds:.1f} s, set-up included, {launches} kernel launches; "
+        f"{', '.join(f'{k} {v}' for k, v in options.items())}): "
+        f"{launches} kernel launches; "
         f"wrote {', '.join(written)}; latest_net_G/E.pth strict-loaded and "
         f"scored a batch (mean x1471 = {float(np.mean(errors)) * 1471:.2f})")
     return launches
@@ -1343,13 +1236,12 @@ def phase_train():
     from seg2eye_tpu_torch.utils.weights import init_networks
 
     opt = Options(batchSize=TRAIN_BATCH).finalize()
-    t0 = time.perf_counter()
     nets_cpu = init_networks(opt, torch.Generator().manual_seed(0), "cpu")
     counts = {k: sum(p.numel() for p in v.parameters())
               for k, v in nets_cpu.items()}
     want = {**EXPECTED_PARAMS, "D": EXPECTED_D_PARAMS}
     log(f"train: default model, params G {counts['G']:,} E {counts['E']:,} "
-        f"D {counts['D']:,}, seeded init {time.perf_counter() - t0:.1f} s")
+        f"D {counts['D']:,}")
     if counts != want:
         raise AssertionError(f"parameter counts {counts} != {want}")
     before = {n: {k: t.detach().clone() for k, t in net.state_dict().items()}
@@ -1366,7 +1258,7 @@ def phase_train():
         lockstep(dname, state, batch, None if dname == "float32"
                  else opt.replace(compute_dtype="float32"))
         K.spade_style.launches = K.spade_style.backward_launches = 0
-        timed_iteration(state, batch)
+        iteration(state, batch)
         launches[dname] = K.spade_style.launches
         backward = K.spade_style.backward_launches
         if launches[dname] != TRAIN_LAUNCHES:
@@ -1378,25 +1270,15 @@ def phase_train():
                                  f"{backward} times in one training "
                                  f"iteration, expected "
                                  f"{BACKWARD_LAUNCHES[dname]}")
-        ms, peak = timed(state, batch)
         check_trained(dname, state, before)
         check_packed(dname, state.model)
-        plain = clone_state(state)
         del state
-        torch.cuda.empty_cache()
-        p_ms, p_peak = timed(plain, batch, plain=True)
-        del plain
         torch.cuda.empty_cache()
         if tf32_flags() != flags:
             raise AssertionError(f"{dname}: training left the TF32 flags at "
                                  f"{tf32_flags()}, not {flags}")
         log(f"train {dname} bs{TRAIN_BATCH}: {launches[dname]} kernel "
-            f"launches and {backward} of the backward kernel per iteration; "
-            f"kernel route {ms:.2f} ms/iteration, "
-            f"{TRAIN_BATCH / ms * 1e3:.2f} img/s, peak {peak:.2f} GiB; plain "
-            f"route {p_ms:.2f} ms/iteration, {TRAIN_BATCH / p_ms * 1e3:.2f} "
-            f"img/s, peak {p_peak:.2f} GiB (median of {TIMED_ITERS}, host "
-            "clock, synchronised)")
+            f"launches and {backward} of the backward kernel per iteration")
     pool_card_vs_cpu()
     card_vs_cpu()
     train_entry_point()
@@ -1417,7 +1299,8 @@ REMAT_7B = dict(crop_size=512, aspect_ratio=0.8, batchSize=8)
 # regeneration of the fake under no_grad, where nothing is checkpointed
 # (18)
 REMAT_LAUNCHES = 3 * len(SITES)
-OPTIONS_TIMED_ITERS = 3
+# iterations over which 7b reads each route's peak memory
+PEAK_ITERS = 3
 
 
 def moved_statistics(model, before, nets=("E", "D")):
@@ -1433,12 +1316,11 @@ def moved_statistics(model, before, nets=("E", "D")):
 
 def options_batchnorm_vgg(nets_cpu, opt, batch):
     """7a in each dtype: kernel route against plain route (lockstep), 36
-    launches per iteration, every E/D running statistic moved, timings."""
+    launches per iteration, every E/D running statistic moved."""
     from seg2eye_tpu_torch.ops import spade_style as K
 
     before = {n: {k: t.detach().clone() for k, t in net.state_dict().items()}
               for n, net in nets_cpu.items() if n != "VGG"}
-    out = {}
     for dname in ("float32", "bfloat16"):
         dopt = opt.replace(compute_dtype=dname)
         state = train_state(dopt, nets_cpu)
@@ -1449,7 +1331,7 @@ def options_batchnorm_vgg(nets_cpu, opt, batch):
         lockstep(dname, state, batch, None if dname == "float32"
                  else opt.replace(compute_dtype="float32"))
         K.spade_style.launches = 0
-        timed_iteration(state, batch)
+        iteration(state, batch)
         launches = K.spade_style.launches
         if launches != TRAIN_LAUNCHES:
             raise AssertionError(f"7a {dname}: {launches} kernel launches "
@@ -1460,23 +1342,11 @@ def options_batchnorm_vgg(nets_cpu, opt, batch):
         if moved != total or total == 0:
             raise AssertionError(f"7a {dname}: {moved} of {total} E/D "
                                  "running statistics moved")
-        ms, peak = timed(state, batch, iters=OPTIONS_TIMED_ITERS)
-        plain = clone_state(state)
         del state
         torch.cuda.empty_cache()
-        p_ms, p_peak = timed(plain, batch, plain=True,
-                             iters=OPTIONS_TIMED_ITERS)
-        del plain
-        torch.cuda.empty_cache()
-        out[dname] = (ms, peak, p_ms, p_peak)
         log(f"options {dname} bs{opt.batchSize}: {launches} kernel launches "
             f"per iteration; all {total} running statistics of E and D "
-            f"moved; kernel route {ms:.2f} ms/iteration, "
-            f"{opt.batchSize / ms * 1e3:.2f} img/s, peak {peak:.2f} GiB; "
-            f"plain route {p_ms:.2f} ms/iteration, "
-            f"{opt.batchSize / p_ms * 1e3:.2f} img/s, peak {p_peak:.2f} GiB "
-            f"(median of {OPTIONS_TIMED_ITERS})")
-    return out
+            "moved")
 
 
 def buffers_equal(where, a, b):
@@ -1496,7 +1366,7 @@ def options_remat(nets_cpu, opt, batch):
     """7b in each dtype: the G step and then the D step of one iteration,
     with and without --remat from identical states (losses and gradients
     within F32_ROUTE, u/v and running statistics bit for bit); the
-    launches; ms/iteration and the peak memory of both."""
+    launches; the peak memory of both, lower with remat."""
     from seg2eye_tpu_torch.ops import spade_style as K
     from seg2eye_tpu_torch.train import steps
 
@@ -1538,22 +1408,21 @@ def options_remat(nets_cpu, opt, batch):
             raise AssertionError("; ".join(failures))
         del plain
         torch.cuda.empty_cache()
-        ms_r, peak_r = timed(remat, batch, iters=OPTIONS_TIMED_ITERS)
+        peak_r = peak_gib(remat, batch, PEAK_ITERS)
         plain = clone_state(remat, dopt)
         del remat
         torch.cuda.empty_cache()
-        ms_p, peak_p = timed(plain, batch, iters=OPTIONS_TIMED_ITERS)
+        peak_p = peak_gib(plain, batch, PEAK_ITERS)
         del plain
         torch.cuda.empty_cache()
         log(f"remat {dname} crop {opt.crop_size} bs{opt.batchSize}: kernel "
             f"launches per iteration {n_plain} without, {n_remat} with; "
-            f"without {ms_p:.2f} ms/iteration, peak {peak_p:.2f} GiB; with "
-            f"{ms_r:.2f} ms/iteration, peak {peak_r:.2f} GiB (median of "
-            f"{OPTIONS_TIMED_ITERS})")
+            f"peak over {PEAK_ITERS} iterations {peak_p:.2f} GiB without, "
+            f"{peak_r:.2f} GiB with")
         if not peak_r < peak_p:
             raise AssertionError(f"remat {dname}: peak {peak_r:.2f} GiB is "
                                  f"not below {peak_p:.2f} GiB without it")
-        out[dname] = (n_remat, ms_p, peak_p, ms_r, peak_r)
+        out[dname] = n_remat
     return out
 
 
@@ -1574,24 +1443,23 @@ def phase_options():
     log(f"options: default model with norm_E = norm_D = spectralbatch, "
         f"per_sample_encode auto (on), VGG19 to relu5_1 ({vgg:,} seeded "
         f"parameters, frozen), lambda_vgg {opt.lambda_vgg}")
-    timings = {"7a": options_batchnorm_vgg(
-        nets_cpu, opt, make_train_batch(opt, TRAIN_BATCH, seed=4))}
+    options_batchnorm_vgg(nets_cpu, opt,
+                          make_train_batch(opt, TRAIN_BATCH, seed=4))
     del nets_cpu
     opt = Options(**REMAT_7B).finalize()
     nets_cpu = init_networks(opt, torch.Generator().manual_seed(0), "cpu")
-    timings["7b"] = options_remat(nets_cpu, opt,
-                                  make_train_batch(opt, opt.batchSize, 5))
+    remat_launches = options_remat(nets_cpu, opt,
+                                   make_train_batch(opt, opt.batchSize, 5))
     del nets_cpu
     card_vs_cpu(", batch sub-norms, per-sample encoding, VGG, remat",
                 remat=True, **OPTIONS_7A)
-    timings["7d"] = train_entry_point(REMAT_LAUNCHES, remat=True,
-                                      profile_steps=1)
+    train_entry_point(REMAT_LAUNCHES, remat=True, profile_steps=1)
     log(f"options: phase 7 in {time.perf_counter() - t_phase:.1f} s")
-    return timings
+    return remat_launches
 
 
 # ---------------------------------------------------------------- phase 6
-RN_SERVE_BATCH, RN_TRAIN_STEPS, RN_SERVE_REPEATS = 32, 3, 5
+RN_SERVE_BATCH, RN_TRAIN_STEPS = 32, 3
 RN_DEVICE = "cuda"
 RN_CONFIGS = {"SegNet": "refinenet/configs/segnet.json",
               "RefineNet": "refinenet/configs/refinenet.json"}
@@ -1677,46 +1545,14 @@ def rn_batch(name, cfg, b, seed=0, device=None):
     return {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
 
 
-def rn_flops(name, model):
-    """(forward FLOPs of one image in eval, of one image's training step:
-    forward and backward) at the model's input size, counted by
-    ``utils.roofline.flops_of`` (convolutions, their backward with their
-    groups; the rest is noise)."""
-    from seg2eye_tpu_torch.utils import roofline
-
-    cfg = model.cfg
-
-    def step():
-        out = model.forward(rn_batch(name, cfg, 2), train=True)
-        out["ce_loss" if name == "SegNet" else "eds_loss"].backward()
-
-    with torch.no_grad():
-        fwd = roofline.flops_of(model.forward, rn_batch(name, cfg, 1),
-                                train=False)
-    state = {k: v.clone() for k, v in model.net.state_dict().items()}
-    train = roofline.flops_of(step)
-    model.net.load_state_dict(state)
-    model.net.zero_grad(set_to_none=True)
-    return fwd, train / 2
-
-
-def rn_bound_ms(flops, dname):
-    """The least time of ``flops`` at the card's peak for the compute
-    dtype (``utils.roofline``): the tensor cores' bf16 rate, or the FP32
-    pipes' (the port keeps float32 out of TF32)."""
-    from seg2eye_tpu_torch.utils import roofline
-
-    return roofline.compute_ms(flops, DTYPES[dname])
-
-
-def rn_serve(name, trainer, state, dname, flops):
-    """eval_step at bs32: checks, then the median host-clock ms of
-    RN_SERVE_REPEATS synchronised batches and the peak memory."""
+def rn_serve(name, trainer, state, dname):
+    """eval_step at bs32: SegNet's masks in 0..3, RefineNet's predictions
+    in [-1, 1] and a finite score."""
     cfg = state.model.cfg
     batch = rn_batch(name, cfg, RN_SERVE_BATCH, seed=1)
     if name == "SegNet":                  # masks for unlabeled images
         del batch["target"]
-    out = trainer.eval_step(state, batch)                  # warm-up
+    out = trainer.eval_step(state, batch)
     pred = out["prediction"]
     if name == "SegNet":
         if pred.shape != (RN_SERVE_BATCH, cfg.input_height, cfg.input_width) \
@@ -1733,55 +1569,33 @@ def rn_serve(name, trainer, state, dname, flops):
                                  "prediction or score "
                                  "not finite and in [-1, 1]")
         extra = f"score {score:.2f}"
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    times = []
-    for _ in range(RN_SERVE_REPEATS):
-        t0 = time.perf_counter()
-        trainer.eval_step(state, batch)
-        torch.cuda.synchronize()
-        times.append((time.perf_counter() - t0) * 1e3)
-    ms = statistics.median(times)
-    bound = rn_bound_ms(flops * RN_SERVE_BATCH, dname)
     log(f"  serve {name} ({cfg.backbone}) {dname} bs{RN_SERVE_BATCH}: "
-        f"{ms:.2f} ms/batch, "
-        f"{RN_SERVE_BATCH / ms * 1e3:.2f} img/s, peak "
-        f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB; bound "
-        f"{bound:.2f} ms ({flops * RN_SERVE_BATCH / 1e12:.3f} TFLOP), "
-        f"{100 * bound / ms:.1f}% of it; {extra} (median of "
-        f"{RN_SERVE_REPEATS}, host clock, synchronised)")
-    return ms
+        f"{extra}")
 
 
-def rn_train(name, trainer, state, dname, flops):
+def rn_train(name, trainer, state, dname):
     """RN_TRAIN_STEPS train steps at the config's batch (dropout on, as
-    main_loop runs them), after one warm-up step: finite losses, every
+    main_loop runs them), after a first step: finite losses, every
     parameter with a nonzero gradient moved, every running statistic
-    moved; median ms/step and peak memory."""
+    moved."""
     from seg2eye_tpu_torch.refinenet.training import dropout_generator
 
     cfg = state.model.cfg
     lr = cfg.learning_rate
     net = state.model.net
     trainer.train_step(state, rn_batch(name, cfg, cfg.batch_size, seed=2), lr,
-                       dropout_generator(cfg, 0, RN_DEVICE))        # warm-up
+                       dropout_generator(cfg, 0, RN_DEVICE))
     before = {k: v.detach().clone() for k, v in net.state_dict().items()}
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    times, losses = [], []
+    losses = []
     nonzero = set()
     for step in range(RN_TRAIN_STEPS):
         batch = rn_batch(name, cfg, cfg.batch_size, seed=3 + step)
-        t0 = time.perf_counter()
         scalars, _ = trainer.train_step(state, batch, lr,
                                         dropout_generator(cfg, step + 1,
                                                           RN_DEVICE))
-        torch.cuda.synchronize()
-        times.append((time.perf_counter() - t0) * 1e3)
         losses.append({k: float(v) for k, v in scalars.items()})
         nonzero |= {n for n, p in net.named_parameters()
                     if p.grad is not None and bool(p.grad.any())}
-    peak = torch.cuda.max_memory_allocated() / 2 ** 30
     if not all(np.isfinite(v) for d in losses for v in d.values()):
         raise AssertionError(f"{name} ({cfg.backbone}) {dname}: non-finite "
                              f"losses {losses}")
@@ -1793,20 +1607,13 @@ def rn_train(name, trainer, state, dname, flops):
     if stuck:
         raise AssertionError(f"{name} ({cfg.backbone}) {dname}: did not "
                              f"move: {stuck[:5]}")
-    ms = statistics.median(times)
-    bound = rn_bound_ms(flops * cfg.batch_size, dname)
     key = "ce_loss" if name == "SegNet" else "eds_loss"
     log(f"  train {name} ({cfg.backbone}) {dname} bs{cfg.batch_size} "
         "(momentum "
         f"{trainer.momentum}, clip {cfg.gradient_norm_clip}, lr {lr:g}): "
-        f"{ms:.2f} ms/step, {cfg.batch_size / ms * 1e3:.2f} img/s, peak "
-        f"{peak:.2f} GiB; bound {bound:.2f} ms "
-        f"({flops * cfg.batch_size / 1e12:.3f} TFLOP), {100 * bound / ms:.1f}% "
-        f"of it; {key} " + ", ".join(f"{d[key]:.4f}" for d in losses)
+        f"{key} " + ", ".join(f"{d[key]:.4f}" for d in losses)
         + f"; {len(nonzero)} parameters with a nonzero gradient and every "
-        "running statistic moved (median of "
-        f"{RN_TRAIN_STEPS}, host clock, synchronised)")
-    return ms
+        "running statistic moved")
 
 
 def rn_gap(got, want):
@@ -1970,10 +1777,8 @@ def rn_entry_point():
         train = InMemoryBatches([host(10 + i)
                                  for i in range(RN_TRAIN_STEPS)])
         test = {"val": InMemoryBatches([host(20)])}
-        t0 = time.perf_counter()
         result = main_loop(rn_model("RefineNet", cfg, RN_DEVICE), cfg, train,
                            test, loss_key="eds_loss", model_name="RefineNet")
-        seconds = time.perf_counter() - t0
         if result["steps"] != RN_TRAIN_STEPS or not np.isfinite(
                 result["final"]["val"]["eds_loss"]):
             raise AssertionError(f"main_loop: {result['steps']} steps, final "
@@ -1991,8 +1796,8 @@ def rn_entry_point():
         if step != RN_TRAIN_STEPS or not same:
             raise AssertionError(f"checkpoint step {step}, eval outputs "
                                  f"equal: {same}")
-    log(f"  main_loop: RefineNet {RN_TRAIN_STEPS} steps at bs{cfg.batch_size} "
-        f"in {seconds:.1f} s (set-up and final test included); checkpoint "
+    log(f"  main_loop: RefineNet {RN_TRAIN_STEPS} steps at "
+        f"bs{cfg.batch_size}; checkpoint "
         f"{step:07d}.ckpt reloads, eval_step bit for bit equal "
         f"(final val eds_loss {result['final']['val']['eds_loss']:.4f})")
 
@@ -2006,31 +1811,23 @@ def phase_refinenet():
     K.spade_style.launches = 0
     t_phase = time.perf_counter()
     flags = tf32_flags()
-    times = {}
     for name, backbone in RN_PARAMS:
         cfg = rn_config(name, backbone=backbone)
-        t0 = time.perf_counter()
         model = rn_model(name, cfg, RN_DEVICE)
         trainer = rn_trainer(name, model)
         state = trainer.init_state(torch.Generator().manual_seed(0))
         count = sum(p.numel() for p in model.net.parameters())
-        fwd, train = rn_flops(name, model)
         depth = f"-{cfg.resnet_depth}" if backbone == "resnet" else ""
         log(f"refinenet: {name} ({backbone}{depth}, os"
             f"{8 if backbone == 'drn' else cfg.output_stride}, "
-            f"{cfg.input_height}x{cfg.input_width}): {count:,} parameters, "
-            f"seeded init {time.perf_counter() - t0:.1f} s; "
-            f"{fwd / 1e9:.1f} GFLOP per image forward, {train / 1e9:.1f} "
-            "per image training step")
+            f"{cfg.input_height}x{cfg.input_width}): {count:,} parameters")
         if count != RN_PARAMS[(name, backbone)]:
             raise AssertionError(f"{name} ({backbone}): {count} parameters, "
                                  f"expected {RN_PARAMS[(name, backbone)]}")
-        for kind, fn, flops in (("serve", rn_serve, fwd),
-                                ("train", rn_train, train)):
+        for fn in (rn_serve, rn_train):
             for dname in RN_ROW_DTYPES.get((name, backbone), DTYPES):
                 model.dtype = DTYPES[dname]       # weights stay float32
-                times[(name, backbone, kind, dname)] = fn(
-                    name, trainer, state, dname, flops)
+                fn(name, trainer, state, dname)
         del model, trainer, state
         torch.cuda.empty_cache()
     rn_card_vs_cpu()
@@ -2042,7 +1839,6 @@ def phase_refinenet():
         raise AssertionError(f"phase 6 left the TF32 flags at {tf32_flags()}")
     log(f"refinenet: phase 6 in {time.perf_counter() - t_phase:.1f} s, no "
         "SPADE+Style launch")
-    return times
 
 
 # ---------------------------------------------------------------- phase 8
@@ -2068,7 +1864,7 @@ SERVING_BLOCKED = ("seg2eye_tpu_torch.models", "seg2eye_tpu_torch.refinenet",
                    "flax")
 # the serving processes' start: imports of SERVING_BLOCKED (argv[1]) refused
 SERVING_REFUSE = r"""
-import importlib.abc, json, sys, time
+import importlib.abc, json, sys
 BLOCKED = tuple(json.loads(sys.argv[1]))
 
 def blocked(name):
@@ -2093,9 +1889,7 @@ from seg2eye_tpu_torch.serving import load_serving
 
 batches, device, report = json.loads(sys.argv[2]), sys.argv[4], {}
 for dname, art, out in json.loads(sys.argv[3]):
-    t0 = time.perf_counter()
     served = load_serving(art, device=device)
-    load_s = time.perf_counter() - t0
     before = [w.clone() for w in served.weights]
     outs, calls = {}, []
     for bs, seed in batches:
@@ -2115,7 +1909,7 @@ for dname, art, out in json.loads(sys.argv[3]):
         outs[bs] = [t.cpu() for t in results[0]]
     unchanged = all(torch.equal(a, b) for a, b in zip(served.weights, before))
     torch.save(outs, out)
-    report[dname] = dict(load_s=load_s, calls=calls, unchanged=unchanged,
+    report[dname] = dict(calls=calls, unchanged=unchanged,
                          refused=sorted(filter(blocked, sys.modules)))
     del served, before, outs, results
     torch.cuda.empty_cache()
@@ -2130,14 +1924,12 @@ from seg2eye_tpu_torch.serving import load_serving
 
 device, report = sys.argv[3], {}
 for key, art, x_path, out in json.loads(sys.argv[2]):
-    t0 = time.perf_counter()
     served = load_serving(art, device=device)
-    load_s = time.perf_counter() - t0
     K.spade_style.launches = 0
     got = served(np.load(x_path))
     got = got if isinstance(got, tuple) else (got,)
     torch.save([t.cpu() for t in got], out)
-    report[key] = dict(load_s=load_s, launches=K.spade_style.launches,
+    report[key] = dict(launches=K.spade_style.launches,
                        refused=sorted(filter(blocked, sys.modules)))
     del served, got
     torch.cuda.empty_cache()
@@ -2178,7 +1970,8 @@ def serving_batch(opt, bs, seed):
 def serve_seg2eye(tmp):
     """The default model at full width, exported in both dtypes on running
     statistics, then served from a process that cannot import the model
-    code, and timed against the live model in this one."""
+    code, and timed against the live model in this one for the slowdown
+    check."""
     import os
 
     from seg2eye_tpu_torch.models.pix2pix import Pix2Pix
@@ -2194,23 +1987,19 @@ def serve_seg2eye(tmp):
     label, style = serving_batch(opt, BATCH, seed=40)
     calibrate_running_stats(calib, {"label": label, "style_image": style})
     batches = [(bs, 50 + bs) for bs in SERVE_BATCHES]
-    models, jobs, export_s = {}, [], {}
+    models, jobs = {}, []
     for dname in ("bfloat16", "float32"):
         models[dname] = Pix2Pix(opt.replace(compute_dtype=dname), nets,
                                 SERVE_DEVICE)
         art = os.path.join(tmp, f"seg2eye_{dname}")
-        t0 = time.perf_counter()
         export_inference(models[dname], art)
-        export_s[dname] = time.perf_counter() - t0
         jobs.append((dname, art, os.path.join(tmp, f"served_{dname}.pt")))
     size = sum(os.path.getsize(os.path.join(jobs[0][1], f))
                for f in os.listdir(jobs[0][1])) / 2 ** 20
     log(f"serving: default model (ngf {opt.ngf}, crop {opt.crop_size}, "
         f"k={opt.input_ns}) on running statistics calibrated on one seeded "
-        f"batch; exported in {export_s['bfloat16']:.1f} s (bfloat16) and "
-        f"{export_s['float32']:.1f} s (float32), {size:.1f} MiB each")
+        f"batch; exported in bfloat16 and float32, {size:.1f} MiB each")
     root = os.path.dirname(os.path.abspath(__file__))
-    t0 = time.perf_counter()
     proc = subprocess.run(
         [sys.executable, "-c", SERVING_CHILD, json.dumps(SERVING_BLOCKED),
          json.dumps(batches), json.dumps(jobs), SERVE_DEVICE], cwd=root,
@@ -2220,8 +2009,6 @@ def serve_seg2eye(tmp):
         raise AssertionError(f"the serving process failed:\n"
                              f"{proc.stderr[-4000:]}")
     report = json.loads(proc.stdout.strip().splitlines()[-1])
-    log(f"  serving process (model modules refused): "
-        f"{time.perf_counter() - t0:.1f} s, start included")
     launches = {}
     for dname, art, out in jobs:
         rep, model = report[dname], models[dname]
@@ -2254,8 +2041,9 @@ def serve_seg2eye(tmp):
                                  f"{rep['calls']}, buffers unchanged "
                                  f"{rep['unchanged']}, model modules loaded "
                                  f"{rep['refused']}")
-        log(f"  {dname}: loaded in {rep['load_s']:.2f} s; per call [batch, "
-            f"K1 launches, weight packings] {[c[:3] for c in rep['calls']]}; "
+        log(f"  {dname} in the serving process (model modules refused): per "
+            f"call [batch, K1 launches, weight packings] "
+            f"{[c[:3] for c in rep['calls']]}; "
             "second calls bit for bit equal, buffers unchanged; artifact vs "
             "live (Pix2Pix.inference, to_255resized), max abs diff fake / "
             "fake_255 (share of the live fake inside (-0.99, 0.99)): "
@@ -2264,9 +2052,7 @@ def serve_seg2eye(tmp):
             + f" (tolerance {fake_tol} / 1)")
 
         # the artifact in this process, timed in turns with the live model
-        t0 = time.perf_counter()
         art_model = load_serving(art, device=SERVE_DEVICE)
-        load_s = time.perf_counter() - t0
         rows = []
         for bs, seed in batches:
             label, style = (torch.from_numpy(a).to(SERVE_DEVICE)
@@ -2289,8 +2075,7 @@ def serve_seg2eye(tmp):
                         f"{bs / a_ms * 1e3:.1f} / {bs / l_ms * 1e3:.1f} img/s "
                         f"({100 * (a_ms / l_ms - 1):+.1f}%)")
         log(f"  {dname} artifact / live, in turns (CUDA events, median of "
-            f"{SERVE_REPEATS}; artifact loaded here in {load_s:.2f} s): "
-            + "; ".join(rows))
+            f"{SERVE_REPEATS}): " + "; ".join(rows))
         del art_model, served
         torch.cuda.empty_cache()
     if launches != {d: len(SITES) for d in DTYPES}:
@@ -2343,12 +2128,8 @@ def serve_refiners(tmp):
         trainer, state = states[(name, backbone)]
         state.model.dtype = DTYPES[dname]            # weights stay float32
         art = os.path.join(tmp, f"{name}_{backbone}_{dname}")
-        t0 = time.perf_counter()
         export_refiner(state.model, art)
-        export_s = time.perf_counter() - t0
-        t0 = time.perf_counter()
         served = load_serving(art, device=SERVE_DEVICE)
-        load_s = time.perf_counter() - t0
         batch = rn_batch(name, state.model.cfg, RN_SERVE_BATCH, seed=1,
                          device=SERVE_DEVICE)
         x = batch["input"]
@@ -2390,9 +2171,8 @@ def serve_refiners(tmp):
         if a_ms > SERVE_SLOWDOWN * l_ms:
             raise AssertionError(f"{name} ({backbone}) {dname} artifact "
                                  f"{a_ms:.2f} ms, live {l_ms:.2f} ms")
-        log(f"  {name} ({backbone}) {dname} bs{RN_SERVE_BATCH}: export "
-            f"{export_s:.1f} s, "
-            f"load {load_s:.2f} s; artifact vs eval_step: {what}; artifact "
+        log(f"  {name} ({backbone}) {dname} bs{RN_SERVE_BATCH}: artifact vs "
+            f"eval_step: {what}; artifact "
             f"{a_ms:.2f} ms/batch ({RN_SERVE_BATCH / a_ms * 1e3:.1f} img/s), "
             f"live {l_ms:.2f} ({RN_SERVE_BATCH / l_ms * 1e3:.1f} img/s), "
             f"{100 * (a_ms / l_ms - 1):+.1f}% (CUDA events, median of "
@@ -2402,7 +2182,6 @@ def serve_refiners(tmp):
     states.clear()
     torch.cuda.empty_cache()
     root = os.path.dirname(os.path.abspath(__file__))
-    t0 = time.perf_counter()
     proc = subprocess.run(
         [sys.executable, "-c", SERVING_CHILD_REFINERS,
          json.dumps(SERVING_BLOCKED), json.dumps(jobs), SERVE_DEVICE],
@@ -2422,10 +2201,9 @@ def serve_refiners(tmp):
                                  f"{rep['launches']}, model modules loaded "
                                  f"{rep['refused']}, outputs {diff:.3e} from "
                                  "this process's artifact")
-        rows.append(f"{key} load {rep['load_s']:.2f} s, {diff:.1e}")
-    log(f"  refiners in a serving process (model modules refused, 0 K1 "
-        f"launches; {time.perf_counter() - t0:.1f} s, start included), "
-        "load time and max abs diff of the outputs from this process's "
+        rows.append(f"{key} {diff:.1e}")
+    log("  refiners in a serving process (model modules refused, 0 K1 "
+        "launches), max abs diff of the outputs from this process's "
         "artifact: " + "; ".join(rows))
 
 
@@ -2452,7 +2230,6 @@ SEG_DEVICE = "cuda"
 # validation images (batches of 4, 4 and 2)
 SEG_ARGV = ("--dataset", "pascal", "--workers", "0")
 SEG_TRAIN_IMAGES, SEG_VAL_IMAGES = 12, 10
-SEG_TIMED, SEG_EVAL_REPEATS = 3, 5
 # a CPU rehearsal shrinks the phase here (resnet_layers, crop_size)
 SEG_OVERRIDES = {}
 # card against CPU: ResNet-14 at crop 33, batch 2, from identical states;
@@ -2516,24 +2293,6 @@ def seg_batch(data, index, n, device):
             torch.from_numpy(data.labels[index:index + n]).to(device))
 
 
-def seg_flops(t):
-    """(forward FLOPs of one image in eval, of one image's training step)
-    at the crop size, counted as ``rn_flops`` counts them."""
-    from seg2eye_tpu_torch.utils import roofline
-
-    crop = t.args.crop_size
-    x = torch.zeros(2, crop, crop, 3, device=t.device)
-    y = torch.zeros(2, crop, crop, device=t.device)
-    with torch.no_grad():
-        fwd = roofline.flops_of(t.net, t._input(x[:1]), False)
-    state = {k: v.clone() for k, v in t.net.state_dict().items()}
-    train = roofline.flops_of(
-        lambda: t.criterion(t.net(t._input(x), True), y).backward())
-    t.net.load_state_dict(state)
-    t.net.zero_grad(set_to_none=True)
-    return fwd, train / 2
-
-
 def seg_moved(where, net, before, nonzero):
     """Every parameter with a nonzero gradient and every running statistic
     moved since ``before``."""
@@ -2545,27 +2304,19 @@ def seg_moved(where, net, before, nonzero):
         raise AssertionError(f"{where}: did not move: {stuck[:5]}")
 
 
-def seg_train(t, dname, flops):
+def seg_train(t, dname):
     """``training(0)``, 3 steps: finite losses, the LR of both groups equal
     to LRScheduler's (the head's 10x) at each step, every parameter with a
-    nonzero gradient and every running statistic moved; the host-clock
-    time of each loop iteration (data, step, image dump).  Then
-    SEG_TIMED synchronised train steps (dropout on): median ms/step, peak
-    memory and the share of the FLOP bound."""
-    from seg2eye_tpu_torch.refinenet.training import dropout_generator
-
+    nonzero gradient and every running statistic moved."""
     net, bs = t.net, t.args.batch_size
     before = {k: v.detach().clone() for k, v in net.state_dict().items()}
-    loop_ms, losses, lrs, nonzero = [], [], [], set()
-    mark = [time.perf_counter()]
+    losses, lrs, nonzero = [], [], set()
 
     def hook(i, loss):           # the loss was read: the step has finished
-        loop_ms.append((time.perf_counter() - mark[0]) * 1e3)
         losses.append(loss)
         lrs.append([g["lr"] for g in t.optimizer.param_groups])
         nonzero.update(n for n, p in net.named_parameters()
                        if p.grad is not None and bool(p.grad.any()))
-        mark[0] = time.perf_counter()
 
     epoch_loss = t.training(0, step_hook=hook)
     want = [[t.scheduler(i, 0), 10 * t.scheduler(i, 0)]
@@ -2576,39 +2327,18 @@ def seg_train(t, dname, flops):
     if not all(np.isfinite(v) for v in losses + [epoch_loss]):
         raise AssertionError(f"segtrain {dname}: losses {losses}")
     seg_moved(f"segtrain {dname}", net, before, nonzero)
-
-    x, y = seg_batch(t.val_loader.dataset, 0, bs, t.device)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    times = []
-    for step in range(SEG_TIMED):
-        t0 = time.perf_counter()
-        t.train_step(x, y, t.scheduler(0, 1),
-                     dropout_generator(t.args, 100 + step, t.device))
-        torch.cuda.synchronize()
-        times.append((time.perf_counter() - t0) * 1e3)
-    ms = statistics.median(times)
-    bound = rn_bound_ms(flops * bs, dname)
     log(f"  train {dname} bs{bs} at {t.args.crop_size}x{t.args.crop_size} "
         f"(lr {t.args.lr:g} poly, head 10x, momentum {t.args.momentum}, "
-        f"weight decay {t.args.weight_decay}): {ms:.2f} ms/step, "
-        f"{bs / ms * 1e3:.2f} img/s, peak "
-        f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB; bound "
-        f"{bound:.2f} ms ({flops * bs / 1e12:.3f} TFLOP), "
-        f"{100 * bound / ms:.1f}% of it (median of {SEG_TIMED} synchronised "
-        f"steps, host clock); training(0): losses "
-        + ", ".join(f"{v:.4f}" for v in losses) + ", loop iterations "
-        + ", ".join(f"{v:.1f}" for v in loop_ms) + " ms (data, step, "
-        f"image dump); {len(nonzero)} parameters with a nonzero gradient "
-        "and every running statistic moved; group lrs = LRScheduler's")
-    return ms
+        f"weight decay {t.args.weight_decay}): training(0): losses "
+        + ", ".join(f"{v:.4f}" for v in losses) + f"; {len(nonzero)} "
+        "parameters with a nonzero gradient and every running statistic "
+        "moved; group lrs = LRScheduler's")
 
 
-def seg_validate(t, dname, flops):
+def seg_validate(t, dname):
     """``validation(0)``: the confusion matrix summed from the device
     equals a numpy recount of the same logits (caught by a forward hook),
-    mIoU in [0, 1], model_best.ckpt written; then the eval step timed, with
-    its peak memory."""
+    mIoU in [0, 1], model_best.ckpt written."""
     import os
 
     captured = []
@@ -2638,29 +2368,10 @@ def seg_validate(t, dname, flops):
             f"matrix equal to the recount: "
             f"{np.array_equal(t.evaluator.confusion, recount)}, "
             f"model_best.ckpt {os.path.isfile(best)}")
-
-    bs = t.args.batch_size
-    x, y = seg_batch(val, 0, bs, t.device)
-    t.eval_step(x, y)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    times = []
-    for _ in range(SEG_EVAL_REPEATS):
-        t0 = time.perf_counter()
-        t.eval_step(x, y)
-        torch.cuda.synchronize()
-        times.append((time.perf_counter() - t0) * 1e3)
-    ms = statistics.median(times)
-    bound = rn_bound_ms(flops * bs, dname)
-    log(f"  eval {dname} bs{bs}: {ms:.2f} ms/batch, {bs / ms * 1e3:.2f} "
-        f"img/s, peak {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB; "
-        f"bound {bound:.2f} ms ({flops * bs / 1e12:.3f} TFLOP), "
-        f"{100 * bound / ms:.1f}% of it (median of {SEG_EVAL_REPEATS}, host "
-        f"clock, synchronised); validation(0) over {start} images in "
-        f"batches {sizes}: mIoU {miou:.4f}, the device's confusion matrix "
+    log(f"  eval {dname}: validation(0) over {start} images in batches "
+        f"{sizes}: mIoU {miou:.4f}, the device's confusion matrix "
         f"({int(recount.sum())} pixels) equal to the numpy recount, "
         "model_best.ckpt written")
-    return ms
 
 
 def seg_options(tmp, trained, train, val):
@@ -2797,29 +2508,23 @@ def phase_segtrain():
             crop = seg_args(tmp).crop_size
             train = SegData(SEG_TRAIN_IMAGES, crop, seed=0)
             val = SegData(SEG_VAL_IMAGES, crop, seed=1)
-            flops = None
             for dname in ("float32", "bfloat16"):
-                t0 = time.perf_counter()
                 argv = () if dname == "float32" else ("--precision", dname)
                 t = seg_trainer(seg_args(tmp, *argv, checkname=dname),
                                 train, val)
-                if flops is None:
-                    flops = seg_flops(t)
+                if dname == "float32":
                     a, count = t.args, sum(p.numel()
                                            for p in t.net.parameters())
                     layers = getattr(a, "resnet_layers", (3, 4, 23, 3))
                     log(f"segtrain: DeepLab ({a.backbone} {layers}, os"
                         f"{a.out_stride}, {t.nclass} classes, crop {crop}, "
                         f"batch {a.batch_size}, {a.epochs} epochs): "
-                        f"{count:,} parameters, seeded init "
-                        f"{time.perf_counter() - t0:.1f} s; "
-                        f"{flops[0] / 1e9:.1f} GFLOP per image forward, "
-                        f"{flops[1] / 1e9:.1f} per image training step")
+                        f"{count:,} parameters")
                     if not SEG_OVERRIDES and count != SEG_PARAMS:
                         raise AssertionError(f"segtrain: {count} parameters, "
                                              f"expected {SEG_PARAMS}")
-                seg_train(t, dname, flops[1])
-                seg_validate(t, dname, flops[0])
+                seg_train(t, dname)
+                seg_validate(t, dname)
                 if dname == "bfloat16":
                     seg_options(tmp, t, train, val)
                 del t
@@ -2918,15 +2623,9 @@ def interop_seg2eye(tmp, nets_cpu, opt, dname):
                for i in range(INTEROP_TRAIN_ITERS + 1)]
     for batch in batches[:-1]:
         steps.train_step(live, batch)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
     sizes = checkpoint.save_state_jax(live, dopt, "latest")
-    write_s = time.perf_counter() - t0
     loaded = train_state(dopt, nets_cpu)
-    t0 = time.perf_counter()
     checkpoint.load_state(loaded, dopt, "latest")
-    torch.cuda.synchronize()
-    load_s = time.perf_counter() - t0
     n = 0
     for name, net in nets_of(live.model).items():
         n += tensors_equal(f"{dname} net{name}", net.state_dict(),
@@ -2980,8 +2679,8 @@ def interop_seg2eye(tmp, nets_cpu, opt, dname):
     total = sum(sizes.values())
     log(f"  Seg2Eye {dname} bs{TRAIN_BATCH}: after {INTEROP_TRAIN_ITERS} "
         f"iterations save_state_jax wrote {', '.join(f'{k} {v / 1e6:.1f} MB' for k, v in sizes.items())} "
-        f"({total / 1e6:.1f} MB) in {write_s:.2f} s; load_state read them "
-        f"into a fresh state in {load_s:.2f} s: {n} tensors bit for bit "
+        f"({total / 1e6:.1f} MB); load_state read them into a fresh state: "
+        f"{n} tensors bit for bit "
         f"(weights, buffers, both Adam states); the scored bs{BATCH} batch "
         f"bitwise equal ({score_launches} K1 launches); the next iteration "
         f"under deterministic algorithms ({step_launches} K1 launches) "
@@ -3002,18 +2701,12 @@ def interop_refinenet(tmp):
     for i in range(INTEROP_TRAIN_ITERS):
         trainer.train_step(state, rn_batch("RefineNet", cfg, cfg.batch_size,
                                            seed=60 + i), 1e-4)
-    torch.cuda.synchronize()
     manager = CheckpointManager(tmp)
-    t0 = time.perf_counter()
     path = manager.save_at_step(INTEROP_TRAIN_ITERS, state, fmt="flax")
-    write_s = time.perf_counter() - t0
     fresh_trainer = rn_trainer("RefineNet",
                                rn_model("RefineNet", cfg, RN_DEVICE))
     fresh = fresh_trainer.init_state(torch.Generator().manual_seed(7))
-    t0 = time.perf_counter()
     step, fresh = CheckpointManager(tmp).load_last_checkpoint(fresh)
-    torch.cuda.synchronize()
-    load_s = time.perf_counter() - t0
     net, other = state.model.net, fresh.model.net
     n = tensors_equal("RefineNet", net.state_dict(), other.state_dict())
     n += tensors_equal(
@@ -3034,8 +2727,8 @@ def interop_refinenet(tmp):
     log(f"  RefineNet (resnet-{cfg.resnet_depth}, os{cfg.output_stride}, "
         f"{cfg.input_height}x{cfg.input_width}) after {INTEROP_TRAIN_ITERS} "
         f"steps at bs{cfg.batch_size}: {os.path.basename(path)} "
-        f"{size / 1e6:.1f} MB written in {write_s:.2f} s, read in "
-        f"{load_s:.2f} s; {n} tensors bit for bit (weights, running "
+        f"{size / 1e6:.1f} MB written and read back; {n} tensors bit for bit "
+        "(weights, running "
         "statistics, momentum), eval outputs bitwise equal, 0 K1 launches")
 
 
@@ -3053,16 +2746,10 @@ def interop_segtrain(tmp):
     for i in (last - 1, last):
         t.train_step(x, y, t.scheduler(i, 0))
     t.best_pred = 0.4375
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
     path = t.saver.save_checkpoint(t.checkpoint_state(0, "flax"), False,
                                    fmt="flax")
-    write_s = time.perf_counter() - t0
-    t0 = time.perf_counter()
     r = seg_trainer(seg_args(tmp, resume=path, checkname="interop-resumed"),
                     train, val)
-    torch.cuda.synchronize()
-    load_s = time.perf_counter() - t0
     n = tensors_equal("segtrain", t.net.state_dict(), r.net.state_dict())
     n += tensors_equal(
         "segtrain momentum",
@@ -3081,8 +2768,7 @@ def interop_segtrain(tmp):
     log(f"  segtrain ({t.args.backbone} {tuple(layers)}, os"
         f"{t.args.out_stride}, crop {crop}, "
         f"bs{t.args.batch_size}): checkpoint.ckpt "
-        f"{os.path.getsize(path) / 1e6:.1f} MB written in {write_s:.2f} s; "
-        f"--resume read it in {load_s:.2f} s (trainer set-up included): "
+        f"{os.path.getsize(path) / 1e6:.1f} MB written; --resume read it: "
         f"{n} tensors bit for bit, epoch 1, best_pred {r.best_pred}, eval "
         "logits bitwise equal, 0 K1 launches")
 
@@ -3129,8 +2815,6 @@ def phase_interop():
 RANK_TARGETS = 84
 RANK_CANDIDATES = (1662, 600)
 RANK_HW = (640, 400)
-RANK_REPEATS = {"card": 5, "cpu": 3}
-ASSEMBLY_REPEATS = 20
 DATA_DEVICE = "cuda"
 
 
@@ -3180,18 +2864,8 @@ def data_ranking():
                                  3, 2).to(DATA_DEVICE, torch.uint8)
     t_cpu, c_cpu = targets.cpu(), candidates.cpu()
     mb = c_cpu.numel() / 2 ** 20
-    inputs = {"card": (targets, candidates), "cpu": (t_cpu, c_cpu)}
-    times, results = {}, {}
-    for where, reps in RANK_REPEATS.items():
-        times[where] = []
-        for _ in range(reps):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            results[where] = rank_user(*inputs[where])
-            torch.cuda.synchronize()
-            times[where].append((time.perf_counter() - t0) * 1e3)
-    host = results["cpu"]
-    d_card, o_card = (x.cpu() for x in results["card"])
+    host = rank_user(t_cpu, c_cpu)
+    d_card, o_card = (x.cpu() for x in rank_user(targets, candidates))
     if not (torch.equal(d_card, host[0]) and torch.equal(o_card, host[1])):
         bad = (d_card != host[0]).sum().item()
         raise AssertionError(f"ranking: card and CPU differ ({bad} distances "
@@ -3205,27 +2879,18 @@ def data_ranking():
                              f"distance {d_card[-1, -1].item()} != "
                              f"{want.item()}")
     below = (d_card * 4096 < 2 ** 24).float().mean().item()
-    ms_card = statistics.median(times["card"])
-    ms_cpu = statistics.median(times["cpu"])
     log(f"data: ranking one user ({RANK_TARGETS} targets x {n_cand} "
         f"candidates at {RANK_HW[0]}x{RANK_HW[1]}, {mb:.0f} MiB of candidate "
-        f"masks): card {ms_card:.2f} ms/user (masks on the card; runs "
-        f"{[round(t, 2) for t in times['card']]}), CPU {ms_cpu:.2f} ms/user "
-        f"({torch.get_num_threads()} threads; runs "
-        f"{[round(t, 1) for t in times['cpu']]}), medians; distances and "
-        f"orders bit for bit over all "
-        f"{RANK_TARGETS} targets ({below:.4f} of the sums below 2**24); the "
-        f"pair above 2**24 (sum {exact}) = float32(sum) / 4096")
-    return {"card_ms": ms_card, "cpu_ms": ms_cpu}
+        f"masks), card against CPU: distances and orders bit for bit over "
+        f"all {RANK_TARGETS} targets ({below:.4f} of the sums below 2**24); "
+        f"the pair above 2**24 (sum {exact}) = float32(sum) / 4096")
 
 
 def data_assembly():
     from seg2eye_tpu_torch import native
     from seg2eye_tpu_torch.options import Options
 
-    t0 = time.perf_counter()
     native.library()
-    build_s = time.perf_counter() - t0
     opt = Options().finalize()
     bs, ns = TRAIN_BATCH, opt.input_ns
     h, w = opt.image_height, opt.image_width
@@ -3239,35 +2904,22 @@ def data_assembly():
                         refs, flips),
              "masks": (native.assemble_masks, native.assemble_masks_plain,
                        masks, sample_flips)}
-    out = {}
     for what, (fn, plain, arrays, fl) in pairs.items():
         got, want = fn(arrays, fl), plain(arrays, fl)
         if got.dtype != want.dtype or got.tobytes() != want.tobytes():
             raise AssertionError(f"native assemble_{what} differs from numpy")
-        ms = [[], []]
-        for _ in range(ASSEMBLY_REPEATS):
-            for f, acc in zip((fn, plain), ms):
-                t0 = time.perf_counter()
-                f(arrays, fl)
-                acc.append((time.perf_counter() - t0) * 1e3)
-        out[what] = [statistics.median(m) for m in ms]
-    log(f"data: native assembly built in {build_s:.2f} s; bs{bs} x "
-        f"input_ns {ns} references at {h}x{w} (float32 in [-1, 1], "
-        f"{int(sample_flips.sum())} of {bs} samples flipped): native "
-        f"{out['images'][0]:.3f} ms, numpy {out['images'][1]:.3f} ms; "
-        f"{bs} masks: native {out['masks'][0]:.3f} ms, numpy "
-        f"{out['masks'][1]:.3f} ms (medians of {ASSEMBLY_REPEATS}, host "
-        "clock); bit for bit equal")
-    return out
+    log(f"data: native assembly, bs{bs} x input_ns {ns} references at "
+        f"{h}x{w} (float32 in [-1, 1], {int(sample_flips.sum())} of {bs} "
+        f"samples flipped) and {bs} masks: bit for bit equal to numpy")
 
 
 def phase_data():
     """11: the style ranking at one OpenEDS user's size, card against CPU,
     and the native batch assembly against numpy."""
     t_phase = time.perf_counter()
-    ranking = data_ranking()
+    data_ranking()
     torch.cuda.empty_cache()
-    assembly = data_assembly()
+    data_assembly()
     foreign = sorted(m for m in sys.modules if m.split(".")[0] in
                      ("jax", "jaxlib", "flax", "seg2eye_tpu", "msgpack",
                       "optax"))
@@ -3275,7 +2927,6 @@ def phase_data():
         raise AssertionError(f"phase 11 imported {foreign[:5]}")
     log(f"data: phase 11 in {time.perf_counter() - t_phase:.1f} s "
         f"({card_line()})")
-    return ranking, assembly
 
 
 # --------------------------------------------------------------- phase 12
@@ -3283,16 +2934,15 @@ def phase_data():
 # of this script (DP_CHILD_TIMEOUT each), rendezvous through a FileStore.
 # The card machine has one GPU and NCCL refuses two ranks on one card, so:
 # (a) world 1 on NCCL, the DP code path with real collectives, against the
-# one-process route in the same process (``parallel.data_parallel.local``),
-# and both timed; (b) world 2 on gloo with CUDA tensors on the one card,
+# one-process route in the same process (``parallel.data_parallel.local``);
+# (b) world 2 on gloo with CUDA tensors on the one card,
 # each rank holding half of the global batch, against the one-process run
 # of the whole batch on rank 0.  Every iteration (segtrain: step) starts
 # both routes from identical copies of the DP route's state, as phase 5's
 # routes: losses and gradients to F32_ROUTE, then the updated state to
-# compare_state's limits.  The gloo run's times are those of a correctness
-# run, not a speed figure.
+# compare_state's limits.
 DP_DEVICE = "cuda"
-DP_ITERS, DP_TIMED_ITERS = 2, 3
+DP_ITERS = 2
 DP_CHILD_TIMEOUT = 180
 # segtrain at the CLI's pascal defaults but global batch 4 over the ranks,
 # so that unsynchronised BN (statistics of 2 images against 4) would show,
@@ -3304,11 +2954,6 @@ DP_CHILD_TIMEOUT = 180
 DP_SEG_BATCH, DP_SEG_STEPS = 4, 2
 # a CPU rehearsal shrinks the Seg2Eye model here (Options fields)
 DP_OVERRIDES = {}
-
-
-def dp_sync(device):
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
 
 
 def adam_reach(lr, beta2, t):
@@ -3372,39 +3017,22 @@ def dp_iterations(where, opt, nets_cpu, batches, device, failures):
     return launches
 
 
-def dp_timed(opt, nets_cpu, batch, device):
-    """ms/iteration of the DP route and the one-process route, in turns,
-    medians of DP_TIMED_ITERS after one of each; -> (dp ms, one-process
-    ms, K1 launches of the DP iteration)."""
+def dp_launches(opt, nets_cpu, batch, device):
+    """K1 launches of one DP iteration from the seeded state."""
     from seg2eye_tpu_torch.ops import spade_style as K
-    from seg2eye_tpu_torch.parallel import data_parallel as dp
     from seg2eye_tpu_torch.train import steps
 
     state = train_state(opt, nets_cpu, device)
-    times = {True: [], False: []}
-    launches = 0
-    for i in range(DP_TIMED_ITERS + 1):
-        for synced in (True, False):
-            K.spade_style.launches = 0
-            dp_sync(device)
-            t0 = time.perf_counter()
-            with contextlib.nullcontext() if synced else dp.local():
-                steps.train_step(state, batch)
-            dp_sync(device)
-            if i:
-                times[synced].append((time.perf_counter() - t0) * 1e3)
-            if synced:
-                launches = K.spade_style.launches
-    return (statistics.median(times[True]), statistics.median(times[False]),
-            launches)
+    K.spade_style.launches = 0
+    steps.train_step(state, batch)
+    return K.spade_style.launches
 
 
 def dp_segtrain(tmp, device, overrides, failures):
     """DP_SEG_STEPS float64 segtrain steps (dropout on) on this rank's rows
     of each global batch, each also taken by rank 0 on the whole batch from
     a copy of the net and optimizer: loss and gradients to F32_ROUTE,
-    running statistics to CARD_CPU_RUN_RTOL; -> (K1 launches, median host
-    ms of the DP steps)."""
+    running statistics to CARD_CPU_RUN_RTOL; -> K1 launches."""
     import copy
 
     from seg2eye_tpu_torch.ops import spade_style as K
@@ -3420,7 +3048,6 @@ def dp_segtrain(tmp, device, overrides, failures):
     t.net.double()
     t.dtype = torch.float64
     K.spade_style.launches = 0
-    times = []
     for step in range(DP_SEG_STEPS):
         image, label = seg_batch(data, step * DP_SEG_BATCH, DP_SEG_BATCH,
                                  device)
@@ -3432,13 +3059,9 @@ def dp_segtrain(tmp, device, overrides, failures):
             ref.optimizer = make_optimizer(ref.net, args)
             ref.optimizer.load_state_dict(t.optimizer.state_dict())
         b = DP_SEG_BATCH // world
-        dp_sync(device)
-        t0 = time.perf_counter()
         loss, _ = t.train_step(image[rank * b:(rank + 1) * b],
                                label[rank * b:(rank + 1) * b], lr,
                                dropout_generator(args, step, device))
-        dp_sync(device)
-        times.append((time.perf_counter() - t0) * 1e3)
         if ref is None:
             continue
         with dp.local():
@@ -3461,7 +3084,7 @@ def dp_segtrain(tmp, device, overrides, failures):
         if worst > CARD_CPU_RUN_RTOL:
             failures.append(f"{at}: running statistics differ")
         del ref
-    return K.spade_style.launches, statistics.median(times)
+    return K.spade_style.launches
 
 
 def dp_child(form, rank, world, tmp, config):
@@ -3494,9 +3117,9 @@ def dp_child(form, rank, world, tmp, config):
             f"{backend} world {world} DP vs one process, float32", opt,
             nets_cpu, batches, device, failures)}
         if form == "nccl":
-            for dname in ("float32", "bfloat16"):
-                out[dname] = dp_timed(opt.replace(compute_dtype=dname),
-                                      nets_cpu, batches[0], device)
+            out["bfloat16"] = dp_launches(
+                opt.replace(compute_dtype="bfloat16"), nets_cpu, batches[0],
+                device)
         else:
             os.chdir(tmp)
             out["segtrain"] = dp_segtrain(tmp, device, config["segtrain"],
@@ -3504,10 +3127,9 @@ def dp_child(form, rank, world, tmp, config):
         want = config["launches"]
         bad = [n for n in out["launches"] if n != want]
         if form == "nccl":
-            bad += [v[2] for v in (out["float32"], out["bfloat16"])
-                    if v[2] != want]
+            bad += [out["bfloat16"]] if out["bfloat16"] != want else []
         else:
-            bad += [out["segtrain"][0]] if out["segtrain"][0] else []
+            bad += [out["segtrain"]] if out["segtrain"] else []
         if bad:
             failures.append(f"K1 launched {bad} times in a DP iteration "
                             f"(segtrain: in its steps); expected {want} per "
@@ -3588,31 +3210,22 @@ def phase_parallel():
     with tempfile.TemporaryDirectory() as tmp:
         log(f"parallel (a): Seg2Eye at bs{TRAIN_BATCH}, world 1 on NCCL "
             f"(the DP path with real collectives) against the one-process "
-            f"route, {DP_ITERS} float32 iterations; then both routes timed")
+            f"route, {DP_ITERS} float32 iterations; then one bfloat16 DP "
+            "iteration")
         (a,) = dp_children(tmp, "nccl", 1)
-        for dname in ("float32", "bfloat16"):
-            dp_ms, one_ms, _ = a[dname]
-            log(f"  {dname} bs{TRAIN_BATCH}: DP at world 1 {dp_ms:.2f} "
-                f"ms/iteration, one process {one_ms:.2f}, the cost of the "
-                f"synchronised statistics and gradient all-reduces "
-                f"{dp_ms - one_ms:+.2f} ms (medians of {DP_TIMED_ITERS} in "
-                f"turns, host clock, synchronised; {card_line()})")
         log(f"parallel (b): world 2 on gloo, CUDA tensors on the one card: "
             f"Seg2Eye bs{TRAIN_BATCH} ({TRAIN_BATCH // 2} per rank), "
             f"{DP_ITERS} float32 iterations, and segtrain (ResNet-101 os16, "
             f"crop 513) at global bs{DP_SEG_BATCH}, {DP_SEG_STEPS} float64 "
             "steps, each against the one-process run on rank 0")
         b = dp_children(tmp, "gloo", 2)
-        log(f"  gloo segtrain steps {b[0]['segtrain'][1]:.1f} ms (median, "
-            "rank 0; a correctness run, not a speed figure: the gloo "
-            "all-reduces go through the host)")
     log(f"parallel: K1 launches per rank per DP iteration: NCCL "
-        f"{a['launches']} (float32), {a['bfloat16'][2]} (bfloat16); gloo "
+        f"{a['launches']} (float32), {a['bfloat16']} (bfloat16); gloo "
         f"{[r['launches'] for r in b]}; segtrain "
-        f"{[r['segtrain'][0] for r in b]}; phase 12 took "
+        f"{[r['segtrain'] for r in b]}; phase 12 took "
         f"{time.perf_counter() - t0:.1f} s")
     return {"nccl": {"float32": a["launches"][0],
-                     "bfloat16": a["bfloat16"][2]},
+                     "bfloat16": a["bfloat16"]},
             "gloo": b[0]["launches"][0]}
 
 
@@ -3660,7 +3273,7 @@ def mp_tensor(opt, nets_cpu, batches, device, failures, iters=None,
     of the state before it; ``num_batches_tracked`` equal to its.  ->
     {"launches": per iteration, "packings": (in the G step, in the D
     step's regeneration) per iteration, "after": packings in a forward
-    without an update, "ms": host ms per grid iteration}."""
+    without an update}."""
     from seg2eye_tpu_torch.ops import spade_style as K
     from seg2eye_tpu_torch.parallel import data_parallel as dp
     from seg2eye_tpu_torch.parallel import tensor_parallel as tp
@@ -3675,11 +3288,11 @@ def mp_tensor(opt, nets_cpu, batches, device, failures, iters=None,
     dp.check_replicated(dp.module_tensors(nets_of(state.model)),
                         "the seeded state:")
     lrs, beta2 = ttur_lrs(opt, opt.lr), ttur_betas(opt)[1]
-    out = {"launches": [], "packings": [], "ms": []}
+    out = {"launches": [], "packings": []}
     f32 = opt.replace(compute_dtype="float32")
     for it, batch in enumerate(batches[:iters or MP_ITERS[dname]]):
         local = dp.local_rows(batch, dp.rank(), dp.world_size())
-        launches, packings, ms = 0, [], 0.0
+        launches, packings = 0, []
         for half, step, nets, lr in (("G step", steps.g_step, ("G", "E"),
                                       lrs[0]),
                                      ("D step", steps.d_step, ("D",),
@@ -3689,11 +3302,7 @@ def mp_tensor(opt, nets_cpu, batches, device, failures, iters=None,
                 del ref
                 ref = None
             before = (K.spade_style.launches, K.packed_weights.packings)
-            dp_sync(device)
-            t0 = time.perf_counter()
             result = step(state, local)
-            dp_sync(device)
-            ms += (time.perf_counter() - t0) * 1e3
             launches += K.spade_style.launches - before[0]
             packings.append(K.packed_weights.packings - before[1])
             losses = result[0] if half == "G step" else result
@@ -3734,7 +3343,6 @@ def mp_tensor(opt, nets_cpu, batches, device, failures, iters=None,
             torch.cuda.empty_cache()
         out["launches"].append(launches)
         out["packings"].append(packings)
-        out["ms"].append(ms)
     before = K.packed_weights.packings
     with dp.local():
         state.model.inference(batches[0])
@@ -3745,8 +3353,8 @@ def mp_tensor(opt, nets_cpu, batches, device, failures, iters=None,
 
 def mp_spatial(opt, nets_cpu, device, failures):
     """``Tester.score_batch`` in H bands over the ranks against the
-    one-process Tester (rank 0), at MP_CP_BATCHES; -> {bs: (K1 launches
-    of the banded forward, host ms)}."""
+    one-process Tester (rank 0), at MP_CP_BATCHES; -> {bs: K1 launches
+    of the banded forward}."""
     from seg2eye_tpu_torch.eval.tester import Tester
     from seg2eye_tpu_torch.models.pix2pix import Pix2Pix
     from seg2eye_tpu_torch.ops import spade_style as K
@@ -3764,13 +3372,9 @@ def mp_spatial(opt, nets_cpu, device, failures):
     with dp.local():
         for bs in MP_CP_BATCHES:
             batch = make_batch(opt, bs, seed=50 + bs)
-            banded.score_batch(model, batch, need_fake=False)    # warm-up
             K.spade_style.launches = 0
-            dp_sync(device)
-            t0 = time.perf_counter()
             errors, fake = banded.score_batch(model, batch)
-            ms = (time.perf_counter() - t0) * 1e3
-            out[bs] = (K.spade_style.launches, ms)
+            out[bs] = K.spade_style.launches
             if rank:
                 continue
             want_errors, want = alone.score_batch(model, batch)
@@ -3868,7 +3472,7 @@ def mp_child(form, rank, world, tmp, config):
         bad = [f"TP {d}: {n}" for d, r in out["tp"].items()
                for n in r["launches"] if n != 2 * want]
         bad += [f"CP {d} bs{bs}: {n}" for d, r in out["cp"].items()
-                for bs, (n, _) in r.items() if n != want]
+                for bs, n in r.items() if n != want]
         # G's weights change at the G step's update only: the D step's
         # regeneration packs them anew, the next G step's forward not
         bad += [f"TP {d}: {p} packings" for d, r in out["tp"].items()
@@ -3925,30 +3529,23 @@ def phase_model_parallel():
             f"{[x['tp'][dname]['launches'] for x in ranks]} (predicted "
             f"{2 * len(SITES)}), packings (G step, D step) "
             f"{r['packings']}, in a forward without an update "
-            f"{r['after']}; host ms per iteration {r['ms']} (a correctness "
-            f"run through the host; {card_line()})")
+            f"{r['after']}")
     log(f"  TP per-rank parameters + Adam moments {mine / 2 ** 20:.1f} MiB "
         f"against one process's {one / 2 ** 20:.1f} MiB: {mine / one:.4f} "
-        f"(predicted 0.51-0.52; {card_line()})")
-    for dname, r in a["cp"].items():
+        "(predicted 0.51-0.52)")
+    for dname in a["cp"]:
         log(f"  CP {dname}: K1 launches per rank per forward "
-            f"{[{bs: x['cp'][dname][bs][0] for bs in x['cp'][dname]} for x in ranks]}"
-            f" (predicted {len(SITES)}); host ms per scored batch "
-            f"{ {bs: round(v[1], 2) for bs, v in r.items()} } (a "
-            f"correctness run through the host; {card_line()})")
+            f"{[x['cp'][dname] for x in ranks]} (predicted {len(SITES)})")
     log(f"  TP per-sample float32: K1 launches per rank per iteration "
         f"{[x['launches'][0] for x in grid]} (predicted "
         f"{2 * len(SITES)}), packings (G step, D step) "
-        f"{grid[0]['packings'][0]}; host ms per iteration "
-        f"{grid[0]['ms'][0]:.1f} (a correctness run through the host); "
-        f"peak reserved card memory per rank "
+        f"{grid[0]['packings'][0]}; peak reserved card memory per rank "
         f"{[round(x['peak_gib'], 2) for x in grid]} GiB (rank 0 holds the "
-        f"one-process route too; {card_line()})")
+        "one-process route too)")
     log(f"model and spatial parallel: phase 13 took "
         f"{time.perf_counter() - t0:.1f} s")
     return {"tp": {d: r["launches"][0] for d, r in a["tp"].items()},
-            "cp": {d: r[str(MP_CP_BATCHES[0])][0]
-                   for d, r in a["cp"].items()},
+            "cp": {d: r[str(MP_CP_BATCHES[0])] for d, r in a["cp"].items()},
             "tp_per_sample": grid[0]["launches"][0]}
 
 
@@ -3968,7 +3565,6 @@ STATS_MISALIGNED = (2, 9, 8, 64)       # x one element past a 16-byte start
 # scored batch, per float32 iteration
 STATS_LAUNCHES = {"train": (2 * len(SITES), len(SITES)),
                   "score": (len(SITES), 0), "float32": (0, 0)}
-STATS_ROUTE_ROUNDS = 3
 # dx against float64 autograd, worst over the site relative to each
 # channel's scale: at most this many times the parent route's error (both
 # are the bfloat16 rounding of nearly the same float32 value; elementwise,
@@ -4052,32 +3648,6 @@ def stats_counts(label, run, want, failures):
     return got
 
 
-def stats_routes(state, batch):
-    """Median ms/iteration and peak bytes of bfloat16 training with the
-    kernels and with the parent route (var_mean of a float32 copy), in
-    turns of 3 iterations from one state."""
-    from seg2eye_tpu_torch.models import normalization
-    from seg2eye_tpu_torch.train import steps
-
-    ms = {"kernels": [], "parent": []}
-    peak = {}
-    rule = normalization.takes_kernel
-    for _ in range(STATS_ROUTE_ROUNDS):
-        for route in ms:
-            normalization.takes_kernel = (rule if route == "kernels"
-                                          else (lambda t: False))
-            try:
-                steps.train_step(state, batch)
-                torch.cuda.synchronize()
-                torch.cuda.reset_peak_memory_stats()
-                for _ in range(3):
-                    ms[route].append(timed_iteration(state, batch)[1])
-                peak[route] = torch.cuda.max_memory_allocated()
-            finally:
-                normalization.takes_kernel = rule
-    return {r: (statistics.median(v), peak[r]) for r, v in ms.items()}
-
-
 def stats_export(failures):
     """One bfloat16 norm site on batch statistics (up_0's norm_s shape)
     through ``torch.export`` on the card: the program calls
@@ -4126,16 +3696,14 @@ def phase_batch_stats():
         "form (elements unequal), against float64 autograd beside the "
         "parent route (worst |error| / channel scale, dx_k and dx_p) and "
         "the share within one bf16 ulp of var_mean's float32 gradient "
-        "(1ulp); ms of the forward kernels (Welford + merge) and of the "
-        "parent route (float32 copy + var_mean), of the backward kernel and "
-        "of the parent's autograd (mean, sub, mul, mul, div, add, cast), "
-        "and the byte bounds (2 and 4 B an element at the card's rate)")
+        "(1ulp); ms of the forward kernels alone (Welford + merge) and of "
+        "the backward kernel alone, beside their byte bounds (2 and 4 B an "
+        "element at the card's rate)")
     log("  site  (N, H, W, C)          mean_k   var_k    mean_p   var_p   "
-        "unequal dx_k     dx_p     1ulp      fwd_k   fwd_p   bound  %bnd   "
-        "bwd_k   bwd_p   bound  %bnd")
-    tot = dict.fromkeys(("fwd_ms", "fwd_parent_ms", "fwd_bound_ms", "bwd_ms",
-                         "bwd_parent_ms", "bwd_bound_ms", "worst_stats",
-                         "worst_dx", "worst_dx_parent"), 0.0)
+        "unequal dx_k     dx_p     1ulp      fwd_k   bound  %bnd   "
+        "bwd_k   bound  %bnd")
+    tot = dict.fromkeys(("fwd_ms", "fwd_bound_ms", "bwd_ms", "bwd_bound_ms",
+                         "worst_stats", "worst_dx", "worst_dx_parent"), 0.0)
     tot["least_within"] = 1.0
     cases = ([("odd", s, False) for s in STATS_ODD]
              + [("mis", STATS_MISALIGNED, True)]
@@ -4144,41 +3712,33 @@ def phase_batch_stats():
     for label, shape, misaligned in cases:
         x, gvar, gmean = stats_site(shape, gen, misaligned)
         row = stats_check(shape, x, gvar, gmean, failures)
-        xp = x.permute(0, 3, 1, 2).detach().requires_grad_()
-        v32, m32 = torch.var_mean(xp.float(), dim=(0, 2, 3), correction=0)
         _, mean = B.batch_stats_cuda(x)
-        fk, fp, bk, bp = time_turns([
+        fk, bk = time_turns([
             lambda: B.batch_stats_cuda(x),
-            lambda: torch.var_mean(x.permute(0, 3, 1, 2).float(),
-                                   dim=(0, 2, 3), correction=0),
-            lambda: B.batch_stats_backward_cuda(x, mean, gvar, gmean),
-            lambda: torch.autograd.grad((v32, m32), xp, (gvar, gmean),
-                                        retain_graph=True)])
+            lambda: B.batch_stats_backward_cuda(x, mean, gvar, gmean)])
         fb = roofline.memory_ms(2 * x.numel())
         bb = roofline.memory_ms(4 * x.numel())
         log(f"  {label}  {str(shape):22s} {row[0]:.1e}  {row[1]:.1e}  "
             f"{row[2]:.1e}  {row[3]:.1e} {row[4]:6d}  {row[5]:.2e} "
             f"{row[6]:.2e} {row[7]:.6f} "
-            f"{fk:7.4f} {fp:7.4f} {fb:7.4f} {100 * fb / fk:5.1f} "
-            f"{bk:7.4f} {bp:7.4f} {bb:7.4f} {100 * bb / bk:5.1f}")
+            f"{fk:7.4f} {fb:7.4f} {100 * fb / fk:5.1f} "
+            f"{bk:7.4f} {bb:7.4f} {100 * bb / bk:5.1f}")
         if label.strip().isdigit():
-            for key, v in (("fwd_ms", fk), ("fwd_parent_ms", fp),
-                           ("fwd_bound_ms", fb), ("bwd_ms", bk),
-                           ("bwd_parent_ms", bp), ("bwd_bound_ms", bb)):
+            for key, v in (("fwd_ms", fk), ("fwd_bound_ms", fb),
+                           ("bwd_ms", bk), ("bwd_bound_ms", bb)):
                 tot[key] += v
         tot["worst_stats"] = max(tot["worst_stats"], row[0], row[1])
         tot["worst_dx"] = max(tot["worst_dx"], row[5])
         tot["worst_dx_parent"] = max(tot["worst_dx_parent"], row[6])
         tot["least_within"] = min(tot["least_within"], row[7])
-        del x, xp, v32, m32
+        del x, mean
     tot["fwd_share"] = tot["fwd_bound_ms"] / tot["fwd_ms"]
     tot["bwd_share"] = tot["bwd_bound_ms"] / tot["bwd_ms"]
     log(f"  18 sites at N={SITE_N} (sums of per-site medians): forward "
-        f"{tot['fwd_ms']:.4f} ms against the parent route's "
-        f"{tot['fwd_parent_ms']:.4f}, bound {tot['fwd_bound_ms']:.4f} "
+        f"{tot['fwd_ms']:.4f} ms, bound {tot['fwd_bound_ms']:.4f} "
         f"({100 * tot['fwd_share']:.1f}% of it); backward "
-        f"{tot['bwd_ms']:.4f} against {tot['bwd_parent_ms']:.4f}, bound "
-        f"{tot['bwd_bound_ms']:.4f} ({100 * tot['bwd_share']:.1f}%); worst "
+        f"{tot['bwd_ms']:.4f}, bound {tot['bwd_bound_ms']:.4f} "
+        f"({100 * tot['bwd_share']:.1f}%); worst "
         f"statistic error {tot['worst_stats']:.2e}, worst dx error "
         f"{tot['worst_dx']:.3e} (the parent route's "
         f"{tot['worst_dx_parent']:.3e}), at least "
@@ -4187,7 +3747,7 @@ def phase_batch_stats():
 
     stats_export(failures)
 
-    # the counters, and a bfloat16 iteration with and without the kernels
+    # the counters
     opt = Options(batchSize=TRAIN_BATCH).finalize()
     nets_cpu = init_networks(opt, torch.Generator().manual_seed(0), "cpu")
     batch = make_train_batch(opt, TRAIN_BATCH)
@@ -4210,13 +3770,6 @@ def phase_batch_stats():
                 lambda: tester.score_batch(model, scored, need_fake=False),
                 STATS_LAUNCHES["score"], failures)
             del model, tester
-            routes = stats_routes(state, batch)
-            log(f"  bfloat16 training bs{TRAIN_BATCH}, in turns: " + ", ".join(
-                f"{r} {v[0]:.2f} ms/iteration (peak {v[1] / 2**30:.2f} GiB)"
-                for r, v in routes.items()))
-            tot["train_ms"], tot["train_peak"] = routes["kernels"]
-            tot["train_parent_ms"], tot["train_parent_peak"] = \
-                routes["parent"]
         del state
         torch.cuda.empty_cache()
     log(f"batch statistics: phase 14 took {time.perf_counter() - t0:.1f} s")
@@ -4232,7 +3785,7 @@ def main():
     backward = phase_kernel_backward()
     launches = phase_slice()
     train_launches = phase_train()
-    options = phase_options()
+    remat_launches = phase_options()
     phase_refinenet()
     serving_launches = phase_serving()
     phase_segtrain()
@@ -4263,19 +3816,16 @@ def main():
         "(bs1), tp_per_sample_launches per rank in one iteration with "
         "per-sample encoding on a data 2 x model 2 grid (float32, bs4); "
         f"max_abs_err over the crop-256 and odd "
-        f"site checks; ms, plain_ms, library_ms and bound_ms summed over the "
+        f"site checks; ms (the kernel alone) and bound_ms summed over the "
         f"18 sites at N={SITE_N}; the batch statistics' kernels (phase 14): "
-        "launches in one bfloat16 training iteration and one scored batch, "
-        "plain_ms the parent route's (var_mean of a float32 copy, its "
-        "autograd)")
-    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-            "library_ms")
+        "launches in one bfloat16 training iteration and one scored batch")
+    keys = ("max_abs_err", "ms", "bound_ms", "bound_by")
     print(json.dumps({"kernels": [
         {"name": SUMMARY_NAMES[d], "route": "cuda",
          "source": K.SOURCE[DTYPES[d]],
          "replaces": K.REPLACES, "launches": launches[d],
          "train_launches": train_launches[d],
-         "remat_train_launches": options["7b"][d][0],
+         "remat_train_launches": remat_launches[d],
          "serving_launches": serving_launches[d],
          "interop_score_launches": interop_launches[d]["score"],
          "interop_train_launches": interop_launches[d]["train"],
@@ -4291,14 +3841,13 @@ def main():
         {"name": "spade_style_bwd_bf16_sm90", "route": "cuda",
          "source": K.SOURCE[torch.bfloat16], "replaces": None,
          "train_launches": BACKWARD_LAUNCHES["bfloat16"],
-         **{k: backward[k] for k in ("ms", "plain_ms", "bound_ms",
-                                     "bound_by", "backward_ms",
-                                     "recompute_ms", "grad_worst")}}] + [
+         **{k: backward[k] for k in ("ms", "bound_ms", "bound_by",
+                                     "grad_worst")}}] + [
         {"name": name, "route": "cuda", "source": B.SOURCE, "replaces": None,
          "train_launches": stats["launches"]["train"][i],
          "score_launches": stats["launches"]["score"][i],
-         "ms": stats[f"{kind}_ms"], "plain_ms": stats[f"{kind}_parent_ms"],
-         "bound_ms": stats[f"{kind}_bound_ms"], "bound_by": "bytes"}
+         "ms": stats[f"{kind}_ms"], "bound_ms": stats[f"{kind}_bound_ms"],
+         "bound_by": "bytes"}
         for i, (name, kind) in enumerate(
             ((B.KERNELS[torch.bfloat16], "fwd"),
              (B.BACKWARD_KERNELS[torch.bfloat16], "bwd")))]}))

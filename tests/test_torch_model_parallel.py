@@ -60,6 +60,16 @@ SPECTRAL_TOL = 1e-6
 WHOLE_TOL = 1e-5          # a whole copy against the slices: f32 order
 CP_RTOL, CP_ATOL = 2e-4, 2e-5            # test_spatial_sharded_inference
 TESTER_RTOL, TESTER_ATOL = 2e-3, 1e-6    # test_tester_spatial_shard_matches
+# XLA:CPU's concurrency-optimized scheduler lets a device's program run
+# independent collectives of the data 2 x model 2 step at once (an
+# all-reduce and an all-gather of one model group, a collective permute of
+# all four devices).  On a loaded CPU (tier-1's workers beside this
+# module's four children) the devices met them in different orders: each
+# rendezvous waited for a device that did not come, and XLA aborted the
+# process after its 40 s termination timeout (3 of 3 runs beside 10 busy
+# processes).  With the scheduler off in the step's program, 9 of 9 passed
+# there, no rendezvous waiting 2 s.
+MESH_STEP_OPTIONS = {"xla_cpu_enable_concurrency_optimized_scheduler": False}
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -151,19 +161,30 @@ def test_packed_weights_key_views_by_base():
 
 
 # ------------------------------------------------- the data x model grid
+def mesh_step_functions(jm):
+    """The JAX package's ``StepFunctions`` without donation, its
+    ``train_step`` compiled with MESH_STEP_OPTIONS beside the package's own
+    compiler options."""
+    from seg2eye_tpu.train import steps as jsteps
+
+    fns = jsteps.StepFunctions(jm, donate=False)
+    fns.train_step = jax.jit(fns._train_step, compiler_options={
+        **fns.compiler_options, **MESH_STEP_OPTIONS})
+    return fns
+
+
 def jax_state_from(opt, path_opt, which):
     """The JAX train state that the port's ``which`` checkpoint holds:
     read into a one-process port state, written in the JAX package's
     format, restored by its ``load_state``."""
     from seg2eye_tpu.models.pix2pix import Pix2Pix as JPix2Pix
-    from seg2eye_tpu.train import steps as jsteps
     from seg2eye_tpu.utils import checkpoint as jcheckpoint
 
     state = port_state(opt, path_opt, which)
     out = path_opt.replace(name=path_opt.name + "_jax")
     checkpoint.save_state_jax(state, out, which)
     jm = JPix2Pix(jax_opt(opt))
-    fns = jsteps.StepFunctions(jm, donate=False)
+    fns = mesh_step_functions(jm)
     template = _jax_state(jm, fns, to_jax_variables(opt, {
         "G": state.model.netG, "E": state.model.netE,
         "D": state.model.netD}))
@@ -242,15 +263,14 @@ def grid_run(tmp_path_factory):
         loader.set_epoch(1)
         batches = list(loader)
         from seg2eye_tpu.models.pix2pix import Pix2Pix as JPix2Pix
-        from seg2eye_tpu.train import steps as jsteps
 
         jm = JPix2Pix(jax_opt(opt))
-        fns = jsteps.StepFunctions(jm, donate=False)
+        fns = mesh_step_functions(jm)
         nets = seeded_nets(opt)
         first, _ = jax_grid_step(_jax_state(jm, fns, to_jax_variables(
             opt, nets)), fns, opt, batches[0])
         jm = JPix2Pix(jax_opt(ps_opt))
-        ps_fns = jsteps.StepFunctions(jm, donate=False)
+        ps_fns = mesh_step_functions(jm)
         ps_losses, ps_jstate = jax_grid_step(_jax_state(
             jm, ps_fns, to_jax_variables(ps_opt, seeded_nets(ps_opt))),
             ps_fns, ps_opt, batches[0])

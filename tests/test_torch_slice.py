@@ -391,15 +391,11 @@ def test_port_source_never_imports_jax_package(tmp_path):
     files = sorted(glob.glob(os.path.join(REPO, "seg2eye_tpu_torch", "**",
                                           "*.py"), recursive=True))
     files += [os.path.join(REPO, "chip_smoke.py"),
-              os.path.join(REPO, "tools", "profile_torch_slice.py"),
-              os.path.join(REPO, "tools", "profile_torch_train.py"),
-              os.path.join(REPO, "tools", "profile_torch_refinenet.py"),
+              os.path.join(REPO, "tools", "profile_cell.py"),
               os.path.join(REPO, "tools", "tf32_flush_study.py"),
-              os.path.join(REPO, "tools", "time_torch_slice.py"),
               os.path.join(REPO, "tools", "time_torch_options.py"),
               os.path.join(REPO, "tools", "bench_torch_serving.py"),
               os.path.join(REPO, "tools", "time_torch_convs.py"),
-              os.path.join(REPO, "tools", "profile_torch_segtrain.py"),
               os.path.join(REPO, "tools", "convert_checkpoint_torch.py"),
               os.path.join(REPO, "tools", "build_style_ranking_torch.py")]
     assert len(files) >= 20
@@ -483,24 +479,50 @@ def test_eval_loader_matches_jax_loader(tmp_path, method, key):
             == want_ds.get_random_indices(3, np.random.default_rng(1)))
 
 
-def test_profile_groups_follow_kernel_symbols():
-    """tools/profile_torch_slice.py files each spade_style kernel under its
-    own group, before the cuDNN group's "conv" can take it."""
+def load_profile_cell():
     import importlib.util
 
     spec = importlib.util.spec_from_file_location(
-        "profile_torch_slice",
-        os.path.join(REPO, "tools", "profile_torch_slice.py"))
+        "profile_cell", os.path.join(REPO, "tools", "profile_cell.py"))
     prof = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(prof)
-    assert prof.group_of(
+    return prof
+
+
+def test_profile_groups_follow_kernel_symbols():
+    """tools/profile_cell.py groups kernels as the benchmark's per-layer
+    metrics do (``portbench.trace.group_of``): K1's forward and backward
+    kernels under ``k1`` before the cuDNN group's "conv" can take them,
+    cuDNN, xmma and cuBLAS's nvjet under ``conv``, the batch statistics'
+    kernels under ``memory_pass`` and Adam's multi-tensor kernels under
+    ``optimizer``."""
+    prof = load_profile_cell()
+    from portbench import trace
+
+    assert prof.trace is trace and not hasattr(prof, "GROUPS")
+    groups = {
         "void (anonymous namespace)::spade_style_sm90_kernel<256>("
-        "CUtensorMap_st, CUtensorMap_st, __nv_bfloat16 const*)"
-    ).endswith("(bf16)")
-    assert prof.group_of(
+        "CUtensorMap_st, CUtensorMap_st, __nv_bfloat16 const*)": "k1",
         "(anonymous namespace)::spade_style_3xtf32_sm90_kernel("
-        "CUtensorMap_st, CUtensorMap_st, float const*)").endswith("(f32)")
-    assert prof.group_of("sm90_xmma_fprop_implicit_gemm_bf16").startswith(
-        "cuDNN")
-    assert prof.group_of("void at::native::vectorized_elementwise_kernel"
-                         ).startswith("other")
+        "CUtensorMap_st, CUtensorMap_st, float const*)": "k1",
+        "void (anonymous namespace)::spade_style_sm90_kernel_bwd<128>("
+        "CUtensorMap_st, CUtensorMap_st, __nv_bfloat16 const*)": "k1",
+        "sm90_xmma_fprop_implicit_gemm_bf16": "conv",
+        "sm90_xmma_dgrad_implicit_gemm_bf16bf16": "conv",
+        "void cudnn::engines_precompiled::nchwToNhwcKernel": "conv",
+        "void wgrad_alg0_engine_NHWC<float, 128, 5, 5, 3, 3, 3, false, 512>":
+            "conv",
+        "nvjet_hsh_256x128_64x4_1x2_h_bz_coopA_NNT": "conv",
+        "void (anonymous namespace)::batch_stats_welford_kernel<8>(":
+            "memory_pass",
+        "void (anonymous namespace)::batch_stats_merge_kernel(":
+            "memory_pass",
+        "void (anonymous namespace)::batch_stats_bwd_kernel<8>(":
+            "memory_pass",
+        "void at::native::(anonymous namespace)::multi_tensor_apply_kernel":
+            "optimizer",
+        "void at::native::vectorized_elementwise_kernel": "memory_pass",
+        "Memcpy HtoD (Pageable -> Device)": "copy",
+    }
+    for name, group in groups.items():
+        assert trace.group_of(name) == group, name

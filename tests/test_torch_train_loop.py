@@ -374,30 +374,38 @@ def test_train_cli_then_test_cli(h5):
 
 
 def test_train_profile_groups(monkeypatch):
-    """tools/profile_torch_train.py files each spade_style kernel under its
-    own group, cuDNN's convs of both passes under one, and Adam's
-    multi-tensor kernels on their own."""
+    """tools/profile_cell.py --ops names the op behind each kernel: on a CPU
+    profile of a tiny autograd graph (with input shapes), each aten op is
+    filed under its outermost aten op, the autograd node it ran under in
+    the backward or "forward", and that op's first input shape; the op
+    table charges each launched kernel to its op."""
     import importlib.util
+    from types import SimpleNamespace
 
-    monkeypatch.syspath_prepend(os.path.join(REPO, "tools"))
+    monkeypatch.syspath_prepend(REPO)
     spec = importlib.util.spec_from_file_location(
-        "profile_torch_train",
-        os.path.join(REPO, "tools", "profile_torch_train.py"))
+        "profile_cell", os.path.join(REPO, "tools", "profile_cell.py"))
     prof = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(prof)
-    groups = {
-        "void (anonymous namespace)::spade_style_sm90_kernel<128>(": "(bf16)",
-        "(anonymous namespace)::spade_style_3xtf32_sm90_kernel(": "(f32)",
-        "sm90_xmma_dgrad_implicit_gemm_bf16bf16": "layout transposes",
-        "void wgrad_alg0_engine_NHWC<float, 128, 5, 5, 3, 3, 3, false, 512>":
-            "layout transposes",
-        "void fft2d_c2r_32x32<float, false, false, 0u, false, false>":
-            "layout transposes",
-        "sm90_xmma_fprop_implicit_gemm_bf16": "layout transposes",
-        "void at::native::(anonymous namespace)::multi_tensor_apply_kernel":
-            "(multi-tensor apply)",
-        "void at::native::reduce_kernel<512, 1>": "losses)",
-        "void at::native::vectorized_elementwise_kernel": "and copies",
-    }
-    for name, group in groups.items():
-        assert prof.group_of(name).endswith(group), name
+
+    a = torch.randn(2, 3, requires_grad=True)
+    b = torch.randn(3, 5, requires_grad=True)
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU],
+            record_shapes=True) as p:
+        (a.mm(b).relu() * 2.0).sum().backward()
+    named = {(prof.node_of(e), *prof.op_of(e))
+             for e in p.events() if e.name.startswith("aten::")}
+    assert ("forward", "aten::mm", "[2, 3]") in named
+    assert ("forward", "aten::relu", "[2, 5]") in named
+    assert ("MmBackward0", "aten::mm", "[2, 5]") in named
+    assert any(node == "ReluBackward0" for node, _, _ in named)
+    assert not any(node.startswith("autograd::") for node, _, _ in named)
+
+    # kernels charged per step to the op that launched them
+    forward_mm = next(e for e in p.events() if e.name == "aten::mm"
+                      and prof.node_of(e) == "forward")
+    monkeypatch.setattr(forward_mm, "kernels",
+                        [SimpleNamespace(duration=30.0)] * 4, raising=False)
+    table = prof.op_table([forward_mm], 2)
+    assert dict(table) == {("forward", "aten::mm", "[2, 3]"): [60.0, 4]}
