@@ -33,10 +33,12 @@ written out, as the JAX package's.
 
 Activations are NCHW (``channels_last`` memory at the entry); convolutions
 run in the input's dtype with float32 parameters cast at the call, batch
-norms as ``layers.BatchNorm``.  ``train`` selects batch statistics (and
-updates the running ones); dropout runs only when a ``generator`` is
-given, drawn from it.  Xception and DRN-D-54 are in ``backbones_extra``
-(DRN forces output stride 8, for the ASPP rates too).
+norms as ``layers.BatchNorm``, each one that a ReLU follows (after the
+residual add in a bottleneck) through ``layers.bn_relu``.  ``train``
+selects batch statistics (and updates the running ones); dropout runs only
+when a ``generator`` is given, drawn from it.  Xception and DRN-D-54 are
+in ``backbones_extra`` (DRN forces output stride 8, for the ASPP rates
+too).
 """
 from __future__ import annotations
 
@@ -49,7 +51,7 @@ from torch import nn
 from seg2eye_tpu_torch.models.backbones_extra import (DRNBackbone,
                                                       XceptionBackbone)
 from seg2eye_tpu_torch.models.layers import (BatchNorm, Bottleneck, apply_conv,
-                                             at_least_f32, make_conv)
+                                             at_least_f32, bn_relu, make_conv)
 from seg2eye_tpu_torch.ops.image import resize_bilinear_ac
 from seg2eye_tpu_torch.parallel import data_parallel as dp
 from seg2eye_tpu_torch.utils.spans import (DEEPLAB_ASPP, DEEPLAB_BACKBONE,
@@ -117,7 +119,7 @@ class ResNetBackbone(nn.Module):
 
     def forward(self, x: torch.Tensor, train: bool
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
-        x = torch.relu(self.bn1(apply_conv(x, self.conv1), train))
+        x = bn_relu(apply_conv(x, self.conv1), self.bn1, train)
         x = F.max_pool2d(x, 3, 2, padding=1)      # pads with -inf
         low_level = None
         for i, stage in enumerate((self.layer1, self.layer2, self.layer3,
@@ -201,7 +203,7 @@ class _ASPPBranch(nn.Module):
         self.bn = BatchNorm(256)
 
     def forward(self, x: torch.Tensor, train: bool) -> torch.Tensor:
-        return torch.relu(self.bn(apply_conv(x, self.atrous_conv), train))
+        return bn_relu(apply_conv(x, self.atrous_conv), self.bn, train)
 
 
 class ASPP(nn.Module):
@@ -224,11 +226,11 @@ class ASPP(nn.Module):
         # the pool in at least float32, back to the compute dtype; 1x1 -> a
         # broadcast
         gp = torch.mean(at_least_f32(x), dim=(2, 3), keepdim=True).to(x.dtype)
-        gp = torch.relu(self.global_avg_pool[2](
-            apply_conv(gp, self.global_avg_pool[1]), train))
+        gp = bn_relu(apply_conv(gp, self.global_avg_pool[1]),
+                     self.global_avg_pool[2], train)
         branches.append(gp.expand_as(branches[-1]))
         out = _cat(branches)
-        out = torch.relu(self.bn1(apply_conv(out, self.conv1), train))
+        out = bn_relu(apply_conv(out, self.conv1), self.bn1, train)
         return dropout(out, 0.5, generator)
 
 
@@ -247,12 +249,12 @@ class Decoder(nn.Module):
     def forward(self, x: torch.Tensor, low_level: torch.Tensor, train: bool,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
         lc = self.last_conv
-        ll = torch.relu(self.bn1(apply_conv(low_level, self.conv1), train))
+        ll = bn_relu(apply_conv(low_level, self.conv1), self.bn1, train)
         x = resize_bilinear_ac(x, ll.shape[2], ll.shape[3])
         x = _cat([x, ll])
-        x = dropout(torch.relu(lc[1](apply_conv(x, lc[0]), train)), 0.5,
+        x = dropout(bn_relu(apply_conv(x, lc[0]), lc[1], train), 0.5,
                     generator)
-        x = dropout(torch.relu(lc[5](apply_conv(x, lc[4]), train)), 0.1,
+        x = dropout(bn_relu(apply_conv(x, lc[4]), lc[5], train), 0.1,
                     generator)
         return apply_conv(x, lc[8])
 

@@ -13,6 +13,9 @@
     (padding from the kernel and dilation, the kaiming fan mode kept on
     the module; the layout rule ``nchw_copy``), and ``Bottleneck`` the
     ResNet block that the DeepLab ResNet and DRN-D share.
+  * ``bn_relu`` is a DeepLab site's BN, residual add and ReLU: one pass of
+    ``ops.bn_act`` where its rule takes the tensors (bfloat16 eval on
+    CUDA), else the three ops (``bn_act_reference`` in eval).
   * ``BatchNorm`` is the affine batch norm of the DeepLab stacks, with
     the JAX package's ``TorchBatchNorm`` semantics (torch's);
     ``BatchSubNorm`` is the same norm after an encoder or discriminator
@@ -39,6 +42,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from seg2eye_tpu_torch.ops import bn_act as fused
 from seg2eye_tpu_torch.parallel import data_parallel as dp
 from seg2eye_tpu_torch.parallel import tensor_parallel as tp
 from seg2eye_tpu_torch.utils.spans import NCHW_COPY, span
@@ -236,6 +240,40 @@ class BatchNorm(nn.BatchNorm2d):
                 + shift[:, None, None]).to(x.dtype)
 
 
+def _bn_args(bn: "BatchNorm") -> tuple:
+    """(weight, bias, running_mean, running_var, eps), read from the
+    module's dicts: its attributes would cost the host microseconds a
+    site."""
+    params, buffers = bn._parameters, bn._buffers
+    return (params["weight"], params["bias"], buffers["running_mean"],
+            buffers["running_var"], bn.eps)
+
+
+_NO_BN = (None, None, None, None, EPS)
+
+
+def bn_relu(x: torch.Tensor, bn: "BatchNorm", train: bool,
+            residual: Optional[torch.Tensor] = None,
+            residual_bn: Optional["BatchNorm"] = None) -> torch.Tensor:
+    """relu(bn(x) [+ residual | + residual_bn(residual)]).  In training
+    ``bn``, the add and ``torch.relu`` as they are; in eval one pass of
+    ``ops.bn_act`` where ``bn_act.takes_kernel`` takes the tensors
+    (bfloat16 on CUDA, no autograd recording), else its plain version,
+    ``bn_act_reference``."""
+    if train:
+        y = bn(x, train)
+        if residual is not None:
+            y = y + (residual if residual_bn is None
+                     else residual_bn(residual, train))
+        return torch.relu(y)
+    args = _bn_args(bn)
+    r_args = _NO_BN if residual_bn is None else _bn_args(residual_bn)
+    fn = (fused.bn_act if fused.takes_kernel(x, train, residual,
+                                             args[:4] + r_args[:4])
+          else fused.bn_act_reference)
+    return fn(x, *args, residual, *r_args)
+
+
 class Bottleneck(nn.Module):
     """The ResNet bottleneck (1x1, 3x3 at ``stride`` and ``dilation``, 1x1
     to 4 x planes, each with a BN; a 1x1/BN projection of the residual
@@ -256,14 +294,13 @@ class Bottleneck(nn.Module):
             BatchNorm(planes * 4)) if downsample else None
 
     def forward(self, x: torch.Tensor, train: bool) -> torch.Tensor:
-        out = torch.relu(self.bn1(apply_conv(x, self.conv1), train))
-        out = torch.relu(self.bn2(apply_conv(out, self.conv2), train))
-        out = self.bn3(apply_conv(out, self.conv3), train)
-        residual = x
-        if self.downsample is not None:
-            residual = self.downsample[1](
-                apply_conv(x, self.downsample[0]), train)
-        return torch.relu(out + residual)
+        out = bn_relu(apply_conv(x, self.conv1), self.bn1, train)
+        out = bn_relu(apply_conv(out, self.conv2), self.bn2, train)
+        out = apply_conv(out, self.conv3)
+        if self.downsample is None:
+            return bn_relu(out, self.bn3, train, x)
+        return bn_relu(out, self.bn3, train,
+                       apply_conv(x, self.downsample[0]), self.downsample[1])
 
 
 class BatchSubNorm(BatchNorm):

@@ -44,6 +44,10 @@ _BATCH_STATS_ARGTYPES = [_I] + [_P] * 4 + [_L, _I, _L, _I, _P]
 _BATCH_STATS_ENTRY_POINTS = ("batch_stats_fwd_bf16_sm90",)
 _BATCH_STATS_BACKWARD_ARGTYPES = [_I] + [_P] * 5 + [_L, _I, _L, _I, _P]
 _BATCH_STATS_BACKWARD_ENTRY_POINTS = ("batch_stats_bwd_bf16_sm90",)
+# the eval BN, residual add and ReLU: int fn(int64 array of the launch's
+# integers, float eps, float r_eps) (the layout in csrc/bn_act_sm90.cu)
+_BN_ACT_ARGTYPES = [_P, _F, _F]
+_BN_ACT_ENTRY_POINTS = ("bn_act_bf16_sm90",)
 SASS_OPCODES = ("HGMMA", "FFMA")
 
 
@@ -127,7 +131,8 @@ def load(path: Path) -> ctypes.CDLL:
             (_BACKWARD_ENTRY_POINTS, _BACKWARD_ARGTYPES),
             (_BATCH_STATS_ENTRY_POINTS, _BATCH_STATS_ARGTYPES),
             (_BATCH_STATS_BACKWARD_ENTRY_POINTS,
-             _BATCH_STATS_BACKWARD_ARGTYPES)):
+             _BATCH_STATS_BACKWARD_ARGTYPES),
+            (_BN_ACT_ENTRY_POINTS, _BN_ACT_ARGTYPES)):
         for name in names:
             fn = getattr(lib, name)
             fn.argtypes = argtypes

@@ -8,7 +8,9 @@ module, no tracing.  What it imports is ``ops.spade_style``, whose
 ``seg2eye::spade_style`` op the Seg2Eye program calls at each of its norm
 sites (the CUDA kernels on the card, the plain version on the CPU),
 ``ops.batch_stats``, whose ``seg2eye::batch_stats`` op a bfloat16 program
-on batch statistics calls there too, and ``utils.precision``.
+on batch statistics calls there too, ``ops.bn_act``, whose
+``seg2eye::bn_act`` op a bfloat16 refiner program exported on the card
+calls at each BN-ReLU site, and ``utils.precision``.
 
 Artifact layout (directory):
     program.pt2   ``torch.export.save`` of the program and its weights
@@ -328,8 +330,10 @@ class ServingModel:
                                f"{self.device}, and no CUDA device is "
                                "available")
         # registers seg2eye::spade_style and seg2eye::batch_stats, which
-        # the Seg2Eye program calls
+        # the Seg2Eye program calls, and seg2eye::bn_act, which a bfloat16
+        # refiner program exported on the card calls
         from seg2eye_tpu_torch.ops import batch_stats  # noqa: F401
+        from seg2eye_tpu_torch.ops import bn_act  # noqa: F401
         from seg2eye_tpu_torch.ops import spade_style  # noqa: F401
 
         self.program = torch.export.load(os.path.join(art_dir, PROGRAM))

@@ -29,6 +29,9 @@ Where each span opens, and what reads it:
   * ``NCHW_COPY``: each NCHW copy ``models.layers.apply_conv`` makes for
     a conv (``layers.nchw_copy``), one span per copy: a counter, read by
     ``nchw_copies.train``;
+  * ``BN_ACT``: each launch of the eval BN, residual add and ReLU kernel
+    (``ops.bn_act.bn_act_cuda``), one span per launch: a counter, read by
+    ``bn_act_passes.infer``;
   * ``REFINENET_SERVE``: RefineNet's ``Trainer.eval_step``, whole;
   * ``SCORE``: ``Tester.score_batch``, whole;
   * ``TO_DEVICE``: host-to-device copies of batches
@@ -65,11 +68,12 @@ DEEPLAB_BACKBONE = "deeplab.backbone"
 DEEPLAB_ASPP = "deeplab.aspp"
 DEEPLAB_DECODER = "deeplab.decoder"
 NCHW_COPY = "layers.nchw_copy"
+BN_ACT = "layers.bn_act"
 BACKWARD_RANGE = "spade_style backward (plain recompute)"
 
 NAMES = (G_STEP, D_STEP, FORWARD, BACKWARD, OPTIMIZER, REFINENET_SERVE,
          SCORE, TO_DEVICE, K1_PACK, DEEPLAB_BACKBONE, DEEPLAB_ASPP,
-         DEEPLAB_DECODER, NCHW_COPY, BACKWARD_RANGE)
+         DEEPLAB_DECODER, NCHW_COPY, BN_ACT, BACKWARD_RANGE)
 
 _OFF = contextlib.nullcontext()
 

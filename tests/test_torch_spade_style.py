@@ -296,6 +296,7 @@ def test_build_is_keyed_on_sources(tmp_path, monkeypatch):
     """An edited source gets a new build directory; the real sources and
     the Hopper target are what gets built."""
     assert [p.name for p in _build.sources()] == ["batch_stats_sm90.cu",
+                                                  "bn_act_sm90.cu",
                                                   "spade_style_sm90.cu"]
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
     src = tmp_path / "k.cu"

@@ -8,6 +8,7 @@ import numpy as np
 import pytest
 import torch
 
+from portbench import harness as bench_harness
 from portbench import spans as bench_spans
 from portbench import spans_deeplab as bench_spans_deeplab
 from portbench import trace as bench_trace
@@ -196,19 +197,24 @@ def test_backward_range_keeps_its_name():
 
 
 def test_benchmark_copies_every_span_name():
-    """The benchmark keeps the names in two files, ``portbench/spans.py``
-    and ``portbench/spans_deeplab.py`` (the DeepLab stages and the NCHW
-    copy): together, and with no name in both, they copy the program's."""
+    """The benchmark keeps the names in ``portbench/spans.py``,
+    ``portbench/spans_deeplab.py`` (the DeepLab stages and the NCHW copy)
+    and the reader of ``bn_act_passes.infer`` (the fused BN passes):
+    together, and with no name in two, they copy the program's."""
     program = {k: v for k, v in vars(spans).items()
                if k.isupper() and isinstance(v, str) and k != "BACKWARD_RANGE"}
+    modules = (bench_spans, bench_spans_deeplab,
+               bench_harness._load_file(
+                   bench_harness.HERE / "metrics" / "bn_act_passes.infer.py",
+                   "portbench_metric_bn_act_passes_infer"))
     copies = [{k: v for k, v in vars(module).items()
                if k.isupper() and isinstance(v, str)}
-              for module in (bench_spans, bench_spans_deeplab)]
-    assert not set(copies[0]) & set(copies[1])
-    assert {**copies[0], **copies[1]} == program
-    assert not set(bench_spans.NAMES) & set(bench_spans_deeplab.NAMES)
-    assert set(bench_spans.NAMES) | set(bench_spans_deeplab.NAMES) \
-        | {spans.BACKWARD_RANGE} == set(spans.NAMES)
+              for module in modules]
+    assert sum(map(len, copies)) == len({k for c in copies for k in c})
+    assert {k: v for c in copies for k, v in c.items()} == program
+    names = [n for module in modules for n in module.NAMES]
+    assert len(set(names)) == len(names)
+    assert set(names) | {spans.BACKWARD_RANGE} == set(spans.NAMES)
     assert len(set(spans.NAMES)) == len(spans.NAMES)
 
 

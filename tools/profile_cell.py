@@ -11,6 +11,10 @@ the driver's ``setup``: its seeded weights, ring and checked steps), and
 as the benchmark traces them (``portbench.trace``).  No window is timed
 and nothing is checked: the benchmark measures, this tool says where.
 
+Exits 1 where the slice holds another number of the eval BN-ReLU
+kernels (``ops.bn_act``) than of their ``layers.bn_act`` spans: the
+profiler lost kernel records.
+
 Printed: the card, its power limit and the cell; wall, device busy and
 idle share of the traced steps; device ms per step of each kernel group
 (``portbench.trace.group_of``: the groups the per-layer metrics read, so
@@ -147,6 +151,19 @@ def main(argv=None):
     sl = trace.make_slice(events, span, steps)
     del events
     driver.release()
+    # each launch of the eval BN-ReLU kernel opens one span: a slice with
+    # fewer of its kernels than spans lost kernel records, and their time
+    # would be missing from memory_pass
+    from seg2eye_tpu_torch.ops.bn_act import KERNEL
+    from seg2eye_tpu_torch.utils.spans import BN_ACT
+
+    fused = sum(KERNEL in name for name, _, _ in sl.kernels)
+    spans = len(sl.ops_named(BN_ACT))
+    if fused != spans:
+        print(f"profile_cell: {fused} {KERNEL} kernels profiled, {spans} "
+              f"{BN_ACT} spans: the profiler lost kernel records",
+              file=sys.stderr)
+        return 1
 
     print(f"== {args.workload} on {harness.card_name('cuda')} "
           f"({harness.power_limit()}), seed {args.seed}, {steps} steps: wall "
