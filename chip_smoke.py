@@ -14,7 +14,9 @@ Phases; any failure raises and the script exits non-zero:
   3. kernel: the fused SPADE+Style kernels (bfloat16: one tensor-core
      pass, float32: 3xTF32) against their plain PyTorch version at all 18
      generator norm-site shapes of the default model (crop 256, batch 16,
-     the shapes the slice gives it) and two odd shapes, then at the 18
+     the shapes the slice gives it) and two odd shapes, and within one
+     rounding of the float32 plain version of the kernel's own operands
+     (``ONE_ROUNDING``), then at the 18
      crop-512 site shapes (batch 2, correctness only), one gradient; at
      each crop-256 site the kernel alone timed with CUDA events, beside
      its bound.  Then the bfloat16 backward kernel at the same shapes: dx,
@@ -217,6 +219,21 @@ Phases; any failure raises and the script exits non-zero:
      every bfloat16 program calls ``seg2eye::bn_act`` at each ``bn_relu``
      site, launches the kernel at each, as its live forward does, and
      serves the live output bit for bit;
+  16. plain SPADE (after phase 3; ``ops.spade``, GauGAN's norm sites):
+     the K1 kernels without the style term at the 18 site shapes of the
+     benchmark's GauGAN cell (ngf 64, 256x512, 'more', batch 16, 36 seg
+     channels: 35 one-hot and an edge map) and the odd shapes: the
+     bfloat16 and float32 (3xTF32) forward against ``spade_reference``
+     (``PLAIN_TOLS``) and within one rounding of the float32 plain version
+     of their own operands, the bfloat16 backward against the closed form
+     (``epilogue_backward_reference`` with no style) and the op's
+     gradients through it against autograd of the float32 plain version
+     by phase 3's rule; each kernel timed alone beside its bound (phase
+     3's loops, ``forward_sites`` and ``backward_sites``).
+     Then one GauGAN training iteration at full width, bs2, in each
+     dtype: 36 forward and 18 (bfloat16) or 0 (float32) backward launches
+     of the plain kernels, none of K1's SPADE+Style ones, every norm site
+     packed once per weight update;
 Nothing of JAX, flax, optax, msgpack or the JAX package may have been
 imported.
 The port keeps float32 in full float32 by itself (its float32 forward and
@@ -281,7 +298,12 @@ DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 # the kernel symbols of the library, per dtype
 KERNEL_SYMBOLS = {"bfloat16": "spade_style_sm90_kernel",
                   "float32": "spade_style_3xtf32_sm90_kernel",
-                  "bfloat16 backward": "spade_style_sm90_kernel_bwd"}
+                  "bfloat16 backward": "spade_style_sm90_kernel_bwd",
+                  "plain SPADE bfloat16": "spade_style_sm90_kernel_nostyle",
+                  "plain SPADE float32":
+                      "spade_style_3xtf32_sm90_kernel_nostyle",
+                  "plain SPADE bfloat16 backward":
+                      "spade_style_sm90_kernel_bwd_nostyle"}
 SUMMARY_NAMES = {"bfloat16": "spade_style_bf16_sm90",
                  "float32": "spade_style_f32_3xtf32_sm90"}
 
@@ -432,59 +454,129 @@ def site_bound(shape, dname):
             roofline.memory_ms(nbytes))
 
 
-def phase_kernel():
+# a kernel against the float32 plain version of its own operands (its actv,
+# the weights rounded to its type, float32 biases and epilogue): the two
+# differ by the float32 summation order alone (3xTF32: float32's accuracy),
+# which flips the one rounding of out to the kernel's type by at most one
+# ulp (bfloat16: 2^-7 relative), and near 0 by float32's absolute round-off
+ONE_ROUNDING = (2.0 ** -7, 2.0 ** -10)
+# the inputs of a K1 site, in the op's order
+K1_INPUTS = ("x", "seg", "style", "mean", "var", "ws", "bs", "wg", "bg", "wb",
+             "bb")
+
+
+def k1_route():
+    """K1, SPADE+Style: its op, plain version, kernels and inputs, for
+    ``forward_sites`` and ``backward_sites``."""
+    from seg2eye_tpu_torch.ops import spade_style as K
+
+    return dict(name="K1", what="the fused SPADE+Style kernels", ops=K,
+                op=K.spade_style, reference=K.spade_style_reference,
+                from_actv=K.spade_style_from_actv, kernels=K.KERNELS,
+                backward_kernels=K.BACKWARD_KERNELS,
+                kernel_backward=K._kernel_backward, inputs=site_inputs,
+                names=K1_INPUTS, tols=TOLS)
+
+
+def plain_route():
+    """GauGAN's plain SPADE (``ops.spade``): K1's kernels without the style
+    term; its sites' inputs hold no style."""
+    from seg2eye_tpu_torch.ops import spade as P
+
+    return dict(name="plain SPADE", what="the plain SPADE kernels", ops=P,
+                op=P.spade, reference=P.spade_reference,
+                from_actv=P.spade_from_actv, kernels=P.KERNELS,
+                backward_kernels=P.BACKWARD_KERNELS,
+                kernel_backward=P._kernel_backward,
+                inputs=plain_site_inputs,
+                names=tuple(k for k in K1_INPUTS if k != "style"),
+                tols=PLAIN_TOLS)
+
+
+def site_parts(route, args):
+    """(x, seg, style or None, mean, var, ws, bs, wg, bg, wb, bb) of a
+    site's inputs."""
+    parts = dict(zip(route["names"], args))
+    return [parts.get(k) for k in K1_INPUTS]
+
+
+def forward_sites(route, dname, shapes, gen):
+    """The forward kernel of ``route`` in ``dname`` against its plain
+    version at ``shapes`` (the first ``len(ODD_SITES)`` odd, the rest
+    summed): within the route's tolerance of the op's plain version, and
+    within one rounding of the float32 plain version of the kernel's own
+    operands (actv, the weights in the kernel's type, float32 biases and
+    epilogue); each kernel alone timed beside its bound."""
     from seg2eye_tpu_torch.ops import spade_style as K
     from seg2eye_tpu_torch.utils import roofline
 
+    dtype, (rtol, atol) = DTYPES[dname], route["tols"][dname]
+    log(f"{route['name']} kernel vs plain, {dname}, tolerance |err| <= "
+        f"{atol:.3g} + {rtol:.3g} * |plain|; against the float32 plain "
+        f"version of its own operands, |err| <= {ONE_ROUNDING[1]:.3g} + "
+        f"{ONE_ROUNDING[0]:.3g} * |plain| (one_e/t); times in ms: the "
+        "kernel alone (from actv), its bound"
+        + (f" (3 TF32 passes at "
+           f"{roofline.peak_flops(dtype='tf32') / 1e12:.0f} TFLOP/s)"
+           if dname == "float32" else ""))
+    log("  site  (N, H, W, C)         max_abs_err  err/tol  one_e/t    "
+        "kernel   bound  by   %bound  TFLOP/s")
+    tot = dict(max_abs_err=0.0, worst=0.0, one_worst=0.0, ms=0.0,
+               bound_ms=0.0, bound_ops_ms=0.0, bound_bytes_ms=0.0)
+    for i, shape in enumerate(shapes):
+        args = route["inputs"](*shape, dtype, gen)
+        got = route["op"](*args)
+        want = route["reference"](*args)
+        torch.cuda.synchronize()
+        err, worst = check_close(f"{route['name']} {dname} {shape}", got,
+                                 want, rtol, atol)
+        tot["max_abs_err"] = max(tot["max_abs_err"], err)
+        tot["worst"] = max(tot["worst"], worst)
+        x, seg, style, mean, var, ws, bs, wg, bg, wb, bb = site_parts(route,
+                                                                      args)
+        actv = K.seg_mlp_shared(seg.to(dtype), ws, bs).contiguous()
+        styled = () if style is None else (style,)
+        with tf32(False):
+            exact = route["from_actv"](
+                x.float(), actv.float(), *styled, mean, var,
+                wg.to(dtype).float(), bg, wb.to(dtype).float(), bb).to(dtype)
+        _, one = check_close(f"{route['name']} {dname} {shape}, one "
+                             "rounding", got, exact, *ONE_ROUNDING)
+        tot["one_worst"] = max(tot["one_worst"], one)
+        wcat, bcat = K.pack_weights(wg, bg, wb, bb, dtype)
+        (kms,) = time_turns([
+            lambda: K.launch_forward(route["kernels"], x, actv, style, mean,
+                                     var, wcat, bcat)])
+        flops, ops_ms, bytes_ms = site_bound(shape, dname)
+        bms = max(ops_ms, bytes_ms)
+        by = "operations" if ops_ms >= bytes_ms else "bytes"
+        label = "odd" if i < len(ODD_SITES) else f"{i - 1:4d}"
+        log(f"  {label}  {str(shape):22s} {err:11.3e}  {worst:7.3f}  "
+            f"{one:7.3f} {kms:8.4f} {bms:8.4f}  {by[:3]}  "
+            f"{100 * bms / kms:6.1f}  {flops / (kms * 1e-3) / 1e12:7.1f}")
+        if i >= len(ODD_SITES):
+            for key, v in (("ms", kms), ("bound_ms", bms),
+                           ("bound_ops_ms", ops_ms),
+                           ("bound_bytes_ms", bytes_ms)):
+                tot[key] += v
+        del args, got, want, actv, wcat, exact
+    tot["bound_by"] = ("operations" if tot.pop("bound_ops_ms")
+                       >= tot.pop("bound_bytes_ms") else "bytes")
+    log(f"  18 sites at N={SITE_N}, {dname} (sums of per-site medians): "
+        f"kernel {tot['ms']:.4f} ms, bound {tot['bound_ms']:.4f} "
+        f"({tot['bound_by']}), {100 * tot['bound_ms'] / tot['ms']:.1f}% "
+        f"of the bound; worst err/tolerance {tot['worst']:.4f}, one "
+        f"rounding {tot['one_worst']:.4f} (odd shapes included)")
+    return tot
+
+
+def phase_kernel():
+    from seg2eye_tpu_torch.ops import spade_style as K
+
     gen = torch.Generator(device="cuda").manual_seed(0)
-    summary = {}
-    for dname in ("float32", "bfloat16"):
-        dtype, (rtol, atol) = DTYPES[dname], TOLS[dname]
-        log(f"kernel vs plain, {dname}, tolerance |err| <= {atol:.3g} + "
-            f"{rtol:.3g} * |plain|; times in ms: the kernel alone (from "
-            "actv), its bound"
-            + (f" (3 TF32 passes at "
-               f"{roofline.peak_flops(dtype='tf32') / 1e12:.0f} TFLOP/s)"
-               if dname == "float32" else ""))
-        log("  site  (N, H, W, C)         max_abs_err  err/tol    kernel   "
-            "bound  by   %bound  TFLOP/s")
-        tot = dict(max_abs_err=0.0, worst=0.0, ms=0.0, bound_ms=0.0,
-                   bound_ops_ms=0.0, bound_bytes_ms=0.0)
-        for i, shape in enumerate(ODD_SITES + [(SITE_N, *s) for s in SITES]):
-            args = site_inputs(*shape, dtype, gen)
-            got = K.spade_style(*args)
-            want = K.spade_style_reference(*args)
-            torch.cuda.synchronize()
-            err, worst = check_close(f"{dname} {shape}", got, want, rtol, atol)
-            tot["max_abs_err"] = max(tot["max_abs_err"], err)
-            tot["worst"] = max(tot["worst"], worst)
-            x, seg, style, mean, var, ws, bs, wg, bg, wb, bb = args
-            actv = K.seg_mlp_shared(seg.to(dtype), ws, bs).contiguous()
-            wcat, bcat = K.pack_weights(wg, bg, wb, bb, dtype)
-            (kms,) = time_turns([
-                lambda: K.spade_style_cuda(x, actv, style, mean, var, wcat,
-                                           bcat)])
-            flops, ops_ms, bytes_ms = site_bound(shape, dname)
-            bms = max(ops_ms, bytes_ms)
-            by = "operations" if ops_ms >= bytes_ms else "bytes"
-            label = "odd" if i < len(ODD_SITES) else f"{i - 1:4d}"
-            log(f"  {label}  {str(shape):22s} {err:11.3e}  {worst:7.3f} "
-                f"{kms:8.4f} {bms:8.4f}  {by[:3]}  {100 * bms / kms:6.1f}  "
-                f"{flops / (kms * 1e-3) / 1e12:7.1f}")
-            if i >= len(ODD_SITES):
-                for key, v in (("ms", kms), ("bound_ms", bms),
-                               ("bound_ops_ms", ops_ms),
-                               ("bound_bytes_ms", bytes_ms)):
-                    tot[key] += v
-            del args, got, want, actv, wcat
-        tot["bound_by"] = ("operations" if tot.pop("bound_ops_ms")
-                           >= tot.pop("bound_bytes_ms") else "bytes")
-        log(f"  18 sites at N={SITE_N}, {dname} (sums of per-site medians): "
-            f"kernel {tot['ms']:.4f} ms, bound {tot['bound_ms']:.4f} "
-            f"({tot['bound_by']}), {100 * tot['bound_ms'] / tot['ms']:.1f}% "
-            f"of the bound; worst err/tolerance {tot['worst']:.4f} (odd "
-            "shapes included)")
-        summary[dname] = tot
+    shapes = ODD_SITES + [(SITE_N, *s) for s in SITES]
+    summary = {dname: forward_sites(k1_route(), dname, shapes, gen)
+               for dname in ("float32", "bfloat16")}
 
     # crop 512: the same sites with H and W doubled, correctness only
     for dname, dtype in DTYPES.items():
@@ -537,11 +629,15 @@ BWD_GRAD_INPUTS = {"x": 0, "style": 2, "mean": 3, "var": 4, "ws": 5,
 BACKWARD_LAUNCHES = {"bfloat16": len(SITES), "float32": 0}
 
 
-def phase_kernel_backward():
+def backward_sites(route, shapes, gen):
+    """The bfloat16 backward kernel of ``route`` at ``shapes`` against its
+    plain version (``epilogue_backward_reference``), the op's gradients
+    through it against autograd of the float32 plain version, and the
+    kernel alone timed beside its bound."""
     from seg2eye_tpu_torch.ops import spade_style as K
     from seg2eye_tpu_torch.utils import roofline
 
-    gen = torch.Generator(device="cuda").manual_seed(1)
+    ops = route["ops"]
     dtype = torch.bfloat16
     rtol, atol = TOLS["bfloat16"]
     # the op's gradients through the kernel (bfloat16) against autograd of
@@ -554,12 +650,14 @@ def phase_kernel_backward():
     # and move by 2.4e-2 to 4.2e-2 of their norm in the plain recompute
     # itself (on an H100, at these shapes)
     grad_rtol = F32_ROUTE["grad_rtol"]
-    needs = tuple(i in BWD_GRAD_INPUTS.values() for i in range(11))
+    index = {k: route["names"].index(k) for k in BWD_GRAD_INPUTS
+             if k in route["names"]}
+    needs = tuple(i in index.values() for i in range(len(route["names"])))
     graded = [i for i, need in enumerate(needs) if need]
-    log(f"backward kernel, bfloat16, against its plain version "
-        f"(epilogue_backward_reference): dx and [dgamma | dbeta] within "
-        f"|err| <= {atol:.3g} + {rtol:.3g} * |plain| (dx_e/t, dgb_e/t: worst "
-        f"err/tolerance), the sums within {SUMS_RTOL:g} of each kind's "
+    log(f"backward kernel of {route['what']}, bfloat16, against its plain "
+        f"version (epilogue_backward_reference): dx and [dgamma | dbeta] "
+        f"within |err| <= {atol:.3g} + {rtol:.3g} * |plain| (dx_e/t, dgb_e/t: "
+        f"worst err/tolerance), the sums within {SUMS_RTOL:g} of each kind's "
         f"largest (sums_e/t); the op's gradients through the kernel against "
         f"autograd of the float32 plain version, worst ||d|| / ||g|| over "
         f"{len(graded)} inputs, beside the same for the bfloat16 plain "
@@ -570,14 +668,15 @@ def phase_kernel_backward():
         "(input)  grad_p    kernel    bound  by   %bound")
     tot = dict(worst=0.0, grad_worst=0.0, ms=0.0, bound_ms=0.0,
                bound_ops_ms=0.0, bound_bytes_ms=0.0)
-    for i, shape in enumerate(ODD_SITES + [(SITE_N, *s) for s in SITES]):
-        args = site_inputs(*shape, dtype, gen)
-        x, seg, style, mean, var, ws, bs, wg, bg, wb, bb = args
+    for i, shape in enumerate(shapes):
+        args = route["inputs"](*shape, dtype, gen)
+        x, seg, style, mean, var, ws, bs, wg, bg, wb, bb = site_parts(route,
+                                                                      args)
         dout = torch.randn(shape, generator=gen, device="cuda").to(dtype)
         actv = K.seg_mlp_shared(seg.to(dtype), ws, bs).contiguous()
         wgam, bcat, _ = K.packed_weights.backward(wg, bg, wb, bb, dtype)
-        got = K.spade_style_backward_cuda(x, actv, dout, style, mean, var,
-                                          wgam, bcat)
+        got = K.launch_backward(route["backward_kernels"], x, actv, dout,
+                                style, mean, var, wgam, bcat)
         want = K.epilogue_backward_reference(x, actv, dout, style, mean, var,
                                              wg, bg)
         torch.cuda.synchronize()
@@ -592,12 +691,13 @@ def phase_kernel_backward():
                                  f"err/tolerance {sums_w:.3f}")
         # the op's gradients, kernel route and bfloat16 plain recompute,
         # against autograd of the float32 plain version
-        grads_k = K._kernel_backward(args, needs, dout, K.EPS)
-        grads_p = K._recompute_backward(args, needs, dout, K.EPS)
+        grads_k = route["kernel_backward"](args, needs, dout, ops.EPS)
+        grads_p = K.recompute_backward(args, needs, dout, ops.EPS,
+                                       reference=route["reference"])
         leaves = [a.float().requires_grad_(need)
                   for a, need in zip(args, needs)]
         with tf32(False):
-            out = K.spade_style_reference(*leaves)
+            out = route["reference"](*leaves)
             grads_f = torch.autograd.grad(
                 out, [leaves[j] for j in graded], dout.float())
         ratios_k, ratios_p = {}, {}
@@ -606,18 +706,20 @@ def phase_kernel_backward():
             ratios_k[j] = float((grads_k[j].float() - g_f).norm()) / norm
             ratios_p[j] = float((grads_p[j].float() - g_f).norm()) / norm
         worst = max(ratios_k, key=ratios_k.get)
-        name = next(k for k, v in BWD_GRAD_INPUTS.items() if v == worst)
+        name = route["names"][worst]
         for j, r in ratios_k.items():
             if not r <= max(grad_rtol, BF16_TENSOR_RATIO * ratios_p[j]):
                 raise AssertionError(
                     f"backward gradients {shape}: ||d|| / ||g|| of input "
-                    f"{j} {r:.3e}, the bfloat16 plain recompute's "
-                    f"{ratios_p[j]:.3e}")
+                    f"{route['names'][j]} {r:.3e}, the bfloat16 plain "
+                    f"recompute's {ratios_p[j]:.3e}")
         del grads_k, grads_p, grads_f, leaves, out
         (kms,) = time_turns([
-            lambda: K.spade_style_backward_cuda(x, actv, dout, style, mean,
-                                                var, wgam, bcat)])
+            lambda: K.launch_backward(route["backward_kernels"], x, actv,
+                                      dout, style, mean, var, wgam, bcat)])
         flops, nbytes = K.backward_kernel_work(shape, dtype)
+        if style is None:                   # the style (N, C) is not read
+            nbytes -= 4 * shape[0] * shape[3]
         ops_ms = roofline.compute_ms(flops, dtype)
         bytes_ms = roofline.memory_ms(nbytes)
         bound = max(ops_ms, bytes_ms)
@@ -644,6 +746,131 @@ def phase_kernel_backward():
         f"{tot['worst']:.4f}, worst gradient ||d|| / ||g|| "
         f"{tot['grad_worst']:.3e} (odd shapes included)")
     return tot
+
+
+def phase_kernel_backward():
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    return backward_sites(k1_route(),
+                          ODD_SITES + [(SITE_N, *s) for s in SITES], gen)
+
+
+# --------------------------------------------------------------- phase 16
+# GauGAN on Cityscapes (portbench/configs/spade-gaugan-cityscapes.json):
+# (H, W, C) of the 18 norm sites of one generator forward at crop 512,
+# aspect 2, 'more', ngf 64, in order; 35 labels and the instance edges
+GAUGAN_SITES = ([(4, 8, 1024)] * 2 + [(8, 16, 1024)] * 2
+                + [(16, 32, 1024)] * 2 + [(32, 64, 1024)] * 2
+                + [(32, 64, 512)] + [(64, 128, 512)] * 2
+                + [(64, 128, 256)] + [(128, 256, 256)] * 2
+                + [(128, 256, 128)] + [(256, 512, 128)] * 2
+                + [(256, 512, 64)])
+GAUGAN_LABELS = 35
+GAUGAN = dict(netG="spade", ngf=64, ndf=64, crop_size=512, aspect_ratio=2.0,
+              label_nc=GAUGAN_LABELS, no_instance=False, output_nc=3,
+              num_upsampling_layers="more", norm_G="spectralspadesyncbatch3x3",
+              no_vgg_loss=False)
+GAUGAN_TRAIN_BATCH = 2
+# plain SPADE against its bfloat16 plain version: as TOLS, but the atol
+# doubled, since no halving follows the modulation: the plain version's
+# bfloat16 gamma and beta (relative 2^-9) times |normalized x| reach 2^-4
+# at GauGAN's 36 seg channels (|gamma| to about 8, |normalized x| to 5.5);
+# float32 as TOLS
+PLAIN_TOLS = {"float32": TOLS["float32"],
+              "bfloat16": (BF16_RTOL, 2 * BF16_ATOL)}
+# launches in one GauGAN training iteration: forward (the G step and the D
+# step's regenerated fake), backward (the G step's), per dtype
+SPADE_LAUNCHES = {"bfloat16": (2 * len(GAUGAN_SITES), len(GAUGAN_SITES)),
+                  "float32": (2 * len(GAUGAN_SITES), 0)}
+
+
+def plain_site_inputs(n, h, w, c, dtype, gen):
+    """``site_inputs`` without the style, over GauGAN's 36 seg channels:
+    the one-hot label map over 8x8 blocks and an edge map."""
+    def r(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda")
+
+    x = r(n, h, w, c).to(dtype)
+    label = torch.randint(0, GAUGAN_LABELS, (n, -(-h // 8), -(-w // 8)),
+                          generator=gen, device="cuda")
+    label = label.repeat_interleave(8, 1).repeat_interleave(8, 2)[:, :h, :w]
+    seg = torch.cat([F.one_hot(label, GAUGAN_LABELS).float(),
+                     (torch.rand(n, h, w, 1, generator=gen, device="cuda")
+                      < 0.1).float()], -1)
+    s = seg.shape[-1]
+    var, mean = torch.var_mean(x.float(), dim=(0, 1, 2), correction=0)
+    return [x, seg, mean.expand(n, c), var.expand(n, c),
+            r(128, s, 3, 3) * 0.1, r(128) * 0.1, r(c, 128, 3, 3) * 0.1,
+            r(c) * 0.1, r(c, 128, 3, 3) * 0.1, r(c) * 0.1]
+
+
+def gaugan_batch(opt, b, seed=0):
+    """A seeded GauGAN host batch: label, instance and RGB target, uint8."""
+    rng = np.random.default_rng(seed)
+    h, w = opt.image_height, opt.image_width
+    return {"label": rng.integers(0, opt.label_nc, (b, h, w), np.uint8),
+            "instance": np.repeat(np.repeat(rng.integers(
+                0, 256, (b, h // 32, w // 32), np.uint8), 32, 1), 32, 2),
+            "target": rng.integers(0, 256, (b, h, w, 3), np.uint8)}
+
+
+def spade_training_launches(P, K):
+    """One GauGAN training iteration at full width per dtype: the plain
+    kernels' launches, none of K1's, one packing per norm site per weight
+    set (the first forward, and the D step's after the G update)."""
+    from seg2eye_tpu_torch.models.pix2pix import Pix2Pix
+    from seg2eye_tpu_torch.options import Options
+    from seg2eye_tpu_torch.train import state as state_lib
+    from seg2eye_tpu_torch.train import steps
+    from seg2eye_tpu_torch.utils.weights import init_networks
+
+    counts = {}
+    for dname in ("bfloat16", "float32"):
+        opt = Options(**GAUGAN, compute_dtype=dname,
+                      batchSize=GAUGAN_TRAIN_BATCH).finalize()
+        nets = init_networks(opt, torch.Generator().manual_seed(0), "cuda")
+        state = state_lib.create_state(Pix2Pix(opt, nets, "cuda"))
+        batch = gaugan_batch(opt, GAUGAN_TRAIN_BATCH)
+        before = (P.spade.launches, P.spade.backward_launches,
+                  K.spade_style.launches, K.spade_style.backward_launches,
+                  K.packed_weights.packings)
+        losses, _ = steps.train_step(state, batch)
+        torch.cuda.synchronize()
+        after = (P.spade.launches, P.spade.backward_launches,
+                 K.spade_style.launches, K.spade_style.backward_launches,
+                 K.packed_weights.packings)
+        fwd, bwd, k1, k1_bwd, packs = (a - b for a, b in zip(after, before))
+        if not all(math.isfinite(float(v)) for v in losses.values()):
+            raise AssertionError(f"GauGAN {dname}: a loss is not finite")
+        want = SPADE_LAUNCHES[dname]
+        if (fwd, bwd) != want or k1 or k1_bwd or \
+                packs != 2 * len(GAUGAN_SITES):
+            raise AssertionError(
+                f"GauGAN {dname} iteration: plain kernel launches "
+                f"({fwd}, {bwd}) != {want}, K1 launches ({k1}, {k1_bwd}), "
+                f"packings {packs} != {2 * len(GAUGAN_SITES)}")
+        log(f"GauGAN {dname} training iteration at bs{GAUGAN_TRAIN_BATCH} "
+            f"(256x512): {fwd} plain forward and {bwd} backward launches, "
+            f"{packs} packings, no K1 launch; losses "
+            + ", ".join(f"{k} {float(v):.4f}" for k, v in losses.items()))
+        counts[dname] = (fwd, bwd)
+        del state, nets
+        torch.cuda.empty_cache()
+    return counts
+
+
+def phase_spade():
+    from seg2eye_tpu_torch.ops import spade as P
+    from seg2eye_tpu_torch.ops import spade_style as K
+
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(16)
+    shapes = ODD_SITES + [(SITE_N, *s) for s in GAUGAN_SITES]
+    summary = {dname: forward_sites(plain_route(), dname, shapes, gen)
+               for dname in ("float32", "bfloat16")}
+    summary["backward"] = backward_sites(plain_route(), shapes, gen)
+    summary["launches"] = spade_training_launches(P, K)
+    log(f"phase 16: {time.perf_counter() - t0:.1f} s")
+    return summary
 
 
 # ---------------------------------------------------------------- phase 4
@@ -4240,6 +4467,7 @@ def main():
     phase_build()
     summary = phase_kernel()
     backward = phase_kernel_backward()
+    plain = phase_spade()
     launches = phase_slice()
     train_launches = phase_train()
     remat_launches = phase_options()
@@ -4260,6 +4488,7 @@ def main():
 
     from seg2eye_tpu_torch.ops import batch_stats as B
     from seg2eye_tpu_torch.ops import bn_act as BA
+    from seg2eye_tpu_torch.ops import spade as P
     from seg2eye_tpu_torch.ops import spade_style as K
     log(card_line())              # again, beside the results at the end
     log("kernel summary, one entry per kernel: launches in one forward of "
@@ -4280,7 +4509,10 @@ def main():
         "launches in one bfloat16 training iteration and one scored batch; "
         "the eval BN, residual add and ReLU kernel (phase 15): launches in "
         f"one bfloat16 RefineNet serving forward at bs{RN_SERVE_BATCH}, ms "
-        "and bound_ms summed over its sites, host_us per site")
+        "and bound_ms summed over its sites, host_us per site; the plain "
+        "SPADE kernels (phase 16): train_launches in one GauGAN iteration "
+        f"in that dtype, ms and bound_ms summed over GauGAN's 18 sites at "
+        f"N={SITE_N}")
     keys = ("max_abs_err", "ms", "bound_ms", "bound_by")
     print(json.dumps({"kernels": [
         {"name": SUMMARY_NAMES[d], "route": "cuda",
@@ -4317,7 +4549,17 @@ def main():
          "replaces": None, "serving_launches": bn_act["launches"],
          "train_launches": 0, "ms": bn_act["ms"],
          "bound_ms": bn_act["bound_ms"], "bound_by": "bytes",
-         "host_us": bn_act["host_us"]}]}))
+         "host_us": bn_act["host_us"]}] + [
+        {"name": P.KERNELS[DTYPES[d]], "route": "cuda",
+         "source": K.SOURCE[DTYPES[d]], "replaces": None,
+         "train_launches": plain["launches"][d][0],
+         **{k: plain[d][k] for k in keys}}
+        for d in ("bfloat16", "float32")] + [
+        {"name": P.BACKWARD_KERNELS[torch.bfloat16], "route": "cuda",
+         "source": K.SOURCE[torch.bfloat16], "replaces": None,
+         "train_launches": plain["launches"]["bfloat16"][1],
+         **{k: plain["backward"][k] for k in ("ms", "bound_ms", "bound_by",
+                                              "grad_worst")}}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)

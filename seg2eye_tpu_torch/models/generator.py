@@ -1,4 +1,5 @@
-"""SPADE+Style generator (counterpart of ``seg2eye_tpu/models/generator.py``).
+"""SPADE+Style generator (counterpart of ``seg2eye_tpu/models/generator.py``),
+and GauGAN's SPADE generator on the same skeleton.
 
   * Start: the one-hot seg map nearest-resized to the latent size
     (sh, sw) = (round(sw / aspect), crop / 2^n), then a 3x3 conv to 16*ngf.
@@ -12,6 +13,11 @@ forward and shared by every norm at that resolution.  A forward with
 ``remat`` (``--remat``) checkpoints each SPADE+Style block, as the JAX
 package's ``nn.remat`` does: its activations are recomputed in the
 backward, which launches each of its norm sites' kernel a second time.
+
+``SpadeGenerator`` is GauGAN's (NVlabs/SPADE ``generator.py``
+SPADEGenerator without the VAE): the same start, blocks, upsamples and
+final conv, its blocks ``SpadeResnetBlock``s of plain SPADE norms, and no
+style code.  The JAX package has no counterpart.
 """
 from __future__ import annotations
 
@@ -20,7 +26,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from seg2eye_tpu_torch.models.layers import SpectralConv
-from seg2eye_tpu_torch.models.normalization import (SpadeStyleResnetBlock,
+from seg2eye_tpu_torch.models.normalization import (SpadeResnetBlock,
+                                                    SpadeStyleResnetBlock,
                                                     parse_norm_g)
 from seg2eye_tpu_torch.ops.image import resize_nearest
 from seg2eye_tpu_torch.parallel import spatial
@@ -52,8 +59,8 @@ class SpadeStyleGenerator(nn.Module):
         nf = ngf
 
         def block(fin, fout):
-            return SpadeStyleResnetBlock(fin, fout, semantic_nc, w_dim,
-                                         spectral, param_free, ks)
+            return self.make_block(fin, fout, semantic_nc, w_dim, spectral,
+                                   param_free, ks)
 
         self.fc = SpectralConv(semantic_nc, 16 * nf, 3, spectral=False)
         self.head_0 = block(16 * nf, 16 * nf)
@@ -67,6 +74,12 @@ class SpadeStyleGenerator(nn.Module):
             self.up_4 = block(1 * nf, nf // 2)
         final_nc = nf // 2 if num_upsampling_layers == "most" else nf
         self.conv_img = SpectralConv(final_nc, output_nc, 3, spectral=False)
+
+    @staticmethod
+    def make_block(fin, fout, semantic_nc, w_dim, spectral, param_free,
+                   ks) -> nn.Module:
+        return SpadeStyleResnetBlock(fin, fout, semantic_nc, w_dim, spectral,
+                                     param_free, ks)
 
     def forward(self, seg: torch.Tensor, w: torch.Tensor,
                 use_running_average: bool = False,
@@ -113,3 +126,26 @@ class SpadeStyleGenerator(nn.Module):
             x = run(self.up_4, x, h)
         x = self.conv_img(F.leaky_relu(x, 0.2), band=band)
         return spatial.place(torch.tanh(x), band, None)
+
+
+class SpadeGenerator(SpadeStyleGenerator):
+    """GauGAN's generator: seg (B,H,W,semantic_nc) -> image, no style."""
+
+    def __init__(self, ngf: int = 64, output_nc: int = 3,
+                 semantic_nc: int = 36, crop_size: int = 512,
+                 aspect_ratio: float = 2.0,
+                 num_upsampling_layers: str = "more",
+                 norm_g: str = "spectralspadesyncbatch3x3"):
+        super().__init__(ngf, output_nc, semantic_nc, crop_size,
+                         aspect_ratio, num_upsampling_layers, norm_g, 0)
+
+    @staticmethod
+    def make_block(fin, fout, semantic_nc, w_dim, spectral, param_free,
+                   ks) -> nn.Module:
+        return SpadeResnetBlock(fin, fout, semantic_nc, spectral, param_free,
+                                ks)
+
+    def forward(self, seg: torch.Tensor, w=None, **kw) -> torch.Tensor:
+        """``SpadeStyleGenerator.forward`` with no style code (``w`` is not
+        read)."""
+        return super().forward(seg, None, **kw)

@@ -43,6 +43,14 @@ forward, backward and update in it); bfloat16 leaves the flags as they are.
 
 Batches keep the JAX package's layouts: label (B,H,W) int, style_image
 (B,k,H,W,1) and target (B,H,W,1) float or uint8, and fakes (B,H,W,1).
+
+GauGAN (``opt.netG == 'spade'``, NVlabs/SPADE without the VAE) runs
+through the same methods with no encoder: ``build_networks`` builds
+``SpadeGenerator`` and no E, ``encode_w`` gives no style code, and
+``preprocess`` reads an optional ``instance`` map (B,H,W), whose
+4-neighbour edges (``ops.image.instance_edges``) follow the one-hot
+channels unless ``opt.no_instance``; the target is RGB (B,H,W,3).  Under a
+profiler the VGG loss's forward is the ``utils.spans.LOSS_VGG`` span.
 """
 from __future__ import annotations
 
@@ -52,35 +60,49 @@ import torch
 
 from seg2eye_tpu_torch.models.discriminator import MultiscaleDiscriminator
 from seg2eye_tpu_torch.models.encoder import ConvEncoder
-from seg2eye_tpu_torch.models.generator import SpadeStyleGenerator
+from seg2eye_tpu_torch.models.generator import (SpadeGenerator,
+                                                SpadeStyleGenerator)
 from seg2eye_tpu_torch.models.layers import (BatchSubNorm, SpectralConv,
                                              at_least_f32)
 from seg2eye_tpu_torch.models.vgg import VGG19Features, to_rgb
 from seg2eye_tpu_torch.ops import losses as L
 from seg2eye_tpu_torch.ops import metrics
-from seg2eye_tpu_torch.ops.image import one_hot_label
+from seg2eye_tpu_torch.ops.image import instance_edges, one_hot_label
 from seg2eye_tpu_torch.parallel import data_parallel as dp
 from seg2eye_tpu_torch.utils.precision import full_float32
-from seg2eye_tpu_torch.utils.spans import TO_DEVICE, span
+from seg2eye_tpu_torch.utils.spans import LOSS_VGG, TO_DEVICE, span
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
 
 def build_networks(opt) -> Dict[str, torch.nn.Module]:
-    """Generator and encoder for ``opt``, and the discriminator (and, with
-    the VGG loss on, the frozen VGG19) when ``opt.isTrain``, on the CPU,
-    with placeholder weights: load a checkpoint or run
-    ``utils.weights.init_networks``."""
-    if opt.netG != "spadestyle" or opt.netE != "conv":
+    """Generator and encoder for ``opt`` (GauGAN, ``netG`` 'spade': the
+    generator alone), and the discriminator (and, with the VGG loss on,
+    the frozen VGG19) when ``opt.isTrain``, on the CPU, with placeholder
+    weights: load a checkpoint or run ``utils.weights.init_networks``."""
+    if opt.netG == "spade":
+        if opt.lambda_style_w or opt.lambda_style_feat or opt.lambda_gram:
+            raise ValueError("netG 'spade' has no style encoder for the "
+                             "style losses")
+        nets = {"G": SpadeGenerator(
+            ngf=opt.ngf, output_nc=opt.output_nc,
+            semantic_nc=opt.semantic_nc, crop_size=opt.crop_size,
+            aspect_ratio=opt.aspect_ratio,
+            num_upsampling_layers=opt.num_upsampling_layers,
+            norm_g=opt.norm_G)}
+    elif opt.netG == "spadestyle" and opt.netE == "conv":
+        gen = SpadeStyleGenerator(
+            ngf=opt.ngf, output_nc=opt.output_nc,
+            semantic_nc=opt.semantic_nc, crop_size=opt.crop_size,
+            aspect_ratio=opt.aspect_ratio,
+            num_upsampling_layers=opt.num_upsampling_layers,
+            norm_g=opt.norm_G, w_dim=opt.w_dim)
+        enc = ConvEncoder(ngf=opt.ngf, w_dim=opt.w_dim,
+                          crop_size=opt.crop_size, norm_e=opt.norm_E,
+                          input_nc=opt.input_nc)
+        nets = {"G": gen, "E": enc}
+    else:
         raise ValueError(f"unknown netG/netE '{opt.netG}'/'{opt.netE}'")
-    gen = SpadeStyleGenerator(
-        ngf=opt.ngf, output_nc=opt.output_nc, semantic_nc=opt.semantic_nc,
-        crop_size=opt.crop_size, aspect_ratio=opt.aspect_ratio,
-        num_upsampling_layers=opt.num_upsampling_layers, norm_g=opt.norm_G,
-        w_dim=opt.w_dim)
-    enc = ConvEncoder(ngf=opt.ngf, w_dim=opt.w_dim, crop_size=opt.crop_size,
-                      norm_e=opt.norm_E, input_nc=opt.input_nc)
-    nets = {"G": gen, "E": enc}
     if opt.isTrain:
         if opt.netD != "multiscale" or opt.netD_subarch != "n_layer":
             raise ValueError(f"unknown netD '{opt.netD}/{opt.netD_subarch}'")
@@ -105,28 +127,37 @@ class Pix2Pix:
         self.device = torch.device(device)
         self.dtype = _DTYPES[opt.compute_dtype]
         self.netG = nets["G"].to(self.device)
-        self.netE = nets["E"].to(self.device)
+        self.netE = nets["E"].to(self.device) if "E" in nets else None
         self.netD = nets["D"].to(self.device) if "D" in nets else None
         self.netVGG = nets["VGG"].to(self.device) if "VGG" in nets else None
 
     def preprocess(self, batch: Dict
                    ) -> Tuple[torch.Tensor, torch.Tensor,
                               Optional[torch.Tensor]]:
-        """-> (seg (B,H,W,S), style (B,k,H,W,1), target (B,H,W,1) or None)
-        on the device, in the compute dtype.  Under a profiler the copies
-        of host arrays are the ``utils.spans.TO_DEVICE`` span."""
+        """-> (seg (B,H,W,S), style (B,k,H,W,1), target (B,H,W,C)) on the
+        device, in the compute dtype, style and target None where the batch
+        has none.  seg: the one-hot label map (with the don't-care channel
+        under ``opt.contain_dontcare_label``), then the instance edges
+        unless ``opt.no_instance``.  Under a profiler the copies of host
+        arrays are the ``utils.spans.TO_DEVICE`` span."""
         def norm(x):
+            if x is None:
+                return None
             if x.dtype == torch.uint8:
                 x = (x.to(torch.float32) / 255.0 - 0.5) / 0.5
             return x.to(self.dtype)
 
-        target = batch.get("target")
+        opt = self.opt
         with span(TO_DEVICE):
-            label, style, target = (
+            label, style, target, inst = (
                 None if x is None else torch.as_tensor(x).to(self.device)
-                for x in (batch["label"], batch["style_image"], target))
-        seg = one_hot_label(label, self.opt.semantic_nc).to(self.dtype)
-        return (seg, norm(style), None if target is None else norm(target))
+                for x in (batch["label"], batch.get("style_image"),
+                          batch.get("target"), batch.get("instance")))
+        seg = one_hot_label(label,
+                            opt.label_nc + int(opt.contain_dontcare_label))
+        if not opt.no_instance:
+            seg = torch.cat([seg, instance_edges(inst)], -1)
+        return seg.to(self.dtype), norm(style), norm(target)
 
     def _aggregate(self, t: torch.Tensor, dim: int) -> torch.Tensor:
         if self.opt.style_aggr_method == "mean":
@@ -141,7 +172,10 @@ class Pix2Pix:
         Outside training a batch sub-norm uses batch statistics, or the
         running ones under ``opt.eval_use_running_stats``, and updates
         nothing.  ``bands``: the encoder computes in H bands
-        (``ConvEncoder.forward``; the features are then bands)."""
+        (``ConvEncoder.forward``; the features are then bands).  Without
+        an encoder (GauGAN): (None, [])."""
+        if self.netE is None:
+            return None, []
         b, k = style.shape[:2]
         running = self.opt.eval_use_running_stats and not update_stats
         world = dp.world_size()
@@ -219,7 +253,8 @@ class Pix2Pix:
         ``bands``: the generator computes in H bands and gathers the
         fake."""
         running = self.opt.eval_use_running_stats and not update_stats
-        fake = self.netG(seg, at_least_f32(w), use_running_average=running,
+        fake = self.netG(seg, None if w is None else at_least_f32(w),
+                         use_running_average=running,
                          update_stats=update_stats, remat=self.opt.remat,
                          bands=bands)
         return fake.permute(0, 2, 3, 1)
@@ -294,17 +329,19 @@ class Pix2Pix:
     def vgg_loss(self, fake: torch.Tensor, target: torch.Tensor
                  ) -> torch.Tensor:
         """The perceptual loss of fake against target (B,H,W,C): one
-        interleaved 2B VGG19 batch in the compute dtype."""
+        interleaved 2B VGG19 batch in the compute dtype, inside the
+        ``LOSS_VGG`` span."""
         if self.netVGG is None:
             raise ValueError("the VGG loss needs the VGG19 network: build "
                              "the networks with opt.isTrain and the VGG "
                              "loss on")
-        pair = torch.stack([to_rgb(fake), to_rgb(target)], 1)
-        x = pair.reshape(-1, *pair.shape[2:]).to(self.dtype)
-        feats = self.netVGG(x.permute(0, 3, 1, 2))
-        halves = [f.reshape(-1, 2, *f.shape[1:]) for f in feats]
-        return L.vgg_loss([f[:, 0] for f in halves],
-                          [f[:, 1] for f in halves])
+        with span(LOSS_VGG):
+            pair = torch.stack([to_rgb(fake), to_rgb(target)], 1)
+            x = pair.reshape(-1, *pair.shape[2:]).to(self.dtype)
+            feats = self.netVGG(x.permute(0, 3, 1, 2))
+            halves = [f.reshape(-1, 2, *f.shape[1:]) for f in feats]
+            return L.vgg_loss([f[:, 0] for f in halves],
+                              [f[:, 1] for f in halves])
 
     def discriminator_loss(self, batch: Dict, fake: torch.Tensor
                            ) -> Tuple[torch.Tensor, Dict]:
@@ -334,7 +371,9 @@ class Pix2Pix:
             seg, style, _ = self.preprocess(batch)
             if latent_style is None:
                 latent_style, _ = self.encode_w(style, bands=bands)
-            latent_style = torch.as_tensor(latent_style, device=self.device)
+            if latent_style is not None:
+                latent_style = torch.as_tensor(latent_style,
+                                               device=self.device)
             return self.generate(seg, latent_style,
                                  bands=bands).to(torch.float32)
 

@@ -29,14 +29,16 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _L = ctypes.c_longlong
 # int fn(int device, 7 input pointers, out, N, H, W, C, float eps, stream);
-# each entry point encodes its TMA tensor maps from these in C
+# each entry point encodes its TMA tensor maps from these in C (the plain
+# SPADE ones, spade_*, read no style)
 _SPADE_STYLE_ARGTYPES = [_I] + [_P] * 8 + [_I] * 4 + [_F, _P]
 _SPADE_STYLE_ENTRY_POINTS = ("spade_style_fwd_f32_3xtf32_sm90",
-                             "spade_style_fwd_bf16_sm90")
+                             "spade_style_fwd_bf16_sm90",
+                             "spade_fwd_f32_3xtf32_sm90", "spade_fwd_bf16_sm90")
 # the backward: int fn(int device, 8 input pointers, dx, dgb, partial, N, H,
 # W, C, tiles, float eps, stream)
 _BACKWARD_ARGTYPES = [_I] + [_P] * 11 + [_I] * 5 + [_F, _P]
-_BACKWARD_ENTRY_POINTS = ("spade_style_bwd_bf16_sm90",)
+_BACKWARD_ENTRY_POINTS = ("spade_style_bwd_bf16_sm90", "spade_bwd_bf16_sm90")
 # the batch statistics: int fn(int device, x, partial, var, mean, M, C,
 # rows per chunk, chunks, stream), and the backward's int fn(int device, x,
 # mean, gvar, gmean, dx, M, C, rows per chunk, chunks, stream)

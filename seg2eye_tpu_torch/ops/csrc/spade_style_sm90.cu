@@ -12,6 +12,15 @@
 //
 // gamma and beta never reach device memory.
 //
+// The same kernels, instantiated without the style term (STYLE = false,
+// the *_nostyle kernels), compute plain SPADE for GauGAN's norm sites:
+//
+//   out = (x - mean) * rsqrt(var + eps) * (1 + gamma) + beta
+//
+// with no AdaIN term and no halving, and their backward with h = dout (no
+// s0 term in dx).  The mainloop, the packed weights and the launch are the
+// SPADE+Style kernels'; only the epilogues differ, at compile time.
+//
 // What bounds it on this card: 2 * 1152 * 2C flops per pixel against
 // (2C + 128) elements of x, out and actv, far above the H100's balance
 // point in either dtype, so the tensor cores: 989 TFLOP/s in bfloat16, and
@@ -609,8 +618,9 @@ __device__ __forceinline__ void mainloop(float (&acc)[BN / 2], uint32_t a_smem,
 // TH+2, 1).  tm_w: pack_weights' (PARTS * 9 * np_cols, 128), box (BK, BN):
 // row (part * 9 + tap) * np_cols + j holds column j of that tap, j = 2c +
 // (0 gamma | 1 beta).  x, out: (N, H, W, C).  style: (N, 2C) f32 [s0|s1].
-// mean, var: (N, C) f32.  bcat: (C, 2) f32.
-template <class Op, int BN>
+// mean, var: (N, C) f32.  bcat: (C, 2) f32.  STYLE false: plain SPADE,
+// style is not read (it may be null).
+template <class Op, int BN, bool STYLE>
 __device__ __forceinline__ void spade_style_sm90(
     const CUtensorMap* tm_actv, const CUtensorMap* tm_w,
     const typename Op::T* __restrict__ x, const float* __restrict__ style,
@@ -679,8 +689,10 @@ __device__ __forceinline__ void spade_style_sm90(
         const size_t nc = (size_t)n * C + ch, ns = (size_t)n * 2 * C + ch;
         params[0 * COLS + c] = in ? mean[nc] : 0.f;
         params[1 * COLS + c] = in ? rsqrtf(var[nc] + eps) : 0.f;
-        params[2 * COLS + c] = in ? style[ns] + 1.f : 0.f;
-        params[3 * COLS + c] = in ? style[ns + C] : 0.f;
+        if constexpr (STYLE) {
+          params[2 * COLS + c] = in ? style[ns] + 1.f : 0.f;
+          params[3 * COLS + c] = in ? style[ns + C] : 0.f;
+        }
         params[4 * COLS + c] = in ? bcat[2 * ch] : 0.f;
         params[5 * COLS + c] = in ? bcat[2 * ch + 1] : 0.f;
       }
@@ -704,7 +716,6 @@ __device__ __forceinline__ void spade_style_sm90(
     for (int i = 0; i < BN / 8; ++i) {
       const int c = 4 * i + (lane & 3);
       const float m = params[c], rstd = params[COLS + c];
-      const float s0p1 = params[2 * COLS + c], s1 = params[3 * COLS + c];
       const float bg = params[4 * COLS + c], bb = params[5 * COLS + c];
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
@@ -713,8 +724,13 @@ __device__ __forceinline__ void spade_style_sm90(
         const float gamma = acc[4 * i + 2 * h] + bg;
         const float beta = acc[4 * i + 2 * h + 1] + bb;
         const float spade = (xv - m) * rstd * (1.f + gamma) + beta;
-        const float adain = xv * s0p1 + s1;
-        *p = Op::from_float((spade + adain) * 0.5f);
+        if constexpr (STYLE) {
+          const float s0p1 = params[2 * COLS + c], s1 = params[3 * COLS + c];
+          const float adain = xv * s0p1 + s1;
+          *p = Op::from_float((spade + adain) * 0.5f);
+        } else {
+          *p = Op::from_float(spade);
+        }
       }
     }
     consumer_sync();
@@ -764,7 +780,9 @@ static_assert(BwdTile<128>::smem_bytes(4) <= 232448,
 // tap].  x, dout, dx: (N, H, W, C); dgb: (N, H, W, 2C), [dgamma | dbeta].
 // style: (N, 2C) f32; mean, var: (N, C) f32; bcat: (C, 2) f32.  partial:
 // (N, tiles, BWD_SUMS, C) f32, this block's sums at [n, blockIdx.x].
-template <int BN>
+// STYLE false: plain SPADE's backward, h = dout, no s0 term in dx and
+// dbeta = dout; style is not read (it may be null).
+template <int BN, bool STYLE>
 __device__ __forceinline__ void spade_style_bwd_sm90(
     const CUtensorMap* tm_actv, const CUtensorMap* tm_w,
     const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ dout,
@@ -827,19 +845,22 @@ __device__ __forceinline__ void spade_style_bwd_sm90(
                      in ? 16 : 0);
         }
         cp_async_wait_all();
-        // dbeta = dout / 2 (exact in bfloat16), from the vectors this thread
-        // copied
+        // dbeta = dout / 2 (exact in bfloat16; plain SPADE: dout), from the
+        // vectors this thread copied
         for (int v = t; v < BM * PER_ROW; v += STAGERS) {
           const int m = v / PER_ROW, c = VEC * (v % PER_ROW);
           const long long p = pixel(m);
           if (p < 0 || c_base + c >= C) continue;
           uint4 val = *reinterpret_cast<const uint4*>(d_tile + m * X_ROW +
                                                        2 * c);
-          __nv_bfloat162* const pair = reinterpret_cast<__nv_bfloat162*>(&val);
+          if constexpr (STYLE) {
+            __nv_bfloat162* const pair =
+                reinterpret_cast<__nv_bfloat162*>(&val);
 #pragma unroll
-          for (int k = 0; k < 4; ++k) {
-            const float2 f = __bfloat1622float2(pair[k]);
-            pair[k] = __floats2bfloat162_rn(0.5f * f.x, 0.5f * f.y);
+            for (int k = 0; k < 4; ++k) {
+              const float2 f = __bfloat1622float2(pair[k]);
+              pair[k] = __floats2bfloat162_rn(0.5f * f.x, 0.5f * f.y);
+            }
           }
           *reinterpret_cast<uint4*>(dgb + p * C2 + C + c_base + c) = val;
         }
@@ -854,7 +875,7 @@ __device__ __forceinline__ void spade_style_bwd_sm90(
           reinterpret_cast<T*>(d_tile + m * X_ROW)[c] = dv;
           if (in)
             dgb[p * C2 + C + c_base + c] =
-                __float2bfloat16(0.5f * __bfloat162float(dv));
+                STYLE ? __float2bfloat16(0.5f * __bfloat162float(dv)) : dv;
         }
       }
       for (int c = t; c < BN; c += STAGERS) {
@@ -863,7 +884,8 @@ __device__ __forceinline__ void spade_style_bwd_sm90(
         const size_t nc = (size_t)n * C + ch;
         params[c] = in ? mean[nc] : 0.f;
         params[BN + c] = in ? rsqrtf(var[nc] + eps) : 0.f;
-        params[2 * BN + c] = in ? style[(size_t)n * 2 * C + ch] + 1.f : 0.f;
+        if constexpr (STYLE)
+          params[2 * BN + c] = in ? style[(size_t)n * 2 * C + ch] + 1.f : 0.f;
         params[3 * BN + c] = in ? bcat[2 * ch] : 0.f;
       }
       mbar_arrive(bars.x());
@@ -900,12 +922,13 @@ __device__ __forceinline__ void spade_style_bwd_sm90(
 #pragma unroll
         for (int j = 0; j < 2; ++j) {
           const int c = c0 + j;
-          const float hv = 0.5f * (j ? dv.y : dv.x);
+          const float hv = STYLE ? 0.5f * (j ? dv.y : dv.x) : (j ? dv.y : dv.x);
           const float xm = (j ? xv.y : xv.x) - params[c];
           const float rstd = params[BN + c];
           const float g1 = 1.f + (acc[4 * i + 2 * h + j] + params[3 * BN + c]);
           dgo[j] = hv * (xm * rstd);
-          dxo[j] = hv * (g1 * rstd + params[2 * BN + c]);
+          dxo[j] = STYLE ? hv * (g1 * rstd + params[2 * BN + c])
+                         : hv * (g1 * rstd);
           v[j] += hv;
           v[2 + j] += hv * xm;
           v[4 + j] += hv * g1;
@@ -980,9 +1003,27 @@ spade_style_sm90_kernel(const __grid_constant__ CUtensorMap tm_actv,
                         const float* __restrict__ bcat,
                         __nv_bfloat16* __restrict__ out, int H, int W, int C,
                         int np_cols, int tw_log2, int tiles_w, float eps) {
-  spade_style_sm90<Bf16Operand, BN>(&tm_actv, &tm_w, x, style, mean, var,
-                                    bcat, out, H, W, C, np_cols, tw_log2,
-                                    tiles_w, eps);
+  spade_style_sm90<Bf16Operand, BN, true>(&tm_actv, &tm_w, x, style, mean,
+                                          var, bcat, out, H, W, C, np_cols,
+                                          tw_log2, tiles_w, eps);
+}
+
+// plain SPADE, bfloat16, BN = 128 or 256.
+template <int BN>
+__global__ void __launch_bounds__(THREADS, 1)
+spade_style_sm90_kernel_nostyle(const __grid_constant__ CUtensorMap tm_actv,
+                                const __grid_constant__ CUtensorMap tm_w,
+                                const __nv_bfloat16* __restrict__ x,
+                                const float* __restrict__ style,
+                                const float* __restrict__ mean,
+                                const float* __restrict__ var,
+                                const float* __restrict__ bcat,
+                                __nv_bfloat16* __restrict__ out, int H, int W,
+                                int C, int np_cols, int tw_log2, int tiles_w,
+                                float eps) {
+  spade_style_sm90<Bf16Operand, BN, false>(&tm_actv, &tm_w, x, style, mean,
+                                           var, bcat, out, H, W, C, np_cols,
+                                           tw_log2, tiles_w, eps);
 }
 
 // float32 (3xTF32), BN = 128.
@@ -997,9 +1038,23 @@ spade_style_3xtf32_sm90_kernel(const __grid_constant__ CUtensorMap tm_actv,
                                float* __restrict__ out, int H, int W, int C,
                                int np_cols, int tw_log2, int tiles_w,
                                float eps) {
-  spade_style_sm90<Tf32x3Operand, 128>(&tm_actv, &tm_w, x, style, mean, var,
-                                       bcat, out, H, W, C, np_cols, tw_log2,
-                                       tiles_w, eps);
+  spade_style_sm90<Tf32x3Operand, 128, true>(&tm_actv, &tm_w, x, style,
+                                             mean, var, bcat, out, H, W, C,
+                                             np_cols, tw_log2, tiles_w, eps);
+}
+
+// plain SPADE, float32 (3xTF32), BN = 128.
+__global__ void __launch_bounds__(THREADS, 1)
+spade_style_3xtf32_sm90_kernel_nostyle(
+    const __grid_constant__ CUtensorMap tm_actv,
+    const __grid_constant__ CUtensorMap tm_w, const float* __restrict__ x,
+    const float* __restrict__ style, const float* __restrict__ mean,
+    const float* __restrict__ var, const float* __restrict__ bcat,
+    float* __restrict__ out, int H, int W, int C, int np_cols, int tw_log2,
+    int tiles_w, float eps) {
+  spade_style_sm90<Tf32x3Operand, 128, false>(&tm_actv, &tm_w, x, style,
+                                              mean, var, bcat, out, H, W, C,
+                                              np_cols, tw_log2, tiles_w, eps);
 }
 
 // The backward, bfloat16, BN = 64 or 128 gamma columns.
@@ -1018,9 +1073,26 @@ spade_style_sm90_kernel_bwd(const __grid_constant__ CUtensorMap tm_actv,
                             float* __restrict__ partial, int H, int W, int C,
                             int np_cols, int tw_log2, int tiles_w, int tiles,
                             float eps) {
-  spade_style_bwd_sm90<BN>(&tm_actv, &tm_w, x, dout, style, mean, var, bcat,
-                           dx, dgb, partial, H, W, C, np_cols, tw_log2,
-                           tiles_w, tiles, eps);
+  spade_style_bwd_sm90<BN, true>(&tm_actv, &tm_w, x, dout, style, mean, var,
+                                 bcat, dx, dgb, partial, H, W, C, np_cols,
+                                 tw_log2, tiles_w, tiles, eps);
+}
+
+// plain SPADE's backward, bfloat16, BN = 64 or 128 gamma columns.
+template <int BN>
+__global__ void __launch_bounds__(THREADS, 1)
+spade_style_sm90_kernel_bwd_nostyle(
+    const __grid_constant__ CUtensorMap tm_actv,
+    const __grid_constant__ CUtensorMap tm_w,
+    const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ dout,
+    const float* __restrict__ style, const float* __restrict__ mean,
+    const float* __restrict__ var, const float* __restrict__ bcat,
+    __nv_bfloat16* __restrict__ dx, __nv_bfloat16* __restrict__ dgb,
+    float* __restrict__ partial, int H, int W, int C, int np_cols,
+    int tw_log2, int tiles_w, int tiles, float eps) {
+  spade_style_bwd_sm90<BN, false>(&tm_actv, &tm_w, x, dout, style, mean, var,
+                                  bcat, dx, dgb, partial, H, W, C, np_cols,
+                                  tw_log2, tiles_w, tiles, eps);
 }
 
 typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType,
@@ -1145,10 +1217,10 @@ struct BwdSite {
   void* stream;
 };
 
-// The backward's launch at BN gamma columns; `tiles` must be the pixel
-// tiles per sample that the partial sums were allocated for.
-template <int BN>
-int launch_bwd(const BwdSite& a) {
+// The backward's launch of `kernel` at BN gamma columns; `tiles` must be the
+// pixel tiles per sample that the partial sums were allocated for.
+template <int BN, class Kernel>
+int launch_bwd(Kernel kernel, const BwdSite& a) {
   using T = __nv_bfloat16;
   cudaError_t err = cudaSetDevice(a.device);
   if (err != cudaSuccess) return (int)err;
@@ -1162,7 +1234,6 @@ int launch_bwd(const BwdSite& a) {
                                                9 * np_cols, t);
   if (enc != 0) return enc;
 
-  auto kernel = spade_style_sm90_kernel_bwd<BN>;
   const uint32_t smem = BwdTile<BN>::smem_bytes(t.tw_log2);
   err = cudaFuncSetAttribute(kernel,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -1221,7 +1292,43 @@ int spade_style_bwd_bf16_sm90(int device, const void* actv, const void* x,
                               int C, int tiles, float eps, void* stream) {
   const BwdSite a{device, actv, x, dout, style, mean, var, wgam, bcat,
                   dx, dgb, partial, N, H, W, C, tiles, eps, stream};
-  return C <= 64 ? launch_bwd<64>(a) : launch_bwd<128>(a);
+  return C <= 64 ? launch_bwd<64>(spade_style_sm90_kernel_bwd<64>, a)
+                 : launch_bwd<128>(spade_style_sm90_kernel_bwd<128>, a);
+}
+
+// The plain-SPADE kernels: the arguments of the three entry points above,
+// style unread (it may be null).
+int spade_fwd_bf16_sm90(int device, const void* actv, const void* x,
+                        const void* style, const void* mean, const void* var,
+                        const void* wcat, const void* bcat, void* out, int N,
+                        int H, int W, int C, float eps, void* stream) {
+  const Site a{device, actv, x, style, mean, var, wcat, bcat, out,
+               N, H, W, C, eps, stream};
+  if (2 * C <= 128)
+    return launch<Bf16Operand, 128>(spade_style_sm90_kernel_nostyle<128>, a);
+  return launch<Bf16Operand, 256>(spade_style_sm90_kernel_nostyle<256>, a);
+}
+
+int spade_fwd_f32_3xtf32_sm90(int device, const void* actv, const void* x,
+                              const void* style, const void* mean,
+                              const void* var, const void* wcat,
+                              const void* bcat, void* out, int N, int H,
+                              int W, int C, float eps, void* stream) {
+  const Site a{device, actv, x, style, mean, var, wcat, bcat, out,
+               N, H, W, C, eps, stream};
+  return launch<Tf32x3Operand, 128>(spade_style_3xtf32_sm90_kernel_nostyle, a);
+}
+
+int spade_bwd_bf16_sm90(int device, const void* actv, const void* x,
+                        const void* dout, const void* style, const void* mean,
+                        const void* var, const void* wgam, const void* bcat,
+                        void* dx, void* dgb, void* partial, int N, int H,
+                        int W, int C, int tiles, float eps, void* stream) {
+  const BwdSite a{device, actv, x, dout, style, mean, var, wgam, bcat,
+                  dx, dgb, partial, N, H, W, C, tiles, eps, stream};
+  return C <= 64
+             ? launch_bwd<64>(spade_style_sm90_kernel_bwd_nostyle<64>, a)
+             : launch_bwd<128>(spade_style_sm90_kernel_bwd_nostyle<128>, a);
 }
 
 // Error codes of every entry point of the library: CUDA runtime errors, and

@@ -20,6 +20,22 @@ def one_hot_label(label: torch.Tensor, num_classes: int) -> torch.Tensor:
     return F.one_hot(label.long(), num_classes).to(torch.float32)
 
 
+def instance_edges(inst: torch.Tensor) -> torch.Tensor:
+    """(B,H,W) or (B,H,W,1) instance map -> (B,H,W,1) float32 edge map:
+    1 where a pixel's instance differs from one of its 4 neighbours'
+    (NVlabs/SPADE ``pix2pix_model.get_edges``)."""
+    if inst.dim() == 4:
+        inst = inst[..., 0]
+    edge = torch.zeros(inst.shape, dtype=torch.bool, device=inst.device)
+    across = inst[:, :, 1:] != inst[:, :, :-1]
+    down = inst[:, 1:, :] != inst[:, :-1, :]
+    edge[:, :, 1:] |= across
+    edge[:, :, :-1] |= across
+    edge[:, 1:, :] |= down
+    edge[:, :-1, :] |= down
+    return edge[..., None].to(torch.float32)
+
+
 def _nearest_indices(out_size: int, in_size: int) -> np.ndarray:
     # torch F.interpolate(mode='nearest') samples src index floor(i*in/out)
     return np.floor(np.arange(out_size) * (in_size / out_size)).astype(np.int64)

@@ -91,16 +91,21 @@ def spade_style_from_actv(x, actv, style, mean, var, wg, bg, wb, bb,
                                 _conv3x3(actv, wb, bb), style, mean, var, eps)
 
 
+def modulate(x, gamma, beta, mean, var, eps: float = EPS):
+    """SPADE's modulation, normalize(x) * (1 + gamma) + beta, in x's dtype
+    (N,H,W,C) against (N,C) statistics."""
+    normalized = (x - mean[:, None, None, :]) * \
+        torch.rsqrt(var[:, None, None, :] + eps)
+    return normalized * (1.0 + gamma) + beta
+
+
 def spade_style_epilogue(x, gamma, beta, style, mean, var, eps: float = EPS):
     """out from gamma and beta (N,H,W,C): the normalise + AdaIN + average
     epilogue, in float32 (at least), stored in x's dtype."""
     c = x.shape[-1]
     f32 = torch.promote_types(x.dtype, torch.float32)
     x32 = x.to(f32)
-    gamma, beta = gamma.to(f32), beta.to(f32)
-    normalized = (x32 - mean[:, None, None, :]) * \
-        torch.rsqrt(var[:, None, None, :] + eps)
-    spade = normalized * (1.0 + gamma) + beta
+    spade = modulate(x32, gamma.to(f32), beta.to(f32), mean, var, eps)
     s0 = style[:, :c].to(f32)[:, None, None, :]
     s1 = style[:, c:].to(f32)[:, None, None, :]
     adain = x32 * (s0 + 1.0) + s1
@@ -283,19 +288,37 @@ def spade_style_cuda(x, actv, style, mean, var, wcat, bcat,
     ``seg_mlp_shared``'s output and (wcat, bcat) is ``pack_weights``'.
     Checks every input and allocates the output; raises on anything the
     kernel does not take, and on a failed launch."""
+    out = launch_forward(KERNELS, x, actv, style, mean, var, wcat, bcat, eps)
+    spade_style.launches += 1
+    return out
+
+
+def _style_f32(style, n: int, c: int) -> dict:
+    """{"style": (float32 style, its shape)}, or {} for a kernel without
+    the style term (``style`` None)."""
+    if style is None:
+        return {}
+    return {"style": (style.to(torch.float32).contiguous(), (n, 2 * c))}
+
+
+def launch_forward(kernels, x, actv, style, mean, var, wcat, bcat,
+                   eps: float = EPS) -> torch.Tensor:
+    """Launch ``kernels``' entry point for x's dtype on one site, the
+    checks of ``spade_style_cuda``; ``style`` None for the plain-SPADE
+    kernels, which read none."""
     from seg2eye_tpu_torch.ops import _build
 
     _require(x.is_cuda, f"x must be a CUDA tensor, got {x.device}")
-    _require(x.dtype in KERNELS, f"unsupported dtype {x.dtype}")
+    _require(x.dtype in kernels, f"unsupported dtype {x.dtype}")
     _require(x.dim() == 4, f"x must be (N,H,W,C), got {tuple(x.shape)}")
     n, h, w, c = x.shape
     _require(wcat.dtype == x.dtype and bcat.dtype == torch.float32
              and wcat.is_contiguous() and bcat.is_contiguous(),
              "wcat and bcat must come from pack_weights(..., x.dtype)")
-    style = style.to(torch.float32).contiguous()
+    styled = _style_f32(style, n, c)
     mean = mean.to(torch.float32).contiguous()
     var = var.to(torch.float32).contiguous()
-    shapes = {"actv": (actv, (n, h, w, NHIDDEN)), "style": (style, (n, 2 * c)),
+    shapes = {"actv": (actv, (n, h, w, NHIDDEN)), **styled,
               "mean": (mean, (n, c)), "var": (var, (n, c)),
               "wcat": (wcat, packed_shape(c, x.dtype)), "bcat": (bcat, (c, 2))}
     for name, (t, shape) in shapes.items():
@@ -313,12 +336,12 @@ def spade_style_cuda(x, actv, style, mean, var, wcat, bcat,
     lib = _build.library()
     out = torch.empty((n, h, w, c), dtype=x.dtype, device=x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    err = getattr(lib, KERNELS[x.dtype])(
-        x.device.index, actv.data_ptr(), x.data_ptr(), style.data_ptr(),
+    style_ptr = styled["style"][0].data_ptr() if styled else None
+    err = getattr(lib, kernels[x.dtype])(
+        x.device.index, actv.data_ptr(), x.data_ptr(), style_ptr,
         mean.data_ptr(), var.data_ptr(), wcat.data_ptr(), bcat.data_ptr(),
         out.data_ptr(), n, h, w, c, eps, stream)
-    _build.check(lib, err, "spade_style kernel launch")
-    spade_style.launches += 1
+    _build.check(lib, err, f"{kernels[x.dtype]} kernel launch")
     return out
 
 
@@ -363,18 +386,28 @@ def spade_style_backward_cuda(x, actv, dout, style, mean, var, wgam, bcat,
     ``seg_mlp_shared``'s output, (wgam, bcat) ``packed_weights.backward``'s.
     Checks every input and allocates the outputs; raises on anything the
     kernel does not take, and on a failed launch."""
+    out = launch_backward(BACKWARD_KERNELS, x, actv, dout, style, mean, var,
+                          wgam, bcat, eps)
+    spade_style.backward_launches += 1
+    return out
+
+
+def launch_backward(kernels, x, actv, dout, style, mean, var, wgam, bcat,
+                    eps: float = EPS):
+    """Launch ``kernels``' backward entry point for x's dtype on one site,
+    the checks of ``spade_style_backward_cuda``; ``style`` None for the
+    plain-SPADE kernel, which reads none."""
     from seg2eye_tpu_torch.ops import _build
 
     _require(x.is_cuda, f"x must be a CUDA tensor, got {x.device}")
-    _require(x.dtype in BACKWARD_KERNELS,
-             f"no backward kernel for {x.dtype}")
+    _require(x.dtype in kernels, f"no backward kernel for {x.dtype}")
     _require(x.dim() == 4, f"x must be (N,H,W,C), got {tuple(x.shape)}")
     n, h, w, c = x.shape
-    style = style.to(torch.float32).contiguous()
+    styled = _style_f32(style, n, c)
     mean = mean.to(torch.float32).contiguous()
     var = var.to(torch.float32).contiguous()
     shapes = {"actv": (actv, (n, h, w, NHIDDEN)), "dout": (dout, (n, h, w, c)),
-              "style": (style, (n, 2 * c)), "mean": (mean, (n, c)),
+              **styled, "mean": (mean, (n, c)),
               "var": (var, (n, c)),
               "wgam": (wgam, (9, gamma_columns(c), NHIDDEN)),
               "bcat": (bcat, (c, 2))}
@@ -399,13 +432,13 @@ def spade_style_backward_cuda(x, actv, dout, style, mean, var, wgam, bcat,
     partial = torch.empty((n, tiles, BACKWARD_SUMS, c), dtype=torch.float32,
                           device=x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    err = getattr(lib, BACKWARD_KERNELS[x.dtype])(
+    style_ptr = styled["style"][0].data_ptr() if styled else None
+    err = getattr(lib, kernels[x.dtype])(
         x.device.index, actv.data_ptr(), x.data_ptr(), dout.data_ptr(),
-        style.data_ptr(), mean.data_ptr(), var.data_ptr(), wgam.data_ptr(),
+        style_ptr, mean.data_ptr(), var.data_ptr(), wgam.data_ptr(),
         bcat.data_ptr(), dx.data_ptr(), dgb.data_ptr(), partial.data_ptr(),
         n, h, w, c, tiles, eps, stream)
-    _build.check(lib, err, "spade_style backward kernel launch")
-    spade_style.backward_launches += 1
+    _build.check(lib, err, f"{kernels[x.dtype]} kernel launch")
     return dx, dgb, partial.sum(1)
 
 
@@ -419,6 +452,8 @@ def epilogue_backward_reference(x, actv, dout, style, mean, var, wg, bg,
         dgb = [h (x - mean) rstd | h]  (N,H,W,2C)       in x's dtype
         sums (N, BACKWARD_SUMS, C), over the pixels, float32 (at least):
             h, h (x - mean), h (1 + gamma), h (1 + gamma) (x - mean)
+
+    ``style`` None: the plain-SPADE kernel's, h = dout and no s0 + 1 term.
     """
     c = x.shape[-1]
     f32 = torch.promote_types(x.dtype, torch.float32)
@@ -428,28 +463,32 @@ def epilogue_backward_reference(x, actv, dout, style, mean, var, wg, bg,
         gamma = F.conv2d(actv.to(f32).permute(0, 3, 1, 2),
                          wg.to(x.dtype).to(f32), bg.to(f32),
                          padding=1).permute(0, 2, 3, 1)
-    h = 0.5 * dout.to(f32)
+    h = dout.to(f32) if style is None else 0.5 * dout.to(f32)
     xm = x.to(f32) - mean[:, None, None, :]
     rstd = torch.rsqrt(var[:, None, None, :] + eps)
     g1 = 1.0 + gamma
-    s0p1 = style[:, :c].to(f32)[:, None, None, :] + 1.0
-    dx = (h * (g1 * rstd + s0p1)).to(x.dtype)
+    if style is None:
+        dx = (h * (g1 * rstd)).to(x.dtype)
+    else:
+        s0p1 = style[:, :c].to(f32)[:, None, None, :] + 1.0
+        dx = (h * (g1 * rstd + s0p1)).to(x.dtype)
     dgb = torch.cat([h * (xm * rstd), h], -1).to(x.dtype)
     sums = torch.stack([h, h * xm, h * g1, h * g1 * xm], 1).sum((2, 3))
     return dx, dgb, sums
 
 
-def _input_grads(inputs, needs, actv, wgb, dx, dgb, sums, eps):
+def input_grads(inputs, needs, actv, wgb, dx, dgb, sums, eps):
     """The gradients of the op's inputs (None where ``needs`` says none)
     from the kernel's outputs: the per-(sample, channel) ones from the sums,
     the convs' through ``aten.convolution_backward`` (cuDNN on the card)
     against wgb = cat(wg, wb) in x's dtype, the seg MLP's behind the ReLU
-    mask."""
+    mask.  ``style`` None (plain SPADE) has no gradient."""
     x, seg, style, mean, var, ws, bs, wg, bg, wb, bb = inputs
     c = x.shape[-1]
     s_h, s_hx, s_hg, s_hgx = sums.unbind(1)
     rstd = torch.rsqrt(var + eps)
     grads = [dx, None,
+             None if style is None else
              torch.cat([s_hx + mean * s_h, s_h], -1).to(style.dtype),
              (-rstd * s_hg).to(mean.dtype),
              (-0.5 * rstd ** 3 * s_hgx).to(var.dtype), None, None, None,
@@ -482,12 +521,13 @@ def spade_style_backward_reference(x, seg, style, mean, var, ws, bs, wg, bg,
     """The gradients of (x, seg, style, mean, var, ws, bs, wg, bg, wb, bb)
     for ``dout``, None where ``needs`` says none, in plain PyTorch: the
     closed form of what the backward kernel and its wrapper compute on the
-    card (it takes any dtype and device)."""
+    card (it takes any dtype and device).  ``style`` None: the plain-SPADE
+    kernel's closed form (``ops.spade``)."""
     inputs = (x, seg, style, mean, var, ws, bs, wg, bg, wb, bb)
     actv = seg_mlp_shared(seg.to(x.dtype), ws, bs)
     dx, dgb, sums = epilogue_backward_reference(x, actv, dout, style, mean,
                                                 var, wg, bg, eps)
-    return _input_grads(inputs, needs, actv, torch.cat([wg, wb]).to(x.dtype),
+    return input_grads(inputs, needs, actv, torch.cat([wg, wb]).to(x.dtype),
                         dx, dgb, sums, eps)
 
 
@@ -499,17 +539,18 @@ def _kernel_backward(inputs, needs, dout, eps):
     dx, dgb, sums = spade_style_backward_cuda(
         x.contiguous(), actv, dout.contiguous(), style, mean, var, wgam, bcat,
         eps)
-    return _input_grads(inputs, needs, actv, wgb, dx, dgb, sums, eps)
+    return input_grads(inputs, needs, actv, wgb, dx, dgb, sums, eps)
 
 
-def _recompute_backward(inputs, needs, dout, eps):
-    """The autograd of ``spade_style_reference``, recomputed from the
-    inputs (float32 in full float32)."""
+def recompute_backward(inputs, needs, dout, eps,
+                       reference=spade_style_reference):
+    """The autograd of ``reference`` (by default ``spade_style_reference``),
+    recomputed from the inputs (float32 in full float32)."""
     inputs = [t.detach().requires_grad_(need)
               for t, need in zip(inputs, needs)]
     wanted = [t for t in inputs if t.requires_grad]
     with torch.enable_grad(), full_float32(dout.dtype == torch.float32):
-        out = spade_style_reference(*inputs, eps=eps)
+        out = reference(*inputs, eps=eps)
         grads = iter(torch.autograd.grad(out, wanted, dout))
     return tuple(next(grads) if t.requires_grad else None for t in inputs)
 
@@ -519,7 +560,7 @@ def _backward(ctx, grad_out):
     backward kernel takes it; everything else the recomputed autograd."""
     inputs, needs = ctx.saved_tensors, ctx.needs_input_grad[:-1]
     route = (_kernel_backward if grad_out.is_cuda
-             and inputs[0].dtype in BACKWARD_KERNELS else _recompute_backward)
+             and inputs[0].dtype in BACKWARD_KERNELS else recompute_backward)
     with span(BACKWARD_RANGE):
         grads = route(inputs, needs, grad_out, ctx.eps)
     return (*grads, None)

@@ -4,6 +4,11 @@
 ``seg2eye_tpu``.  The tests hold the two against each other.  Fields the
 port does not read yet (training, discriminator, mesh layout) are kept so
 that flags and saved ``opt.pkl`` files carry across unchanged.
+
+The port adds ``PORT_FIELDS``, GauGAN's (NVlabs/SPADE ``base_options.py``):
+``no_instance`` and ``contain_dontcare_label``, which add the instance-edge
+and don't-care channels to ``semantic_nc``.  Their defaults (no instance
+map, no don't-care label) leave every JAX option as it is.
 """
 from __future__ import annotations
 
@@ -12,6 +17,10 @@ import dataclasses
 import os
 import pickle
 from dataclasses import dataclass
+
+
+# the fields the JAX package's Options lacks
+PORT_FIELDS = ("no_instance", "contain_dontcare_label")
 
 
 @dataclass
@@ -52,6 +61,9 @@ class Options:
     seg_file: str = ""
 
     ngf: int = 64
+    # GauGAN's label channels (NVlabs/SPADE base_options.py); port only
+    no_instance: bool = True
+    contain_dontcare_label: bool = False
     init_type: str = "xavier"
     init_variance: float = 0.02
     w_dim: int = 16
@@ -128,7 +140,8 @@ class Options:
     semantic_nc: int = 4
 
     def finalize(self) -> "Options":
-        self.semantic_nc = self.label_nc
+        self.semantic_nc = (self.label_nc + int(self.contain_dontcare_label)
+                            + int(not self.no_instance))
         if self.per_sample_encode not in ("auto", "on", "off"):
             raise ValueError(
                 f"--per_sample_encode must be auto|on|off, "

@@ -5,7 +5,7 @@
     betas (beta1, beta2) and lr for both.
   * ``weight_decay`` is ``torch.optim.Adam``'s own, coupled L2: wd * param
     is added to the gradient before the moments.
-  * The G optimizer covers netG then netE.  netE's ``fc_var`` feeds no
+  * The G optimizer covers netG then netE (GauGAN: netG alone).  netE's ``fc_var`` feeds no
     loss, so its ``.grad`` stays None and Adam skips it (no step, no weight
     decay), as in the reference.  The steps clear gradients with
     ``zero_grad(set_to_none=True)``: a zero-filled grad would be stepped.
@@ -56,7 +56,8 @@ def create_state(model: Pix2Pix) -> TrainState:
                          "networks with opt.isTrain")
     betas = ttur_betas(opt)
     g_lr, d_lr = ttur_lrs(opt, opt.lr)
-    ge = list(model.netG.parameters()) + list(model.netE.parameters())
+    ge = list(model.netG.parameters()) + (
+        [] if model.netE is None else list(model.netE.parameters()))
     return TrainState(
         model=model,
         opt_g=torch.optim.Adam(ge, lr=g_lr, betas=betas,

@@ -45,7 +45,7 @@ def _params(optimizer: torch.optim.Optimizer):
 
 
 def _nets(model):
-    return [model.netG, model.netE, model.netD]
+    return [n for n in (model.netG, model.netE, model.netD) if n is not None]
 
 
 def _detached(losses: Dict) -> Dict:

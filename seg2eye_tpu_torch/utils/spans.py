@@ -37,9 +37,13 @@ Where each span opens, and what reads it:
   * ``TO_DEVICE``: host-to-device copies of batches
     (``data.openeds.to_device``, ``Pix2Pix.preprocess``, the Tester's
     ``target_original``);
+  * ``LOSS_VGG``: the VGG19 perceptual loss's forward
+    (``models.pix2pix.Pix2Pix.vgg_loss``: fake and real through VGG19 and
+    the weighted L1), read by ``vgg_ms.train``;
   * ``K1_PACK``: each packing of K1's weights (``ops.spade_style.
     PackedWeights``), one span per packing;
-  * ``BACKWARD_RANGE``: the norm sites' backward (``ops.spade_style``:
+  * ``BACKWARD_RANGE``: the norm sites' backward (``ops.spade_style``,
+    and GauGAN's ``ops.spade`` alike:
     the backward kernel's route in bfloat16, the plain recompute in
     float32), on the autograd engine's device thread; its string, which
     still says "plain recompute", is what the benchmark's
@@ -64,6 +68,7 @@ REFINENET_SERVE = "refinenet.serve"
 SCORE = "seg2eye.score"
 TO_DEVICE = "input.to_device"
 K1_PACK = "seg2eye.k1_pack"
+LOSS_VGG = "loss.vgg"
 DEEPLAB_BACKBONE = "deeplab.backbone"
 DEEPLAB_ASPP = "deeplab.aspp"
 DEEPLAB_DECODER = "deeplab.decoder"
@@ -73,7 +78,7 @@ BACKWARD_RANGE = "spade_style backward (plain recompute)"
 
 NAMES = (G_STEP, D_STEP, FORWARD, BACKWARD, OPTIMIZER, REFINENET_SERVE,
          SCORE, TO_DEVICE, K1_PACK, DEEPLAB_BACKBONE, DEEPLAB_ASPP,
-         DEEPLAB_DECODER, NCHW_COPY, BN_ACT, BACKWARD_RANGE)
+         DEEPLAB_DECODER, NCHW_COPY, BN_ACT, BACKWARD_RANGE, LOSS_VGG)
 
 _OFF = contextlib.nullcontext()
 

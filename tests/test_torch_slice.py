@@ -286,14 +286,21 @@ def test_cli_scores_equal_in_process(jax_variables, tmp_path):
 
 
 def test_options_mirror_jax_options():
-    """The port's Options has the JAX package's fields, types and defaults."""
+    """The port's Options has the JAX package's fields, types and defaults,
+    and besides them only ``PORT_FIELDS`` (GauGAN's label channels), whose
+    defaults leave ``semantic_nc`` at the JAX package's."""
     from seg2eye_tpu import options as jopts
     from seg2eye_tpu_torch import options as topts
 
     def fields(cls):
         return [(f.name, f.type, f.default) for f in dataclasses.fields(cls)]
 
-    assert fields(topts.Options) == fields(jopts.Options)
+    assert [f for f in fields(topts.Options)
+            if f[0] not in topts.PORT_FIELDS] == fields(jopts.Options)
+    assert {f[0] for f in fields(topts.Options)} - \
+        {f[0] for f in fields(jopts.Options)} == set(topts.PORT_FIELDS)
+    assert topts.Options(label_nc=7).finalize().semantic_nc == \
+        jopts.Options(label_nc=7).finalize().semantic_nc == 7
     opt = topts.Options(crop_size=128, aspect_ratio=0.8).finalize()
     jopt = jopts.Options(crop_size=128, aspect_ratio=0.8).finalize()
     for prop in ("image_height", "image_width", "expr_dir",
@@ -314,9 +321,17 @@ def test_parse_options_matches_jax(argv, is_train, capsys):
 
     got = topts.parse_options(argv, is_train=is_train, save=False)
     want = jopts.parse_options(argv, is_train=is_train, save=False)
-    assert dataclasses.asdict(got) == dataclasses.asdict(want)
+    mine = dataclasses.asdict(got)
+    assert {k: mine.pop(k) for k in topts.PORT_FIELDS} == {
+        f.name: f.default for f in dataclasses.fields(topts.Options)
+        if f.name in topts.PORT_FIELDS}
+    assert mine == dataclasses.asdict(want)
+    # the port prints one line more per port-only field
     printed = capsys.readouterr().out.split("----------------- End")
-    assert printed[0] == printed[1].split("\n", 1)[1]
+    port_lines = [line for line in printed[0].splitlines()
+                  if line.split(":")[0].strip() not in topts.PORT_FIELDS]
+    assert "\n".join(port_lines) == \
+        printed[1].split("\n", 1)[1].rstrip("\n")
 
 
 def port_import_run(blocked):

@@ -11,6 +11,7 @@ import torch
 from portbench import harness as bench_harness
 from portbench import spans as bench_spans
 from portbench import spans_deeplab as bench_spans_deeplab
+from portbench import spans_gaugan as bench_spans_gaugan
 from portbench import trace as bench_trace
 from seg2eye_tpu_torch.data.openeds import to_device
 from seg2eye_tpu_torch.eval import tester as tester_lib
@@ -198,12 +199,13 @@ def test_backward_range_keeps_its_name():
 
 def test_benchmark_copies_every_span_name():
     """The benchmark keeps the names in ``portbench/spans.py``,
-    ``portbench/spans_deeplab.py`` (the DeepLab stages and the NCHW copy)
-    and the reader of ``bn_act_passes.infer`` (the fused BN passes):
-    together, and with no name in two, they copy the program's."""
+    ``portbench/spans_deeplab.py`` (the DeepLab stages and the NCHW copy),
+    ``portbench/spans_gaugan.py`` (the VGG loss) and the reader of
+    ``bn_act_passes.infer`` (the fused BN passes): together, and with no
+    name in two, they copy the program's."""
     program = {k: v for k, v in vars(spans).items()
                if k.isupper() and isinstance(v, str) and k != "BACKWARD_RANGE"}
-    modules = (bench_spans, bench_spans_deeplab,
+    modules = (bench_spans, bench_spans_deeplab, bench_spans_gaugan,
                bench_harness._load_file(
                    bench_harness.HERE / "metrics" / "bn_act_passes.infer.py",
                    "portbench_metric_bn_act_passes_infer"))
@@ -223,10 +225,17 @@ def test_benchmark_copies_every_span_name():
     "CUtensorMap_st, CUtensorMap_st, __nv_bfloat16 const*)",
     "void (anonymous namespace)::spade_style_sm90_kernel_bwd<64>("
     "CUtensorMap_st, CUtensorMap_st, __nv_bfloat16 const*)",
-    "_ZN12_GLOBAL__N_127spade_style_sm90_kernel_bwdILi128EEEv14CUtensorMap_st"])
+    "_ZN12_GLOBAL__N_127spade_style_sm90_kernel_bwdILi128EEEv14CUtensorMap_st",
+    "void (anonymous namespace)::spade_style_sm90_kernel_nostyle<256>("
+    "CUtensorMap_st, CUtensorMap_st, __nv_bfloat16 const*)",
+    "void (anonymous namespace)::spade_style_3xtf32_sm90_kernel_nostyle("
+    "CUtensorMap_st, CUtensorMap_st, float const*)",
+    "void (anonymous namespace)::spade_style_sm90_kernel_bwd_nostyle<64>("
+    "CUtensorMap_st, CUtensorMap_st, __nv_bfloat16 const*)"])
 def test_backward_kernel_groups_with_k1(symbol):
-    """The backward kernel's name falls in the benchmark's K1 group, not in
-    cuDNN's: its ``sm90_`` would otherwise count it in ``conv_ms.train``."""
+    """The backward kernel's name, and those of the plain-SPADE kernels
+    (``ops.spade``), fall in the benchmark's K1 group, not in cuDNN's:
+    their ``sm90_`` would otherwise count them in ``conv_ms.train``."""
     assert bench_trace.group_of(symbol) == "k1"
 
 

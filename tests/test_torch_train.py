@@ -38,7 +38,7 @@ from seg2eye_tpu_torch.models.layers import SpectralConv
 from seg2eye_tpu_torch.models.pix2pix import Pix2Pix
 from seg2eye_tpu_torch.ops import image, losses, metrics
 from seg2eye_tpu_torch.ops import spade_style as K
-from seg2eye_tpu_torch.options import Options
+from seg2eye_tpu_torch.options import PORT_FIELDS, Options
 from seg2eye_tpu_torch.train import state as state_lib
 from seg2eye_tpu_torch.train import steps
 from seg2eye_tpu_torch.utils import weights
@@ -86,7 +86,10 @@ def tiny_opt(**kw):
 
 
 def jax_opt(opt):
-    return jopts.Options(**dataclasses.asdict(opt)).finalize()
+    """The JAX package's Options of the port's: every field but the port's
+    own (``options.PORT_FIELDS``, at their defaults in these tests)."""
+    return jopts.Options(**{k: v for k, v in dataclasses.asdict(opt).items()
+                            if k not in PORT_FIELDS}).finalize()
 
 
 def make_batch(opt, seed=0):
